@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Where the port's tracking time goes on one GPU.
+
+    python3 scripts/profile_torch_tracking.py
+
+Runs `sqrtlm_slam_tpu_torch` SlamSystem.track_depth over the bench.py
+tracking scene (240x320 synthetic world, seed 1, 1200 points, step 0.3 m)
+(24 frames, 1000 features, the last 4 profiled) and prints JSON lines:
+  * stage wall times per frame (frame build, tracking step, local mapping),
+    each bracketed by torch.cuda.synchronize();
+  * a torch.profiler window over steady-state frames: wall ms per frame,
+    device (CUDA kernel) ms per frame, kernel launches per frame, the
+    device's idle share, and the top kernels / host ops by time.
+The first lines carry the card's name and power limit from nvidia-smi.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_tracking: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from sqrtlm_slam_tpu_torch.eval import synthetic
+    from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch.pipeline import local_mapping, system, tracking
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"card": card}), flush=True)
+
+    stage_s = defaultdict(list)
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage_s[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    system.build_frame = timed("build_frame", system.build_frame)
+    tracking.track_frame_step = timed("track_frame_step", tracking.track_frame_step)
+    local_mapping.LocalMapper.process_keyframe = timed(
+        "process_keyframe", local_mapping.LocalMapper.process_keyframe)
+    local_mapping.LocalMapper.local_ba = timed("local_ba", local_mapping.LocalMapper.local_ba)
+
+    world = synthetic.SyntheticWorld(seed=1, n_points=1200)
+    poses = synthetic.forward_trajectory(24, step=0.3)
+    frames = [world.render(T, synthetic.DEFAULT_CAM) for T in poses]
+    s = system.SlamSystem(synthetic.DEFAULT_CAM,
+                          system.SystemConfig(orb=ORBConfig(max_features=1000)),
+                          device="cuda")
+    n_prof = 4
+    for img, depth in frames[:-n_prof]:
+        s.track_depth(img, depth)
+    print(json.dumps({
+        "stages_ms_median": {k: 1e3 * float(np.median(v)) for k, v in stage_s.items()},
+        "stage_calls": {k: len(v) for k, v in stage_s.items()},
+        "card": card}), flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for img, depth in frames[-n_prof:]:
+            s.track_depth(img, depth)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                        "cudaLaunchKernelExC"))
+    top_dev = sorted((e for e in events if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)[:12]
+    top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:12]
+    print(json.dumps({
+        "profiled_frames": n_prof, "wall_ms_per_frame": 1e3 * wall / n_prof,
+        "device_ms_per_frame": dev_us / 1e3 / n_prof,
+        "device_idle_share": 1.0 - (dev_us / 1e6) / wall,
+        "kernel_launches_per_frame": launches / n_prof,
+        "keyframes": s.num_keyframes(),
+        "top_device": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top_dev],
+        "top_host_self_ms": [(e.key[:60], e.count, e.self_cpu_time_total / 1e3) for e in top_cpu],
+        "card": card}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,91 @@
+"""JAX-package objects -> port objects, through numpy.
+
+The parity tests build inputs once and hand them to both packages; these
+functions take the JAX package's NamedTuples (any field that converts with
+`np.asarray`) and return the port's, on a chosen device. Descriptor words
+cross as (N, 8) int32 holding the same bits as the (N, 8) uint32 words.
+Nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .factors.reprojection import Camera
+from .frontend.orb import Keypoints, ORBConfig
+from .geometry.se3 import SE3
+from .optim.schur_bucketed import BucketedBAProblem, bucketed_from_numpy
+from .pipeline.frame import Frame
+from .pipeline.local_mapping import LocalMappingConfig
+from .pipeline.system import SystemConfig
+from .pipeline.tracking import LocalMapBuffer, TrackingConfig
+from .utils import desc_to_torch
+
+
+def _t(x, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), device=device).to(
+        dtype if dtype is not None else torch.float32)
+
+
+def _fields(cls, cfg):
+    """Build the port config `cls` from the same-named fields of `cfg`."""
+    src = cfg._asdict()
+    return cls(**{k: src[k] for k in cls._fields if k in src})
+
+
+def camera(cam) -> Camera:
+    return Camera(float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), float(cam.bf))
+
+
+def orb_config(cfg) -> ORBConfig:
+    return _fields(ORBConfig, cfg)
+
+
+def tracking_config(cfg) -> TrackingConfig:
+    if getattr(cfg, "pipelined", False):
+        raise NotImplementedError("pipelined tracking is not ported yet")
+    return _fields(TrackingConfig, cfg)
+
+
+def local_mapping_config(cfg) -> LocalMappingConfig:
+    return _fields(LocalMappingConfig, cfg)
+
+
+def system_config(cfg) -> SystemConfig:
+    if getattr(cfg, "lidar", None) is not None or getattr(cfg, "async_mapping", False):
+        raise NotImplementedError("LiDAR fusion and async mapping are not ported yet")
+    return SystemConfig(
+        orb=orb_config(cfg.orb), tracking=tracking_config(cfg.tracking),
+        local_mapping=local_mapping_config(cfg.local_mapping),
+        max_keyframes=cfg.max_keyframes, max_landmarks=cfg.max_landmarks,
+    )
+
+
+def se3(T, device="cpu") -> SE3:
+    return SE3(_t(T.R, device), _t(T.t, device))
+
+
+def keypoints(kp, device="cpu") -> Keypoints:
+    return Keypoints(
+        xy=_t(kp.xy, device), score=_t(kp.score, device), angle=_t(kp.angle, device),
+        octave=_t(kp.octave, device, torch.int32), valid=_t(kp.valid, device, torch.bool),
+        desc=desc_to_torch(np.asarray(kp.desc), device),
+    )
+
+
+def frame(fr, device="cpu") -> Frame:
+    return Frame(kp=keypoints(fr.kp, device), uvr=_t(fr.uvr, device),
+                 depth=_t(fr.depth, device), inv_sigma2=_t(fr.inv_sigma2, device))
+
+
+def ba_problem(prob, device="cpu") -> BucketedBAProblem:
+    return bucketed_from_numpy({k: np.asarray(v) for k, v in prob._asdict().items()}, device)
+
+
+def local_map_buffer(lm, device="cpu") -> LocalMapBuffer:
+    return LocalMapBuffer(
+        ids=np.asarray(lm.ids).astype(np.int32), pos=_t(lm.pos, device),
+        desc=desc_to_torch(np.asarray(lm.desc), device),
+        valid=_t(lm.valid, device, torch.bool), max_dist=_t(lm.max_dist, device),
+    )

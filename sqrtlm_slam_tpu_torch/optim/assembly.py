@@ -1,0 +1,239 @@
+"""K2: bucketed-BA assembly — residuals, Jacobians, Huber weights, reductions.
+
+Counterpart of `sqrtlm_slam_tpu/optim/assembly_pallas.py`. For every
+(landmark, slot) of a landmark-bucketed problem it evaluates the stereo/mono
+reprojection residual and Jacobians and emits everything the sqrt-Schur
+step needs: per-landmark Hll (L,3,3) and bl (L,3), per-slot U = Jp^T w Jl
+(L,K,6,3), per-camera Hpp (P,6,6) and bp (P,6), and the robust chi2 sum.
+
+`assemble` dispatches by tensor device only: CPU tensors take the plain
+PyTorch version (`edge_terms` + `reductions`, the math of the JAX package's
+`schur_bucketed._edge_terms` + `reductions_from_terms`); CUDA tensors launch
+the hand-written kernel `csrc/ba_assembly.cu` or raise. The TPU layouts
+(landmarks on 128 lanes, one-hot MXU gathers, `L % 128`) are not carried
+over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..factors import reprojection as reproj
+from ..geometry import se3
+from ..ops import build
+from . import loss as losses
+
+# Number of K2 launches in this process (reset by callers that count).
+launch_count = 0
+_ENTRIES = 42  # per-camera partial: Hpp (36) + bp (6)
+_MAX_K = 16
+
+
+class AssemblyOut(NamedTuple):
+    Hll: torch.Tensor  # (L, 3, 3)
+    bl: torch.Tensor  # (L, 3)
+    U: torch.Tensor  # (L, K, 6, 3)
+    Hpp: torch.Tensor  # (P, 6, 6)
+    bp: torch.Tensor  # (P, 6)
+    chi2: torch.Tensor  # ()
+
+
+def edge_terms(pose_R, pose_t, points, obs_cam, obs_uvr, w_info, cam: reproj.Camera,
+               robust_delta: Optional[float]):
+    """Per-slot (r, Jp, Jl, w, chi2, e2) with mono/stereo unified, (L, K, ...).
+
+    `w_info` is inv_sigma2 * active per slot; inactive slots carry 0."""
+    cam_idx = obs_cam.long()
+    T = se3.SE3(pose_R[cam_idx], pose_t[cam_idx])
+    X = points[:, None, :]
+    is_stereo = obs_uvr[..., 2] >= 0.0
+    r, Jp, Jl = reproj.stereo_residual_jac(T, X, obs_uvr, cam)
+    ones = torch.ones_like(is_stereo)
+    row_mask = torch.stack([ones, ones, is_stereo], dim=-1).to(r.dtype)
+    r = r * row_mask
+    Jp = Jp * row_mask[..., None]
+    Jl = Jl * row_mask[..., None]
+    e2 = w_info * torch.sum(r * r, dim=-1)
+    if robust_delta is None:
+        w_rob = torch.ones_like(e2)
+        rho = e2
+    else:
+        rho, w_rob, _ = losses.huber(robust_delta)(e2)
+    w = w_info * w_rob
+    chi2 = torch.sum(torch.where(w_info > 0, rho, torch.zeros_like(rho)))
+    return r, Jp, Jl, w, chi2, e2
+
+
+def reductions(terms, obs_cam, pose_free, P: int) -> AssemblyOut:
+    """Mu-independent reductions (Hll, bl, U, Hpp, bp, chi2) from edge terms."""
+    r, Jp, Jl, w, chi2 = terms[:5]
+    L, K = obs_cam.shape
+    cam_idx = obs_cam.long()
+    Jp = Jp * pose_free[cam_idx][..., None, None].to(r.dtype)
+    Hll = torch.einsum("lkri,lk,lkrj->lij", Jl, w, Jl)
+    bl = torch.einsum("lkri,lk,lkr->li", Jl, w, r)
+    U = torch.einsum("lkri,lk,lkrj->lkij", Jp, w, Jl)
+    # Camera-keyed sums as a one-hot matmul (a fixed summation order).
+    O = torch.nn.functional.one_hot(cam_idx.reshape(-1), P).to(r.dtype)  # (L*K, P)
+    Hpp = (O.T @ torch.einsum("lkri,lk,lkrj->lkij", Jp, w, Jp).reshape(L * K, 36))
+    bp = O.T @ torch.einsum("lkri,lk,lkr->lki", Jp, w, r).reshape(L * K, 6)
+    return AssemblyOut(Hll, bl, U, Hpp.reshape(P, 6, 6), bp, chi2)
+
+
+def assemble_plain(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
+                   cam: reproj.Camera, robust_delta: Optional[float]) -> AssemblyOut:
+    """Plain PyTorch version of K2 (any device)."""
+    terms = edge_terms(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam,
+                       robust_delta)
+    return reductions(terms, obs_cam, pose_free, pose_R.shape[0])
+
+
+def excess_over_plain(got: AssemblyOut, pose_R, pose_t, pose_free, points, obs_cam,
+                      obs_uvr, w_active, cam: reproj.Camera, robust_delta: Optional[float],
+                      rtol: float = 5e-3, atol: float = 5e-4) -> dict:
+    """Hold a K2 result against the plain version evaluated in float64 on the
+    same inputs. Returns {output: (worst excess, elements past rtol/atol)};
+    a worst excess <= 0 passes.
+
+    Every output must lie within atol + rtol*|ref|, except that an element
+    of the landmark-local sums Hll and bl may also lie within the float32
+    summation bound gamma * sum|terms| (gamma = (3K + 8) * eps32): where the
+    3K terms of such a sum nearly cancel, no float32 evaluation meets 5e-4
+    absolute (at the bench shape the float32 plain version itself misses it
+    by 3e-4). By Cauchy-Schwarz, sum|terms| <= sqrt(Hll_ii * E_l) for bl_i
+    and <= sqrt(Hll_ii * Hll_jj) for Hll_ij, with E_l = sum_k w |r|^2."""
+    f64 = torch.float64
+    args64 = [a.to(f64) if a.is_floating_point() else a
+              for a in (pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active)]
+    terms = edge_terms(args64[0], args64[1], args64[3], args64[4], args64[5], args64[6],
+                       cam, robust_delta)
+    ref = reductions(terms, args64[4], args64[2], pose_R.shape[0])
+    r, w = terms[0], terms[3]
+    E = torch.sum(w * torch.sum(r * r, dim=-1), dim=-1)  # (L,)
+    d = torch.diagonal(ref.Hll, dim1=-2, dim2=-1).clamp(min=0)  # (L, 3)
+    gamma = (3 * obs_cam.shape[1] + 8) * torch.finfo(torch.float32).eps
+    extra = {"Hll": gamma * torch.sqrt(d[:, :, None] * d[:, None, :]),
+             "bl": gamma * torch.sqrt(d * E[:, None])}
+    out = {}
+    for name, g, p in zip(AssemblyOut._fields, got, ref):
+        err = (g.to(f64) - p).abs()
+        tol = atol + rtol * p.abs()
+        beyond = err > tol
+        if name in extra:
+            tol = torch.maximum(tol, extra[name])
+        out[name] = (float((err - tol).max()) if err.numel() else 0.0, int(beyond.sum()))
+    return out
+
+
+def _check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The kernel library (built at first use) with its C functions typed."""
+    lib = build.load("ba_assembly")
+    lib.ba_assembly_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 8
+    )
+    lib.ba_assembly_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def max_poses(device_index: int) -> int:
+    """Largest P whose per-block shared-memory partial fits on the device."""
+    lib = _lib()
+    fn = lib.ba_assembly_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_size_t
+    lim = lib.ba_assembly_smem_limit
+    lim.argtypes = [ctypes.c_int]
+    lim.restype = ctypes.c_int
+    limit = lim(device_index)
+    if limit <= 0:
+        raise RuntimeError("cudaDeviceGetAttribute(MaxSharedMemoryPerBlockOptin) failed")
+    per_pose = fn(1) - fn(0)
+    return int((limit - fn(0)) // per_pose)
+
+
+def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
+                  cam: reproj.Camera, robust_delta: Optional[float]) -> AssemblyOut:
+    """Launch K2 on the current stream (all inputs on one CUDA device)."""
+    global launch_count
+    device = points.device
+    if device.type != "cuda":
+        raise ValueError(f"assemble_cuda: expected CUDA tensors, got {device}")
+    P, L, K = pose_R.shape[0], points.shape[0], obs_cam.shape[1]
+    f32 = torch.float32
+    _check(pose_R, "pose_R", f32, (P, 3, 3), device)
+    _check(pose_t, "pose_t", f32, (P, 3), device)
+    _check(pose_free, "pose_free", f32, (P,), device)
+    _check(points, "points", f32, (L, 3), device)
+    _check(obs_cam, "obs_cam", torch.int32, (L, K), device)
+    _check(obs_uvr, "obs_uvr", f32, (L, K, 3), device)
+    _check(w_active, "w_active", f32, (L, K), device)
+    if P < 1 or K < 1 or K > _MAX_K:
+        raise ValueError(f"assemble_cuda: need P >= 1 and 1 <= K <= {_MAX_K}, got P={P} K={K}")
+    cap = max_poses(device.index if device.index is not None else torch.cuda.current_device())
+    if P > cap:
+        raise ValueError(f"assemble_cuda: P={P} exceeds the shared-memory cap of {cap} poses")
+
+    lib = _lib()
+    threads = lib.ba_assembly_threads()
+    fn = lib.ba_assembly_launch
+    n_blocks = -(-L // threads)
+    Hll = torch.empty((L, 3, 3), dtype=f32, device=device)
+    bl = torch.empty((L, 3), dtype=f32, device=device)
+    U = torch.empty((L, K, 6, 3), dtype=f32, device=device)
+    partial = torch.empty((max(n_blocks, 1), P * _ENTRIES + 1), dtype=f32, device=device)
+    Hpp = torch.empty((P, 6, 6), dtype=f32, device=device)
+    bp = torch.empty((P, 6), dtype=f32, device=device)
+    chi2 = torch.empty((), dtype=f32, device=device)
+    robust = robust_delta is not None
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(
+            pose_R.data_ptr(), pose_t.data_ptr(), pose_free.data_ptr(), points.data_ptr(),
+            obs_cam.data_ptr(), obs_uvr.data_ptr(), w_active.data_ptr(), P, L, K,
+            float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), float(cam.bf),
+            int(robust), float(robust_delta) if robust else 0.0,
+            Hll.data_ptr(), bl.data_ptr(), U.data_ptr(), partial.data_ptr(),
+            Hpp.data_ptr(), bp.data_ptr(), chi2.data_ptr(), stream,
+        )
+    build.check(rc, "ba_assembly_launch")
+    launch_count += 1
+    return AssemblyOut(Hll, bl, U, Hpp, bp, chi2)
+
+
+def assemble(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
+             cam: reproj.Camera, robust_delta: Optional[float]) -> AssemblyOut:
+    """K2 dispatch by device: plain version on CPU, the kernel on CUDA.
+
+    pose_free: (P,) bool or float (1 = free); w_active: (L, K) inv_sigma2 *
+    active."""
+    device = points.device
+    if device.type == "cuda":
+        f32 = torch.float32
+        return assemble_cuda(
+            pose_R.to(f32).contiguous(), pose_t.to(f32).contiguous(),
+            pose_free.to(f32).contiguous(), points.to(f32).contiguous(),
+            obs_cam.to(torch.int32).contiguous(), obs_uvr.to(f32).contiguous(),
+            w_active.to(f32).contiguous(), cam, robust_delta,
+        )
+    if device.type == "cpu":
+        return assemble_plain(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr,
+                              w_active, cam, robust_delta)
+    raise ValueError(f"no BA assembly implementation for device {device}")

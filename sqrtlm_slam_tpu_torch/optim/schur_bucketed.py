@@ -1,0 +1,358 @@
+"""Landmark-bucketed sqrt-Schur BA engine — the local-BA half.
+
+Counterpart of `sqrtlm_slam_tpu/optim/schur_bucketed.py` (its XLA-layout
+path): damped LM with landmark Schur elimination in square-root form,
+
+    Hll_d = Lc Lc^T          (batched closed-form 3x3 Cholesky)
+    V     = U Lc^{-T}        (whitened cross blocks, U = Jp^T w Jl)
+    Y     = scatter-by-cam(V)            (P, L, 6, 3)
+    S     = Hpp_d - Y Y^T                (one matmul)
+    rhs   = -(bp - Y (Lc^{-1} bl))
+
+The per-iteration reductions (Hll, bl, U, Hpp, bp, chi2) come from kernel
+K2 (`optim/assembly.py`) on CUDA and from its plain version on the CPU.
+`S` and the 6P x 6P Cholesky stay `torch.matmul` / `torch.linalg`, as the
+JAX package left them to XLA. The LM loop is a Python loop of `torch.where`
+selects with no host sync per iteration. The TPU layouts (rows layout,
+chunked S-Gram, bf16 Y) are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..factors import reprojection as reproj
+from ..geometry import se3
+from . import assembly
+from . import loss as losses
+
+
+class BAProblem(NamedTuple):
+    """Flat (E,) edge-list BA problem: the container `from_flat` consumes
+    (numpy or tensor fields)."""
+
+    pose_R: object  # (P, 3, 3)
+    pose_t: object  # (P, 3)
+    pose_fixed: object  # (P,) bool
+    pose_valid: object  # (P,) bool
+    points: object  # (L, 3)
+    point_valid: object  # (L,) bool
+    obs_cam: object  # (E,) int
+    obs_pt: object  # (E,) int
+    obs_uvr: object  # (E, 3)
+    obs_inv_sigma2: object  # (E,)
+    obs_valid: object  # (E,) bool
+
+
+class BucketedBAProblem(NamedTuple):
+    """Fixed-capacity BA problem with (L, K) landmark-bucketed observations."""
+
+    pose_R: torch.Tensor  # (P, 3, 3)
+    pose_t: torch.Tensor  # (P, 3)
+    pose_fixed: torch.Tensor  # (P,) bool
+    pose_valid: torch.Tensor  # (P,) bool
+    points: torch.Tensor  # (L, 3)
+    point_valid: torch.Tensor  # (L,) bool
+    obs_cam: torch.Tensor  # (L, K) int32 pose index (0 where invalid)
+    obs_uvr: torch.Tensor  # (L, K, 3)
+    obs_inv_sigma2: torch.Tensor  # (L, K)
+    obs_valid: torch.Tensor  # (L, K) bool
+
+    @property
+    def num_poses(self):
+        return self.pose_R.shape[0]
+
+    @property
+    def num_points(self):
+        return self.points.shape[0]
+
+    def poses(self) -> se3.SE3:
+        return se3.SE3(self.pose_R, self.pose_t)
+
+
+def bucketed_from_numpy(arrays: dict, device) -> BucketedBAProblem:
+    """BucketedBAProblem on `device` from a dict of numpy arrays."""
+    f32 = torch.float32
+    def t(name, dtype):
+        return torch.as_tensor(np.array(arrays[name]), device=device).to(dtype)
+    return BucketedBAProblem(
+        pose_R=t("pose_R", f32), pose_t=t("pose_t", f32),
+        pose_fixed=t("pose_fixed", torch.bool), pose_valid=t("pose_valid", torch.bool),
+        points=t("points", f32), point_valid=t("point_valid", torch.bool),
+        obs_cam=t("obs_cam", torch.int32), obs_uvr=t("obs_uvr", f32),
+        obs_inv_sigma2=t("obs_inv_sigma2", f32), obs_valid=t("obs_valid", torch.bool),
+    )
+
+
+def from_flat(problem: BAProblem, K: int, device="cpu") -> BucketedBAProblem:
+    """Re-bucket a flat problem (E,) by landmark into (L, K) slots (host-side
+    numpy, one time); raises if a landmark has more than K valid edges."""
+    L = np.asarray(problem.points).shape[0]
+    obs_pt = np.asarray(problem.obs_pt)
+    obs_cam = np.asarray(problem.obs_cam)
+    obs_uvr = np.asarray(problem.obs_uvr)
+    obs_is2 = np.asarray(problem.obs_inv_sigma2)
+    obs_val = np.asarray(problem.obs_valid)
+
+    cam_b = np.zeros((L, K), np.int32)
+    uvr_b = np.full((L, K, 3), -1.0, np.float32)
+    is2_b = np.ones((L, K), np.float32)
+    val_b = np.zeros((L, K), bool)
+    ev = np.nonzero(obs_val)[0]
+    lv = obs_pt[ev]
+    order = np.argsort(lv, kind="stable")
+    ev, lv = ev[order], lv[order]
+    counts = np.bincount(lv, minlength=L)
+    if counts.max(initial=0) > K:
+        worst = int(np.argmax(counts))
+        raise ValueError(f"landmark {worst} has more than K={K} observations")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(len(ev)) - starts[lv]
+    cam_b[lv, slot] = obs_cam[ev]
+    uvr_b[lv, slot] = obs_uvr[ev]
+    is2_b[lv, slot] = obs_is2[ev]
+    val_b[lv, slot] = True
+    return bucketed_from_numpy(
+        dict(pose_R=problem.pose_R, pose_t=problem.pose_t, pose_fixed=problem.pose_fixed,
+             pose_valid=problem.pose_valid, points=problem.points,
+             point_valid=problem.point_valid, obs_cam=cam_b, obs_uvr=uvr_b,
+             obs_inv_sigma2=is2_b, obs_valid=val_b),
+        device,
+    )
+
+
+# ----------------------------------------------------------------------
+# Closed-form batched 3x3 Cholesky machinery (the square-root factors).
+# ----------------------------------------------------------------------
+
+
+def chol3x3(M: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form Cholesky of SPD (..., 3, 3): M = L L^T (lower)."""
+    eps = 1e-20
+    a11, a21, a31 = M[..., 0, 0], M[..., 1, 0], M[..., 2, 0]
+    a22, a32, a33 = M[..., 1, 1], M[..., 2, 1], M[..., 2, 2]
+    l11 = torch.sqrt(torch.clamp(a11, min=eps))
+    l21 = a21 / l11
+    l31 = a31 / l11
+    l22 = torch.sqrt(torch.clamp(a22 - l21 * l21, min=eps))
+    l32 = (a32 - l31 * l21) / l22
+    l33 = torch.sqrt(torch.clamp(a33 - l31 * l31 - l32 * l32, min=eps))
+    zero = torch.zeros_like(l11)
+    return torch.stack([
+        torch.stack([l11, zero, zero], dim=-1),
+        torch.stack([l21, l22, zero], dim=-1),
+        torch.stack([l31, l32, l33], dim=-1),
+    ], dim=-2)
+
+
+def trinv_lower3x3(Lc: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form inverse of lower-triangular (..., 3, 3)."""
+    l11, l21, l31 = Lc[..., 0, 0], Lc[..., 1, 0], Lc[..., 2, 0]
+    l22, l32, l33 = Lc[..., 1, 1], Lc[..., 2, 1], Lc[..., 2, 2]
+    m11 = 1.0 / l11
+    m22 = 1.0 / l22
+    m33 = 1.0 / l33
+    m21 = -l21 * m11 * m22
+    m31 = (l21 * l32 - l31 * l22) * m11 * m22 * m33
+    m32 = -l32 * m22 * m33
+    zero = torch.zeros_like(m11)
+    return torch.stack([
+        torch.stack([m11, zero, zero], dim=-1),
+        torch.stack([m21, m22, zero], dim=-1),
+        torch.stack([m31, m32, m33], dim=-1),
+    ], dim=-2)
+
+
+# ----------------------------------------------------------------------
+# Edge terms and reductions (the plain version of K2).
+# ----------------------------------------------------------------------
+
+
+def _edge_terms(problem: BucketedBAProblem, cam: reproj.Camera, active, robust_delta):
+    """Per-slot (r, Jp, Jl, w, chi2, e2) with mono/stereo unified (L, K, ...)."""
+    w_info = problem.obs_inv_sigma2 * active.to(problem.points.dtype)
+    return assembly.edge_terms(problem.pose_R, problem.pose_t, problem.points,
+                               problem.obs_cam, problem.obs_uvr, w_info, cam,
+                               robust_delta)
+
+
+def reductions_from_terms(problem: BucketedBAProblem, terms) -> assembly.AssemblyOut:
+    """Mu-independent reductions (Hll, bl, U, Hpp, bp, chi2) from edge terms."""
+    return assembly.reductions(terms, problem.obs_cam, ~problem.pose_fixed,
+                               problem.num_poses)
+
+
+def assemble(problem: BucketedBAProblem, cam: reproj.Camera, active,
+             robust_delta) -> assembly.AssemblyOut:
+    """The reductions of one LM iteration: kernel K2 on CUDA, its plain
+    version (`_edge_terms` + `reductions_from_terms`) on the CPU."""
+    w_active = problem.obs_inv_sigma2 * active.to(problem.points.dtype)
+    return assembly.assemble(problem.pose_R, problem.pose_t, ~problem.pose_fixed,
+                             problem.points, problem.obs_cam, problem.obs_uvr, w_active,
+                             cam, robust_delta)
+
+
+def edge_chi2_and_depth(problem: BucketedBAProblem, cam: reproj.Camera):
+    """Per-slot chi2 (info-weighted) and camera-frame depth, for gating."""
+    e2 = _edge_terms(problem, cam, problem.obs_valid, None)[5]
+    idx = problem.obs_cam.long()
+    T = se3.SE3(problem.pose_R[idx], problem.pose_t[idx])
+    z = se3.act(T, problem.points[:, None, :])[..., 2]
+    return e2, z
+
+
+# ----------------------------------------------------------------------
+# One damped step: build S, solve, back-substitute.
+# ----------------------------------------------------------------------
+
+
+class LocalPieces(NamedTuple):
+    S_half: torch.Tensor  # (P*6, P*6) = blockdiag(Hpp_d) - Y Y^T
+    bp: torch.Tensor  # (P, 6)
+    rhs_corr: torch.Tensor  # (P*6,) = Y (Hll_d^{-1} bl)
+    chi2: torch.Tensor  # ()
+    U: torch.Tensor  # (L, K, 6, 3)
+    Minv: torch.Tensor  # (L, 3, 3)
+    bl: torch.Tensor  # (L, 3)
+
+
+def _pieces_tail(problem: BucketedBAProblem, Hll, bl, U, Hpp, bp, chi2, mu) -> LocalPieces:
+    """Damping + sqrt-Schur factors from the assembled reductions."""
+    P, L = problem.num_poses, problem.num_points
+    dtype, dev = bl.dtype, bl.device
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    O = torch.nn.functional.one_hot(problem.obs_cam.long(), P).to(dtype)  # (L, K, P)
+
+    dll = torch.diagonal(Hll, dim1=-2, dim2=-1)
+    Hll_d = Hll + mu * dll[..., None] * eye3 + 1e-8 * eye3
+    Hll_d = torch.where(problem.point_valid[:, None, None], Hll_d, eye3)
+    Lc = chol3x3(Hll_d)
+    Minv = trinv_lower3x3(Lc)
+
+    V = torch.einsum("lkim,ljm->lkij", U, Minv)  # U Lc^{-T}
+    Y = torch.einsum("lkp,lkim->plim", O, V)  # scatter by camera, (P, L, 6, 3)
+    Y2 = Y.permute(0, 2, 1, 3).reshape(P * 6, L * 3)
+
+    dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    Hpp_d = Hpp + mu * dpp[..., None] * eye6 + 1e-8 * eye6
+    S_half = -(Y2 @ Y2.T)
+    eyeP = torch.eye(P, dtype=dtype, device=dev)
+    S_half = S_half + torch.einsum("pij,pq->piqj", Hpp_d, eyeP).reshape(P * 6, P * 6)
+
+    z = torch.einsum("lij,lj->li", Minv, bl)
+    y2 = torch.einsum("lmi,lm->li", Minv, z)  # Hll_d^{-1} bl
+    Vz = torch.einsum("lkim,lm->lki", U, y2)
+    rhs_corr = torch.einsum("lkp,lki->pi", O, Vz).reshape(-1)
+    return LocalPieces(S_half=S_half, bp=bp, rhs_corr=rhs_corr, chi2=chi2, U=U,
+                       Minv=Minv, bl=bl)
+
+
+def solve_pose_system(S: torch.Tensor, rhs: torch.Tensor, pose_fixed: torch.Tensor):
+    """Gauge-fix + dense Cholesky solve of the reduced camera system.
+    `cholesky_ex` does not read its info flag back: no host sync."""
+    fixed6 = torch.repeat_interleave(pose_fixed, 6)
+    S = torch.where(fixed6[:, None] | fixed6[None, :], torch.zeros_like(S), S)
+    S = S + torch.diag(fixed6.to(S.dtype))
+    rhs = torch.where(fixed6, torch.zeros_like(rhs), rhs)
+    Lc = torch.linalg.cholesky_ex(S)[0]
+    y = torch.linalg.solve_triangular(Lc, rhs[:, None], upper=False)
+    dxp = torch.linalg.solve_triangular(Lc.T, y, upper=True)[:, 0]
+    return dxp.reshape(-1, 6)
+
+
+def back_substitute(pieces: LocalPieces, problem: BucketedBAProblem, dxp):
+    """Landmark back-substitution dxl = Hll_d^{-1}(-bl - W^T dxp)."""
+    dxp_g = dxp[problem.obs_cam.long()]  # (L, K, 6)
+    Wt_dxp = torch.einsum("lkij,lki->lj", pieces.U, dxp_g)
+    rhs_l = -pieces.bl - Wt_dxp
+    Minv = pieces.Minv
+    dxl = torch.einsum("lji,ljk,lk->li", Minv, Minv, rhs_l)
+    return torch.where(problem.point_valid[:, None], dxl, torch.zeros_like(dxl))
+
+
+def _apply_update(problem: BucketedBAProblem, dxp, dxl) -> BucketedBAProblem:
+    poses = se3.retract(problem.poses(), dxp)
+    free = (~problem.pose_fixed)[:, None]
+    new_R = torch.where(free[..., None], poses.R, problem.pose_R)
+    new_t = torch.where(free, poses.t, problem.pose_t)
+    return problem._replace(pose_R=new_R, pose_t=new_t, points=problem.points + dxl)
+
+
+def _lm_accept(prob, candidate, chi2, chi2_c, dxp, dxl, bp, bl, mu, nu):
+    """Nielsen gain-ratio accept/reject bookkeeping (device tensors only)."""
+    dx_all = torch.cat([dxp.reshape(-1), dxl.reshape(-1)])
+    b_all = torch.cat([bp.reshape(-1), bl.reshape(-1)])
+    predicted = 0.5 * torch.sum(dx_all * (mu * dx_all - b_all))
+    rho = (chi2 - chi2_c) / torch.clamp(predicted, min=1e-12)
+    accept = (rho > 0) & torch.isfinite(chi2_c)
+    prob_new = prob._replace(
+        pose_R=torch.where(accept, candidate.pose_R, prob.pose_R),
+        pose_t=torch.where(accept, candidate.pose_t, prob.pose_t),
+        points=torch.where(accept, candidate.points, prob.points),
+    )
+    factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    mu_new = torch.where(accept, mu * factor, mu * nu)
+    nu_new = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+    return accept, prob_new, mu_new, nu_new
+
+
+def _step(prob: BucketedBAProblem, red: assembly.AssemblyOut, mu):
+    """Damped step from the carried reductions: (dxp, dxl, bp, bl)."""
+    pieces = _pieces_tail(prob, *red, mu)
+    rhs = -(pieces.bp.reshape(-1) - pieces.rhs_corr)
+    dxp = solve_pose_system(pieces.S_half, rhs, prob.pose_fixed)
+    dxp = torch.where(prob.pose_fixed[:, None], torch.zeros_like(dxp), dxp)
+    dxl = back_substitute(pieces, prob, dxp)
+    return dxp, dxl, red.bp, red.bl
+
+
+def _ba_iterate_core(problem: BucketedBAProblem, reduce_fn, num_iters: int):
+    """Shared LM loop: carry the reductions of the current point, assemble
+    once per iteration, speculatively at the candidate (its chi2 is the
+    accept test; on acceptance it becomes the next carry)."""
+    red = reduce_fn(problem)
+    dtype, dev = problem.points.dtype, problem.points.device
+    mu = torch.tensor(1e-3, dtype=dtype, device=dev)
+    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
+    prob = problem
+    for _ in range(num_iters):
+        dxp, dxl, bp, bl = _step(prob, red, mu)
+        candidate = _apply_update(prob, dxp, dxl)
+        red_c = reduce_fn(candidate)
+        accept, prob, mu, nu = _lm_accept(prob, candidate, red.chi2, red_c.chi2, dxp,
+                                          dxl, bp, bl, mu, nu)
+        red = assembly.AssemblyOut(*[torch.where(accept, c, o) for c, o in zip(red_c, red)])
+        n_acc = n_acc + accept.to(torch.int32)
+    return prob, red.chi2, n_acc
+
+
+def ba_iterate(problem: BucketedBAProblem, cam: reproj.Camera, active, num_iters: int,
+               robust_delta: Optional[float]
+               ) -> Tuple[BucketedBAProblem, torch.Tensor, torch.Tensor]:
+    """Nielsen-damped LM loop; one K2 assembly per iteration."""
+    return _ba_iterate_core(
+        problem, lambda p: assemble(p, cam, active, robust_delta), num_iters
+    )
+
+
+def local_ba(problem: BucketedBAProblem, cam: reproj.Camera, first_iters: int = 5,
+             second_iters: int = 10):
+    """Two-phase local BA protocol (5 robust iters -> chi2/depth gate ->
+    10 iters). Returns (problem, survivors (L, K), chi2)."""
+    delta2 = math.sqrt(losses.CHI2_2DOF)
+    problem, _, _ = ba_iterate(problem, cam, problem.obs_valid, first_iters,
+                               robust_delta=delta2)
+    is_stereo = problem.obs_uvr[..., 2] >= 0.0
+    gate = torch.where(is_stereo, losses.CHI2_3DOF, losses.CHI2_2DOF)
+    e2, z = edge_chi2_and_depth(problem, cam)
+    active = problem.obs_valid & (e2 <= gate) & (z > 0)
+    problem, chi2, _ = ba_iterate(problem, cam, active, second_iters, robust_delta=None)
+    e2, z = edge_chi2_and_depth(problem, cam)
+    survivors = problem.obs_valid & (e2 <= gate) & (z > 0)
+    return problem, survivors, chi2

@@ -1,0 +1,389 @@
+"""Local mapping: keyframe processing, culling, and local bundle adjustment.
+
+Counterpart of `sqrtlm_slam_tpu/pipeline/local_mapping.py` (synchronous,
+one pass per keyframe): landmark culling, triangulation against covisible
+neighbours, the two-way neighbour fuse, local BA on the bucketed
+sqrt-Schur engine (kernel K2 per LM iteration) with write-back and outlier
+pruning, and keyframe culling. The map bookkeeping is the shared numpy
+`MapStore`; device work runs on the mapper's device and is read back once
+per dispatch group. The LiDAR stage is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..factors.reprojection import Camera
+from ..frontend import matching
+from ..geometry import se3
+from ..mapstore import MapStore
+from ..optim import facade, schur_bucketed
+from ..utils import desc_to_torch, to_host
+from . import triangulation
+
+
+def _project_and_match(pose_R, pose_t, lm_pos, lm_desc, lm_valid, lm_normal, lm_min_dist,
+                       lm_max_dist, kp_xy, kp_desc, kp_valid, cam: Camera,
+                       radius_px: float):
+    """Project landmarks into a keyframe and Hamming-match within a window,
+    with the Fuse acceptance gates: positive depth, distance inside
+    [0.8 minDist, 1.2 maxDist], viewing angle < 60 deg to the mean normal."""
+    pose = se3.SE3(pose_R, pose_t)
+    x_c = se3.act(pose, lm_pos)
+    uv = cam.project(x_c)
+    C = -torch.einsum("ji,j->i", pose_R, pose_t)
+    v = lm_pos - C
+    dist = torch.linalg.norm(v, dim=-1)
+    dist_ok = (dist >= 0.8 * lm_min_dist) & (dist <= 1.2 * lm_max_dist)
+    n_norm = torch.linalg.norm(lm_normal, dim=-1)
+    cos_view = torch.sum(v * lm_normal, dim=-1) / torch.clamp(dist * n_norm, min=1e-9)
+    angle_ok = (cos_view > 0.5) | (n_norm < 1e-6)
+    ok = lm_valid & (x_c[..., 2] > 0.3) & dist_ok & angle_ok
+    window = matching.projection_window_mask(uv, kp_xy, radius_px)
+    return matching.match_descriptors(lm_desc, kp_desc, ok, kp_valid, window_mask=window,
+                                      max_dist=matching.TH_LOW, mutual=True)
+
+
+def _project_and_match_many(pose_R, pose_t, lm_pos, lm_desc, lm_valid, lm_normal,
+                            lm_min_dist, lm_max_dist, kp_xy, kp_desc, kp_valid,
+                            cam: Camera, radius_px: float):
+    """One landmark set projected into B keyframes (leading axis on the pose
+    and keypoint arrays). Returns stacked (valid (B, M), idx (B, M))."""
+    res = [
+        _project_and_match(pose_R[b], pose_t[b], lm_pos, lm_desc, lm_valid, lm_normal,
+                           lm_min_dist, lm_max_dist, kp_xy[b], kp_desc[b], kp_valid[b],
+                           cam, radius_px)
+        for b in range(pose_R.shape[0])
+    ]
+    return torch.stack([r.valid for r in res]), torch.stack([r.idx for r in res])
+
+
+class LocalMappingConfig(NamedTuple):
+    pose_cap: int = 32
+    point_cap: int = 4096
+    obs_cap: int = 8
+    local_kf_cap: int = 16
+    min_found_ratio: float = 0.25
+    min_obs_after: int = 2
+    cull_redundancy: float = 0.9
+    cull_min_obs: int = 3
+    triangulate: bool = True
+    tri_neighbors: int = 6
+    tri_max_new: int = 200
+    backend: str = "bucketed"
+
+
+class LocalMapper:
+    def __init__(self, store: MapStore, cam: Camera,
+                 cfg: LocalMappingConfig = LocalMappingConfig(), device="cpu"):
+        self.store = store
+        self.cam = cam
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self._optimizer = facade.Optimizer(cfg.backend)
+        self.recent_landmarks: list = []  # (lm_id, created_at_kf)
+        self.num_local_ba = 0
+
+    def _t(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+
+    def process_keyframe(self, kf: int):
+        """Full local-mapping pass for a freshly inserted keyframe."""
+        self.store.update_connections(kf)
+        self.map_point_culling(kf)
+        if self.cfg.triangulate and self.store.num_kf >= 2:
+            self.create_new_map_points(kf)
+        self.search_in_neighbors(kf)
+        if self.store.num_kf >= 3:
+            self.local_ba(kf)
+        self.keyframe_culling(kf)
+
+    # ------------------------------------------------------------------
+
+    def search_in_neighbors(self, kf: int, fuse_cap: int = 4096):
+        """Two-level neighbour fuse: project neighbours' landmarks into kf and
+        kf's landmarks into each neighbour; matches onto keypoints already
+        bound to a landmark merge the two, unbound matches become new
+        observations."""
+        store = self.store
+        first = [int(x) for x in store.best_covisible(kf, 10)]
+        neighbors = list(first)
+        for nb in first[:5]:
+            for nb2 in store.best_covisible(nb, 5):
+                if int(nb2) != kf and int(nb2) not in neighbors:
+                    neighbors.append(int(nb2))
+
+        def lm_of(k):
+            ids = store.kf_obs_lm[k]
+            ids = np.unique(ids[ids >= 0])
+            return ids[store.lm_valid[ids]][-fuse_cap:]
+
+        def lm_buffer(lm_ids):
+            # Sized to the landmarks present: the JAX package pads to fuse_cap
+            # for static jit shapes, and empty rows never match.
+            return (self._t(store.lm_pos[lm_ids]),
+                    desc_to_torch(store.lm_desc[lm_ids], self.device),
+                    torch.ones(len(lm_ids), dtype=torch.bool, device=self.device),
+                    self._t(store.lm_normal[lm_ids]), self._t(store.lm_min_dist[lm_ids]),
+                    self._t(store.lm_max_dist[lm_ids]))
+
+        def fuse_apply(target_kf, lm_ids, res_valid, res_idx):
+            m = len(lm_ids)
+            hits = np.where(res_valid[:m])[0]
+            kp_idx = res_idx[:m]
+            n_fused = 0
+            for j in hits:
+                lm = int(lm_ids[j])
+                kp = int(kp_idx[j])
+                if not store.lm_valid[lm]:
+                    continue
+                existing = int(store.kf_obs_lm[target_kf, kp])
+                if existing == lm:
+                    continue
+                if existing >= 0 and store.lm_valid[existing]:
+                    if store.lm_n_obs[existing] >= store.lm_n_obs[lm]:
+                        store.replace_landmark(lm, existing)
+                    else:
+                        store.replace_landmark(existing, lm)
+                else:
+                    store.add_observation(lm, target_kf, kp)
+                n_fused += 1
+            return n_fused
+
+        total = 0
+        gathered = [lm_of(nb) for nb in neighbors]
+        if gathered:
+            ids = np.unique(np.concatenate(gathered))[-fuse_cap:]
+            if len(ids):
+                res = _project_and_match(
+                    self._t(store.kf_R[kf]), self._t(store.kf_t[kf]), *lm_buffer(ids),
+                    self._t(store.kf_xy[kf]), desc_to_torch(store.kf_desc[kf], self.device),
+                    self._t(store.kf_kp_valid[kf]), self.cam, 3.0,
+                )
+                rv, ri = to_host(res.valid, res.idx)
+                total += fuse_apply(kf, ids, rv, ri)
+        own = lm_of(kf)
+        if len(own) and neighbors:
+            buf = lm_buffer(own)
+            rv, ri = to_host(*_project_and_match_many(
+                self._t(store.kf_R[neighbors]), self._t(store.kf_t[neighbors]), *buf,
+                self._t(store.kf_xy[neighbors]),
+                desc_to_torch(store.kf_desc[neighbors].reshape(-1, 8), self.device)
+                .reshape(len(neighbors), -1, 8),
+                self._t(store.kf_kp_valid[neighbors]), self.cam, 3.0,
+            ))
+            for i, nb in enumerate(neighbors):
+                total += fuse_apply(nb, own, rv[i], ri[i])
+        if total:
+            touched = lm_of(kf)
+            store.update_landmark_stats(touched[:512])
+            store.update_connections(kf)
+        return total
+
+    # ------------------------------------------------------------------
+
+    def create_new_map_points(self, kf: int):
+        """Triangulate new landmarks against the best covisible neighbours;
+        accepted pairs become landmarks observed in both keyframes."""
+        store, cfg = self.store, self.cfg
+        T1 = se3.SE3(self._t(store.kf_R[kf]), self._t(store.kf_t[kf]))
+        free1 = store.kf_kp_valid[kf] & (store.kf_obs_lm[kf] < 0)
+        sigma2 = (1.2 ** (2 * store.kf_octave[kf])).astype(np.float32)
+        n_created = 0
+        handles = []
+        for nb in store.best_covisible(kf, cfg.tri_neighbors):
+            nb = int(nb)
+            base = np.linalg.norm(store.kf_center(kf) - store.kf_center(nb))
+            if base < 0.05:
+                continue
+            T2 = se3.SE3(self._t(store.kf_R[nb]), self._t(store.kf_t[nb]))
+            free2 = store.kf_kp_valid[nb] & (store.kf_obs_lm[nb] < 0)
+            res = triangulation.match_and_triangulate(
+                T1, T2, self.cam,
+                self._t(store.kf_xy[kf]), desc_to_torch(store.kf_desc[kf], self.device),
+                self._t(free1), self._t(sigma2),
+                self._t(store.kf_xy[nb]), desc_to_torch(store.kf_desc[nb], self.device),
+                self._t(free2),
+                self._t((1.2 ** (2 * store.kf_octave[nb])).astype(np.float32)),
+                angles1=self._t(store.kf_angle[kf]), angles2=self._t(store.kf_angle[nb]),
+            )
+            handles.append((nb, res))
+        # One read for all neighbours (three arrays each, so always a tuple).
+        fetched = to_host(*[x for _, r in handles for x in (r.valid, r.points_w, r.idx2)]) \
+            if handles else ()
+        for i, (nb, _) in enumerate(handles):
+            res_valid, pts, idx2 = fetched[3 * i:3 * i + 3]
+            ok = np.where(res_valid)[0]
+            new_here = []
+            for j in ok[: cfg.tri_max_new]:
+                if store.kf_obs_lm[kf, j] >= 0 or store.kf_obs_lm[nb, idx2[j]] >= 0:
+                    continue
+                if store.num_lm >= store.max_landmarks:
+                    break
+                lm = store.add_landmark(pts[j], store.kf_desc[kf, j], kf)
+                store.add_observation(lm, kf, int(j))
+                store.add_observation(lm, nb, int(idx2[j]))
+                new_here.append(lm)
+                n_created += 1
+            if new_here:
+                store.update_landmark_stats(np.asarray(new_here))
+                self.watch_landmarks(np.asarray(new_here), kf)
+        if n_created:
+            store.update_connections(kf)
+        return n_created
+
+    # ------------------------------------------------------------------
+
+    def map_point_culling(self, current_kf: int):
+        """Cull recently created landmarks that underperform (found-ratio <
+        0.25, or <= min_obs after 2 KFs)."""
+        store = self.store
+        keep = []
+        for lm, born_kf in self.recent_landmarks:
+            if not store.lm_valid[lm]:
+                continue
+            age = current_kf - born_kf
+            ratio = store.lm_found[lm] / max(store.lm_visible[lm], 1)
+            if ratio < self.cfg.min_found_ratio:
+                store.erase_landmark(lm)
+            elif age >= 2 and store.lm_n_obs[lm] <= self.cfg.min_obs_after:
+                store.erase_landmark(lm)
+            elif age >= 3:
+                pass
+            else:
+                keep.append((lm, born_kf))
+        self.recent_landmarks = keep
+
+    def watch_landmarks(self, lm_ids, born_kf: int):
+        for lm in np.atleast_1d(lm_ids):
+            if lm >= 0:
+                self.recent_landmarks.append((int(lm), born_kf))
+
+    # ------------------------------------------------------------------
+
+    def gather_problem(self, center_kf: int):
+        """Fixed-capacity landmark-bucketed BA problem around `center_kf`:
+        local KFs = center + best covisible; fixed frontier = other observers
+        of the local landmarks. Returns (problem, (kf_ids, lm_ids, e_kf, e_kp))."""
+        store, cfg = self.store, self.cfg
+        local = [center_kf] + [
+            int(x) for x in store.best_covisible(center_kf, cfg.local_kf_cap - 1)
+        ]
+        local_set = set(local)
+        lm_ids = np.unique(store.kf_obs_lm[local])
+        lm_ids = lm_ids[lm_ids >= 0]
+        lm_ids = lm_ids[store.lm_valid[lm_ids]][: cfg.point_cap]
+
+        observers = store.lm_obs_kf[lm_ids]
+        obs_flat = observers[observers >= 0]
+        frontier = [int(k) for k in np.unique(obs_flat) if k not in local_set]
+        kf_ids = (local + frontier)[: cfg.pose_cap]
+        kf_slot = {int(k): i for i, k in enumerate(kf_ids)}
+        n_local_in = len([k for k in local if k in kf_slot])
+
+        P, L, K = cfg.pose_cap, cfg.point_cap, cfg.obs_cap
+        nk = len(kf_ids)
+        nl = len(lm_ids)
+        obs_cam = np.zeros((L, K), np.int32)
+        obs_uvr = np.full((L, K, 3), -1.0, np.float32)
+        obs_is2 = np.ones((L, K), np.float32)
+        obs_valid = np.zeros((L, K), bool)
+        e_kf = np.full((L, K), -1, np.int32)
+        e_kp = np.full((L, K), -1, np.int32)
+        if nl:
+            slot_of = np.full(store.max_keyframes + 1, -1, np.int32)
+            slot_of[np.asarray(kf_ids, np.int64)] = np.arange(nk, dtype=np.int32)
+            okf = store.lm_obs_kf[lm_ids]
+            oidx = store.lm_obs_idx[lm_ids]
+            sel = (okf >= 0) & (slot_of[np.clip(okf, 0, None)] >= 0)
+            order = np.argsort(~sel, axis=1, kind="stable")
+            okf_c = np.take_along_axis(okf, order, axis=1)[:, :K]
+            oidx_c = np.take_along_axis(oidx, order, axis=1)[:, :K]
+            sel_c = np.take_along_axis(sel, order, axis=1)[:, :K]
+            okf_c = np.where(sel_c, okf_c, 0)
+            oidx_c = np.where(sel_c, oidx_c, 0)
+            obs_cam[:nl] = np.where(sel_c, slot_of[okf_c], 0)
+            obs_uvr[:nl] = np.where(sel_c[..., None], store.kf_uvr[okf_c, oidx_c], -1.0)
+            obs_is2[:nl] = np.where(
+                sel_c, 1.0 / (1.2 ** (2 * store.kf_octave[okf_c, oidx_c])), 1.0
+            )
+            obs_valid[:nl] = sel_c
+            e_kf[:nl] = np.where(sel_c, okf_c, -1)
+            e_kp[:nl] = np.where(sel_c, oidx_c, -1)
+
+        pose_R = np.tile(np.eye(3, dtype=np.float32), (P, 1, 1))
+        pose_t = np.zeros((P, 3), np.float32)
+        pose_R[:nk] = store.kf_R[kf_ids]
+        pose_t[:nk] = store.kf_t[kf_ids]
+        pose_fixed = np.ones(P, bool)
+        for i, k in enumerate(kf_ids):
+            pose_fixed[i] = (i >= n_local_in) or (k == min(local))
+        pose_valid = np.zeros(P, bool)
+        pose_valid[:nk] = True
+        points = np.zeros((L, 3), np.float32)
+        points[:nl] = store.lm_pos[lm_ids]
+        point_valid = np.zeros(L, bool)
+        point_valid[:nl] = True
+
+        problem = schur_bucketed.bucketed_from_numpy(
+            dict(pose_R=pose_R, pose_t=pose_t, pose_fixed=pose_fixed,
+                 pose_valid=pose_valid, points=points, point_valid=point_valid,
+                 obs_cam=obs_cam, obs_uvr=obs_uvr, obs_inv_sigma2=obs_is2,
+                 obs_valid=obs_valid),
+            self.device,
+        )
+        return problem, (kf_ids, lm_ids, e_kf, e_kp, pose_fixed)
+
+    def local_ba(self, center_kf: int):
+        """Gather -> two-phase LM -> write back -> prune outliers."""
+        problem, (kf_ids, lm_ids, e_kf, e_kp, pose_fixed) = self.gather_problem(center_kf)
+        result, survivors, chi2 = self._optimizer.local_bundle_adjustment(problem, self.cam)
+        self.num_local_ba += 1
+        store = self.store
+        nk, nl = len(kf_ids), len(lm_ids)
+        new_R, new_t, new_pts, surv = to_host(result.pose_R, result.pose_t, result.points,
+                                              survivors)
+        for i, k in enumerate(kf_ids):
+            if not pose_fixed[i]:
+                store.set_kf_pose(k, new_R[i], new_t[i])
+        store.lm_pos[lm_ids] = new_pts[:nl]
+        store.version += 1
+        dropped = (e_kf >= 0) & ~surv
+        for li, j in zip(*np.nonzero(dropped)):
+            store.erase_observation(int(lm_ids[li]), int(e_kf[li, j]))
+        return chi2
+
+    # ------------------------------------------------------------------
+
+    def keyframe_culling(self, current_kf: int):
+        """Cull covisible KFs whose landmarks are >= 90% redundantly observed
+        (the most recent KF and KF 0 are kept)."""
+        store, cfg = self.store, self.cfg
+        for kf in store.best_covisible(current_kf, cfg.local_kf_cap):
+            kf = int(kf)
+            if kf == 0 or kf == current_kf or not store.kf_valid[kf]:
+                continue
+            lms = store.kf_obs_lm[kf]
+            lms = lms[lms >= 0]
+            if len(lms) == 0:
+                continue
+            redundant = (store.lm_n_obs[lms] >= cfg.cull_min_obs + 1).sum()
+            if redundant > cfg.cull_redundancy * len(lms):
+                self._cull_keyframe(kf)
+
+    def _cull_keyframe(self, kf: int):
+        store = self.store
+        for lm in store.kf_obs_lm[kf]:
+            if lm >= 0:
+                store.erase_observation(int(lm), kf)
+        store.kf_valid[kf] = False
+        store.covis[kf] = 0
+        store.covis[:, kf] = 0
+        children = np.where(store.parent == kf)[0]
+        store.parent[children] = store.parent[kf]
+        store.version += 1

@@ -1,0 +1,37 @@
+"""Host <-> device helpers.
+
+Every read of device results by the host goes through `to_host`, which
+counts the reads that wait for the device (`host_reads`): the pipeline's
+host syncs per tracked frame are read off this counter.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Reads that copied device tensors to the host (reset by callers that count).
+host_reads = 0
+
+
+def to_host(*xs):
+    """Copy tensors to host numpy arrays: one counted read for the call when
+    any of them lies on an accelerator. Returns one array or a tuple."""
+    global host_reads
+    if any(isinstance(x, torch.Tensor) and x.device.type != "cpu" for x in xs):
+        host_reads += 1
+    out = tuple(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+                for x in xs)
+    return out[0] if len(out) == 1 else out
+
+
+def desc_to_torch(desc_u32: np.ndarray, device) -> torch.Tensor:
+    """(N, 8) uint32 descriptor words -> (N, 8) int32 tensor of the same bits."""
+    return torch.as_tensor(np.array(desc_u32, np.uint32).view(np.int32),
+                           device=device)
+
+
+def desc_to_numpy(desc_i32) -> np.ndarray:
+    """(N, 8) int32 descriptor bits (tensor or array) -> (N, 8) uint32 words."""
+    a = desc_i32.detach().cpu().numpy() if isinstance(desc_i32, torch.Tensor) else desc_i32
+    return np.ascontiguousarray(a, np.int32).view(np.uint32)
