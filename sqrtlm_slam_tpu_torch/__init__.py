@@ -7,28 +7,35 @@ its module names and layout so each counterpart is found at the same path
 
 Ported so far: the RGB-D main path — ORB extraction, projection-window
 matching, pose-only LM tracking, keyframe insertion into the shared numpy
-`MapStore`, and local mapping with the bucketed sqrt-Schur local BA.
+`MapStore` (with vocabulary words and BoW), and local mapping with the
+bucketed sqrt-Schur local BA — and the loop path: place recognition, Sim3
+verification, loop correction, the Sim3 essential graph and the
+matrix-free PCG global BA.
 
 Every TPU kernel on that path is a hand-written CUDA kernel under `csrc/`,
 built with nvcc at first use (`ops/build.py`) and bound through ctypes:
 
   K1  csrc/hamming.cu      <- ops/hamming.py::hamming_matrix_pallas
   K2  csrc/ba_assembly.cu  <- optim/assembly_pallas.py::_assemble_raw
+  K3  csrc/ba_assembly.cu  <- optim/assembly_pallas.py::chi2_prepared
+      (K2's kernel compiled with kChi2Only = true)
 
 Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
 a CUDA tensor launches the kernel or raises.
 
 Package layout
 --------------
-  geometry/   SO3 / SE3 Lie ops
-  factors/    reprojection residuals + Jacobians
-  optim/      robust losses, LM, pose-only optimisation, BA assembly (K2),
-              bucketed sqrt-Schur local BA, optimizer facade
+  geometry/   SO3 / SE3 / Sim3 Lie ops, Umeyama alignment
+  factors/    reprojection residuals + Jacobians, the Sim3 pose-graph factor
+  optim/      robust losses, LM, pose-only optimisation, BA assembly (K2) and
+              chi2 (K3), bucketed sqrt-Schur local BA, matrix-free PCG global
+              BA, fixed-order keyed sums, optimizer facade
   ops/        Hamming kernel wrapper (K1), nvcc + ctypes kernel build
-  frontend/   ORB extraction, descriptor matching
+  frontend/   ORB extraction, descriptor matching, vocabulary + BoW
   pipeline/   frame build, tracking, triangulation, local mapping, system
+  loop/       keyframe database, Sim3 RANSAC, essential graph, loop closer
   mapstore/   the JAX package's numpy MapStore, carried over unchanged
-  eval/       numpy synthetic world + BA problem generator, ATE
+  eval/       numpy synthetic worlds, BA problems, the scale store, ATE
   convert.py  JAX-package objects -> port objects (parity tests)
 """
 

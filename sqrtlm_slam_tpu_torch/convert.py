@@ -14,7 +14,11 @@ import torch
 
 from .factors.reprojection import Camera
 from .frontend.orb import Keypoints, ORBConfig
+from .frontend.vocab import Vocabulary
 from .geometry.se3 import SE3
+from .geometry.sim3 import Sim3
+from .loop.closing import LoopClosingConfig
+from .loop.essential_graph import PoseGraphProblem
 from .optim.schur_bucketed import BucketedBAProblem, bucketed_from_numpy
 from .pipeline.frame import Frame
 from .pipeline.local_mapping import LocalMappingConfig
@@ -59,7 +63,12 @@ def system_config(cfg) -> SystemConfig:
         orb=orb_config(cfg.orb), tracking=tracking_config(cfg.tracking),
         local_mapping=local_mapping_config(cfg.local_mapping),
         max_keyframes=cfg.max_keyframes, max_landmarks=cfg.max_landmarks,
+        loop_detection=cfg.loop_detection, use_shipped_vocab=cfg.use_shipped_vocab,
     )
+
+
+def loop_closing_config(cfg) -> LoopClosingConfig:
+    return _fields(LoopClosingConfig, cfg)
 
 
 def se3(T, device="cpu") -> SE3:
@@ -81,6 +90,25 @@ def frame(fr, device="cpu") -> Frame:
 
 def ba_problem(prob, device="cpu") -> BucketedBAProblem:
     return bucketed_from_numpy({k: np.asarray(v) for k, v in prob._asdict().items()}, device)
+
+
+def vocabulary(voc, device="cpu") -> Vocabulary:
+    return Vocabulary(
+        centroids=tuple(desc_to_torch(np.asarray(c), device) for c in voc.centroids),
+        idf=_t(voc.idf, device), k=int(voc.k),
+    )
+
+
+def sim3(S, device="cpu") -> Sim3:
+    return Sim3(_t(S.s, device), _t(S.R, device), _t(S.t, device))
+
+
+def pose_graph_problem(p, device="cpu") -> PoseGraphProblem:
+    src = p._asdict()
+    dtypes = {"fixed": torch.bool, "valid": torch.bool, "e_valid": torch.bool,
+              "e_i": torch.int32, "e_j": torch.int32}
+    return PoseGraphProblem(**{k: _t(src[k], device, dtypes.get(k))
+                               for k in PoseGraphProblem._fields})
 
 
 def local_map_buffer(lm, device="cpu") -> LocalMapBuffer:

@@ -5,6 +5,7 @@ port's checks and benchmarks can make their inputs where JAX is absent:
   * `SyntheticWorld.render` is the same numpy renderer (identical images
     for identical poses);
   * `forward_trajectory` builds the same poses with numpy float32 SE(3) math;
+  * `ring_world` and `ring_trajectory` are the loop-closure ring scene;
   * `make_ba_problem` draws the same kind of problem from
     `np.random.RandomState` (different numbers than the JAX generator, which
     uses `jax.random`).
@@ -127,6 +128,38 @@ def forward_trajectory(n_frames: int, step: float = 0.4, yaw_rate: float = 0.004
         poses.append(T)
         T = Pose((delta.R @ T.R).astype(np.float32),
                  (delta.R @ T.t + delta.t).astype(np.float32))
+    return poses
+
+
+def ring_world(seed: int = 0, n_points: int = 2000, radius: float = 12.0, band: float = 6.0,
+               pattern_size: int = 7) -> SyntheticWorld:
+    """World with points scattered in an annulus around a circular path,
+    re-observable from every point of the ring (loop-closure scenes)."""
+    w = SyntheticWorld(seed=seed, n_points=n_points, pattern_size=pattern_size)
+    rng = np.random.RandomState(seed + 1)
+    a = rng.uniform(0, 2 * np.pi, n_points)
+    r = radius + rng.uniform(-band, band, n_points)
+    w.points = np.stack([np.cos(a) * r, rng.uniform(-2.0, 2.0, n_points), np.sin(a) * r],
+                        axis=-1).astype(np.float32)
+    # Looking tangent, the circle leaves the band after an arc of
+    # ~sqrt(2 * radius * band): the typical sight distance sets the
+    # physical pattern scale.
+    w.ref_depth = float(max(band + 2.0, np.sqrt(2.0 * radius * band)))
+    return w
+
+
+def ring_trajectory(n_frames: int, radius: float = 12.0, frac: float = 1.0) -> List[Pose]:
+    """T_cw poses driving around a circle in the XZ plane, heading tangent;
+    `frac` > 1 re-traverses the start (loop closure)."""
+    poses = []
+    for i in range(n_frames):
+        a = 2 * np.pi * frac * i / n_frames
+        c_w = np.array([np.cos(a) * radius, 0.0, np.sin(a) * radius])
+        fwd = np.array([-np.sin(a), 0.0, np.cos(a)])  # camera +z
+        up = np.array([0.0, -1.0, 0.0])  # camera +y points down
+        R_wc = np.stack([np.cross(up, fwd), -up, fwd], axis=-1)
+        R_cw = R_wc.T
+        poses.append(Pose(R_cw.astype(np.float32), (-R_cw @ c_w).astype(np.float32)))
     return poses
 
 

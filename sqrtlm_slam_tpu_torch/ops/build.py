@@ -73,6 +73,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def load_all(names) -> None:
+    """Load several kernel libraries, running their nvcc builds in parallel
+    (one compiler process per source, all started together)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for _ in pool.map(load, names):
+            pass
+
+
 def build_info(name: str) -> dict:
     """Build seconds and the ptxas register/shared-memory report of `name`."""
     _, seconds, report = _LOADED[name]

@@ -28,20 +28,28 @@ _PLAIN_ROWS = 256
 launch_count = 0
 
 
-def _popcount_lut(device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _popcount_lut(device: torch.device) -> torch.Tensor:
+    """Set bits of every byte value, kept on `device` once per process."""
     return torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.uint8,
                         device=device)
+
+
+def popcount_words(x: torch.Tensor) -> torch.Tensor:
+    """Set bits summed over the last axis of int32 words: (..., W) -> (...)
+    int32 (byte-table popcount; elementwise, no pairing)."""
+    lut = _popcount_lut(x.device)
+    nbits = lut[x.contiguous().view(torch.uint8).to(torch.int32)]
+    return nbits.sum(dim=-1, dtype=torch.int32)
 
 
 def hamming_matrix_plain(desc_q: torch.Tensor, desc_t: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: (Q, 8) x (T, 8) int32 -> (Q, T) int32."""
     Q, T = desc_q.shape[0], desc_t.shape[0]
-    lut = _popcount_lut(desc_q.device)
     out = torch.empty((Q, T), dtype=torch.int32, device=desc_q.device)
     for s in range(0, Q, _PLAIN_ROWS):
-        x = torch.bitwise_xor(desc_q[s:s + _PLAIN_ROWS, None, :], desc_t[None, :, :])
-        nbits = lut[x.contiguous().view(torch.uint8).to(torch.int32)]
-        out[s:s + _PLAIN_ROWS] = nbits.sum(dim=-1, dtype=torch.int32)
+        out[s:s + _PLAIN_ROWS] = popcount_words(
+            torch.bitwise_xor(desc_q[s:s + _PLAIN_ROWS, None, :], desc_t[None, :, :]))
     return out
 
 

@@ -1,17 +1,20 @@
-"""K2: bucketed-BA assembly — residuals, Jacobians, Huber weights, reductions.
+"""K2 and K3: bucketed-BA assembly and the residual-only chi2.
 
 Counterpart of `sqrtlm_slam_tpu/optim/assembly_pallas.py`. For every
-(landmark, slot) of a landmark-bucketed problem it evaluates the stereo/mono
+(landmark, slot) of a landmark-bucketed problem K2 evaluates the stereo/mono
 reprojection residual and Jacobians and emits everything the sqrt-Schur
 step needs: per-landmark Hll (L,3,3) and bl (L,3), per-slot U = Jp^T w Jl
 (L,K,6,3), per-camera Hpp (P,6,6) and bp (P,6), and the robust chi2 sum.
+K3 (`chi2_sum`) is the robust chi2 alone, with the same projection, loss
+and summation order: the LM candidate test of global BA.
 
-`assemble` dispatches by tensor device only: CPU tensors take the plain
-PyTorch version (`edge_terms` + `reductions`, the math of the JAX package's
-`schur_bucketed._edge_terms` + `reductions_from_terms`); CUDA tensors launch
-the hand-written kernel `csrc/ba_assembly.cu` or raise. The TPU layouts
-(landmarks on 128 lanes, one-hot MXU gathers, `L % 128`) are not carried
-over.
+`assemble` and `chi2_sum` dispatch by tensor device only: CPU tensors take
+the plain PyTorch versions (`edge_terms` + `reductions`, the math of the JAX
+package's `schur_bucketed._edge_terms` + `reductions_from_terms`; K3's is
+`edge_terms(...)[4]`); CUDA tensors launch the hand-written kernels of
+`csrc/ba_assembly.cu` (K3 is its `kChi2Only` instance) or raise. The TPU
+layouts (landmarks on 128 lanes, one-hot MXU gathers, `L % 128`) are not
+carried over.
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ from ..geometry import se3
 from ..ops import build
 from . import loss as losses
 
-# Number of K2 launches in this process (reset by callers that count).
+# Number of K2 and of K3 launches in this process (reset by callers that count).
 launch_count = 0
+chi2_launch_count = 0
 _ENTRIES = 42  # per-camera partial: Hpp (36) + bp (6)
 _MAX_K = 16
 
@@ -149,24 +153,33 @@ def _lib():
         + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 8
     )
     lib.ba_assembly_launch.restype = ctypes.c_int
+    lib.ba_chi2_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
+    )
+    lib.ba_chi2_launch.restype = ctypes.c_int
+    lib.ba_assembly_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ba_assembly_smem_bytes.restype = ctypes.c_size_t
+    lib.ba_assembly_smem_limit.argtypes = [ctypes.c_int]
+    lib.ba_assembly_smem_limit.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def max_poses(device_index: int) -> int:
-    """Largest P whose per-block shared-memory partial fits on the device."""
+def max_poses(device_index: int, chi2_only: bool = False) -> int:
+    """Largest P whose per-block shared memory (K2: poses + camera partial;
+    K3: poses) fits on the device."""
     lib = _lib()
-    fn = lib.ba_assembly_smem_bytes
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_size_t
-    lim = lib.ba_assembly_smem_limit
-    lim.argtypes = [ctypes.c_int]
-    lim.restype = ctypes.c_int
-    limit = lim(device_index)
+    limit = lib.ba_assembly_smem_limit(device_index)
     if limit <= 0:
         raise RuntimeError("cudaDeviceGetAttribute(MaxSharedMemoryPerBlockOptin) failed")
-    per_pose = fn(1) - fn(0)
-    return int((limit - fn(0)) // per_pose)
+    fn = lib.ba_assembly_smem_bytes
+    per_pose = fn(1, int(chi2_only)) - fn(0, int(chi2_only))
+    return int((limit - fn(0, int(chi2_only))) // per_pose)
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
@@ -187,7 +200,7 @@ def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
     _check(w_active, "w_active", f32, (L, K), device)
     if P < 1 or K < 1 or K > _MAX_K:
         raise ValueError(f"assemble_cuda: need P >= 1 and 1 <= K <= {_MAX_K}, got P={P} K={K}")
-    cap = max_poses(device.index if device.index is not None else torch.cuda.current_device())
+    cap = max_poses(_device_index(device))
     if P > cap:
         raise ValueError(f"assemble_cuda: P={P} exceeds the shared-memory cap of {cap} poses")
 
@@ -237,3 +250,74 @@ def assemble(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
         return assemble_plain(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr,
                               w_active, cam, robust_delta)
     raise ValueError(f"no BA assembly implementation for device {device}")
+
+
+# ----------------------------------------------------------------------
+# K3: the residual-only robust chi2.
+# ----------------------------------------------------------------------
+
+
+def chi2_plain(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Camera,
+               robust_delta: Optional[float]) -> torch.Tensor:
+    """Plain PyTorch version of K3 (any device): the chi2 of `edge_terms`."""
+    return edge_terms(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam,
+                      robust_delta)[4]
+
+
+def chi2_cuda(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Camera,
+              robust_delta: Optional[float]) -> torch.Tensor:
+    """Launch K3 on the current stream (all inputs on one CUDA device)."""
+    global chi2_launch_count
+    device = points.device
+    if device.type != "cuda":
+        raise ValueError(f"chi2_cuda: expected CUDA tensors, got {device}")
+    P, L, K = pose_R.shape[0], points.shape[0], obs_cam.shape[1]
+    f32 = torch.float32
+    _check(pose_R, "pose_R", f32, (P, 3, 3), device)
+    _check(pose_t, "pose_t", f32, (P, 3), device)
+    _check(points, "points", f32, (L, 3), device)
+    _check(obs_cam, "obs_cam", torch.int32, (L, K), device)
+    _check(obs_uvr, "obs_uvr", f32, (L, K, 3), device)
+    _check(w_active, "w_active", f32, (L, K), device)
+    if P < 1 or K < 1:
+        raise ValueError(f"chi2_cuda: need P >= 1 and K >= 1, got P={P} K={K}")
+    cap = max_poses(_device_index(device), chi2_only=True)
+    if P > cap:
+        raise ValueError(f"chi2_cuda: P={P} exceeds the shared-memory cap of {cap} poses")
+
+    lib = _lib()
+    n_blocks = -(-L // lib.ba_assembly_threads())
+    partial = torch.empty((max(n_blocks, 1),), dtype=f32, device=device)
+    chi2 = torch.empty((), dtype=f32, device=device)
+    robust = robust_delta is not None
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ba_chi2_launch(
+            pose_R.data_ptr(), pose_t.data_ptr(), points.data_ptr(), obs_cam.data_ptr(),
+            obs_uvr.data_ptr(), w_active.data_ptr(), P, L, K,
+            float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), float(cam.bf),
+            int(robust), float(robust_delta) if robust else 0.0,
+            partial.data_ptr(), chi2.data_ptr(), stream,
+        )
+    build.check(rc, "ba_chi2_launch")
+    chi2_launch_count += 1
+    return chi2
+
+
+def chi2_sum(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Camera,
+             robust_delta: Optional[float]) -> torch.Tensor:
+    """K3 dispatch by device: robust chi2 of the bucketed problem, () float32
+    (plain version on CPU, the kernel on CUDA). w_active: (L, K)
+    inv_sigma2 * active."""
+    device = points.device
+    if device.type == "cuda":
+        f32 = torch.float32
+        return chi2_cuda(
+            pose_R.to(f32).contiguous(), pose_t.to(f32).contiguous(),
+            points.to(f32).contiguous(), obs_cam.to(torch.int32).contiguous(),
+            obs_uvr.to(f32).contiguous(), w_active.to(f32).contiguous(), cam, robust_delta,
+        )
+    if device.type == "cpu":
+        return chi2_plain(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam,
+                          robust_delta)
+    raise ValueError(f"no chi2 implementation for device {device}")

@@ -1,14 +1,20 @@
 """Optimizer facade — counterpart of `sqrtlm_slam_tpu/optim/facade.py`.
 
-Only the ``"bucketed"`` backend (the sqrt-Schur engine with kernel K2) is
-ported. ``"flat"`` and ``"cg"`` raise `NotImplementedError`: the flat
-engine's role as an independent cross-check is taken by the JAX reference,
-and the matrix-free CG engine comes with global BA (ROADMAP queue 1,
-item 10, "Loop closing and global BA").
+Two backends are ported: ``"bucketed"`` (the sqrt-Schur engine with kernel
+K2) and ``"cg"`` (matrix-free Schur + block-Jacobi PCG, kernels K2 and K3).
+``"flat"`` raises `NotImplementedError`: the flat engine's role as an
+independent cross-check is taken by the JAX reference. Global BA runs on
+the matrix-free engine for every backend, as in the JAX package; the
+essential graph and the Sim3 refinement are backend-independent.
 """
 
 from __future__ import annotations
 
+import math
+
+import torch
+
+from . import loss as losses
 from . import pose_opt, schur_bucketed
 
 BACKENDS = ("bucketed", "flat", "cg")
@@ -20,10 +26,10 @@ class Optimizer:
     def __init__(self, backend: str = "bucketed"):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")
-        if backend != "bucketed":
+        if backend == "flat":
             raise NotImplementedError(
-                f"backend {backend!r} is not ported yet (ROADMAP queue 1, item 10: "
-                "loop closing and global BA, the CG half of schur_bucketed)"
+                "backend 'flat' is not ported (ROADMAP queue 1: the flat-edge dense-W "
+                "engine; the JAX package is the independent cross-check)"
             )
         self.backend = backend
 
@@ -33,5 +39,40 @@ class Optimizer:
     def local_bundle_adjustment(self, problem: schur_bucketed.BucketedBAProblem, cam,
                                 first_iters: int = 5, second_iters: int = 10):
         """Two-phase local BA. Returns (problem, survivors (L, K) bool, chi2)."""
+        if self.backend == "cg":
+            return _local_ba_cg(problem, cam, first_iters, second_iters)
         return schur_bucketed.local_ba(problem, cam, first_iters=first_iters,
                                        second_iters=second_iters)
+
+    def global_bundle_adjustment(self, problem: schur_bucketed.BucketedBAProblem, cam,
+                                 num_iters: int = 20):
+        """Whole-map BA, `num_iters` robust iterations on the matrix-free
+        engine. Returns (problem, survivors, chi2)."""
+        return schur_bucketed.global_ba_cg(problem, cam, num_iters=num_iters)
+
+    def optimize_essential_graph(self, problem, num_iters: int = 20, **kwargs):
+        from ..loop import essential_graph
+
+        return essential_graph.optimize_pose_graph(problem, num_iters=num_iters, **kwargs)
+
+    def optimize_sim3(self, *args, **kwargs):
+        from ..loop import sim3_solver
+
+        return sim3_solver.optimize_sim3(*args, **kwargs)
+
+
+def _local_ba_cg(problem: schur_bucketed.BucketedBAProblem, cam, first_iters: int,
+                 second_iters: int):
+    """Local-BA protocol on the matrix-free CG step (backend="cg")."""
+    delta2 = math.sqrt(losses.CHI2_2DOF)
+    problem, _, _ = schur_bucketed.ba_iterate_cg(problem, cam, problem.obs_valid, first_iters,
+                                                 robust_delta=delta2)
+    is_stereo = problem.obs_uvr[..., 2] >= 0.0
+    gate = torch.where(is_stereo, losses.CHI2_3DOF, losses.CHI2_2DOF)
+    e2, z = schur_bucketed.edge_chi2_and_depth(problem, cam)
+    active = problem.obs_valid & (e2 <= gate) & (z > 0)
+    problem, chi2, _ = schur_bucketed.ba_iterate_cg(problem, cam, active, second_iters,
+                                                    robust_delta=None)
+    e2, z = schur_bucketed.edge_chi2_and_depth(problem, cam)
+    survivors = problem.obs_valid & (e2 <= gate) & (z > 0)
+    return problem, survivors, chi2

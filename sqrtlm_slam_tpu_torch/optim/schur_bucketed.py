@@ -1,7 +1,8 @@
-"""Landmark-bucketed sqrt-Schur BA engine — the local-BA half.
+"""Landmark-bucketed sqrt-Schur BA engine: local BA and matrix-free global BA.
 
 Counterpart of `sqrtlm_slam_tpu/optim/schur_bucketed.py` (its XLA-layout
-path): damped LM with landmark Schur elimination in square-root form,
+path). Local BA is damped LM with landmark Schur elimination in
+square-root form,
 
     Hll_d = Lc Lc^T          (batched closed-form 3x3 Cholesky)
     V     = U Lc^{-T}        (whitened cross blocks, U = Jp^T w Jl)
@@ -15,6 +16,12 @@ K2 (`optim/assembly.py`) on CUDA and from its plain version on the CPU.
 JAX package left them to XLA. The LM loop is a Python loop of `torch.where`
 selects with no host sync per iteration. The TPU layouts (rows layout,
 chunked S-Gram, bf16 Y) are not ported.
+
+Global BA (`ba_iterate_cg`, `global_ba_cg`) applies the reduced camera
+system matrix-free inside a block-Jacobi PCG, with the context built from
+K2's `AssemblyOut` and the LM candidate test on K3 (`chi2_only`) at both
+ends. Camera-keyed sums go through `segment.segment_sum` (fixed order, no
+atomics), so global BA is bitwise repeatable on the card.
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ import torch
 
 from ..factors import reprojection as reproj
 from ..geometry import se3
+from ..utils import to_host
 from . import assembly
 from . import loss as losses
+from . import segment
 
 
 class BAProblem(NamedTuple):
@@ -353,6 +362,206 @@ def local_ba(problem: BucketedBAProblem, cam: reproj.Camera, first_iters: int = 
     e2, z = edge_chi2_and_depth(problem, cam)
     active = problem.obs_valid & (e2 <= gate) & (z > 0)
     problem, chi2, _ = ba_iterate(problem, cam, active, second_iters, robust_delta=None)
+    e2, z = edge_chi2_and_depth(problem, cam)
+    survivors = problem.obs_valid & (e2 <= gate) & (z > 0)
+    return problem, survivors, chi2
+
+
+# ----------------------------------------------------------------------
+# Matrix-free Schur + PCG: the whole-map (global BA) path.
+#
+# At 10^3 keyframes x 10^5 landmarks the dense (P, L, 6, 3) cross factor
+# does not fit; S is applied matrix-free: per-landmark K-axis reductions
+# plus one camera-keyed sum per matvec.
+# ----------------------------------------------------------------------
+
+
+def chi2_only(problem: BucketedBAProblem, cam: reproj.Camera, active, robust_delta):
+    """Robust chi2 at the problem's state: kernel K3 on CUDA, its plain
+    version on the CPU."""
+    w_active = problem.obs_inv_sigma2 * active.to(problem.points.dtype)
+    return assembly.chi2_sum(problem.pose_R, problem.pose_t, problem.points,
+                             problem.obs_cam, problem.obs_uvr, w_active, cam, robust_delta)
+
+
+def pose_plan(problem: BucketedBAProblem, active) -> segment.SegmentPlan:
+    """Camera grouping of the active slots (the only slots whose U is
+    nonzero). Depends on the observation graph alone: built once per LM
+    loop (one host read)."""
+    return segment.segment_plan(problem.obs_cam, problem.num_poses, keep=active)
+
+
+def _pose_accumulate(plan: segment.SegmentPlan, X: torch.Tensor) -> torch.Tensor:
+    """Sum over slots of X (L, K, D) into their camera rows -> (P, D), in a
+    fixed order."""
+    return segment.segment_sum(plan, X.reshape(-1, X.shape[-1]))
+
+
+class CGContext(NamedTuple):
+    U: torch.Tensor  # (L, K, 6, 3)
+    Minv: torch.Tensor  # (L, 3, 3) Lc^{-1} of the damped Hll
+    Hpp_d: torch.Tensor  # (P, 6, 6) damped
+    bp: torch.Tensor  # (P, 6)
+    bl: torch.Tensor  # (L, 3)
+    chi2: torch.Tensor  # () K2's chi2 (diagnostic; the LM test uses K3)
+
+
+def _cg_context(problem: BucketedBAProblem, cam: reproj.Camera, active, robust_delta,
+                mu) -> CGContext:
+    """Per-iteration quantities of the matrix-free solve, from K2's
+    reductions (the TPU branch of the JAX package builds them from its
+    Pallas assembly the same way)."""
+    red = assemble(problem, cam, active, robust_delta)
+    dtype, dev = red.bl.dtype, red.bl.device
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    dll = torch.diagonal(red.Hll, dim1=-2, dim2=-1)
+    Hll_d = red.Hll + mu * dll[..., None] * eye3 + 1e-8 * eye3
+    Hll_d = torch.where(problem.point_valid[:, None, None], Hll_d, eye3)
+    Minv = trinv_lower3x3(chol3x3(Hll_d))
+    dpp = torch.diagonal(red.Hpp, dim1=-2, dim2=-1)
+    Hpp_d = red.Hpp + mu * dpp[..., None] * eye6 + 1e-8 * eye6
+    return CGContext(U=red.U, Minv=Minv, Hpp_d=Hpp_d, bp=red.bp, bl=red.bl, chi2=red.chi2)
+
+
+def _apply_Ainv(Minv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Hll_d^{-1} x = Minv^T (Minv x), batched (L, 3)."""
+    return torch.einsum("lji,ljk,lk->li", Minv, Minv, x)
+
+
+def _pose_gather(obs_cam: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """v (P, D) -> (L, K, D) by camera index (a plain gather)."""
+    return v[obs_cam.long()]
+
+
+def _schur_matvec(v, ctx: CGContext, obs_cam, pose_fixed, plan: segment.SegmentPlan):
+    """S @ v for v (P, 6), matrix-free: two K-reductions + one camera-keyed
+    sum."""
+    v = torch.where(pose_fixed[:, None], torch.zeros_like(v), v)
+    Wt_v = torch.einsum("lkij,lki->lj", ctx.U, _pose_gather(obs_cam, v))  # (L, 3)
+    y = _apply_Ainv(ctx.Minv, Wt_v)
+    Uy = torch.einsum("lkij,lj->lki", ctx.U, y)  # (L, K, 6)
+    Sv = torch.einsum("pij,pj->pi", ctx.Hpp_d, v) - _pose_accumulate(plan, Uy)
+    return torch.where(pose_fixed[:, None], v, Sv)
+
+
+# Host checks of the PCG stop flag: every this many iterations (read at
+# call time).
+PCG_CHECK_EVERY = 10
+
+
+def _pcg(matvec, b, Minv_blocks, pose_fixed, max_iters: int, tol: float):
+    """Block-Jacobi preconditioned CG on the reduced camera system; stops at
+    ||r|| <= tol ||b|| or after `max_iters`.
+
+    The JAX package runs a device-side `lax.while_loop`. Here a done flag
+    freezes x, r, p and rz on the device as soon as the stop test holds, so
+    the iterates are exactly the while loop's; the host reads the flag only
+    every `PCG_CHECK_EVERY` iterations to leave the loop early (one host
+    read per check, counted by `utils.host_reads`). Returns (x, iterations)."""
+    check_every = PCG_CHECK_EVERY
+    b = torch.where(pose_fixed[:, None], torch.zeros_like(b), b)
+
+    def precond(r):
+        return torch.einsum("pij,pj->pi", Minv_blocks, r)
+
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    limit = tol * tol * torch.clamp(torch.sum(b * b), min=1e-20)
+    done = ~(torch.sum(r * r) > limit)
+    n = torch.zeros((), dtype=torch.int32, device=b.device)
+    for k in range(max_iters):
+        if k % check_every == 0 and bool(to_host(done)):
+            break
+        Ap = matvec(p)
+        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z = precond(r_n)
+        rz_n = torch.sum(r_n * z)
+        beta = rz_n / torch.clamp(rz, min=1e-20)
+        p_n = z + beta * p
+        x = torch.where(done, x, x_n)
+        r = torch.where(done, r, r_n)
+        p = torch.where(done, p, p_n)
+        rz = torch.where(done, rz, rz_n)
+        n = n + (~done).to(torch.int32)
+        done = done | ~(torch.sum(r * r) > limit)
+    return x, n
+
+
+def cg_reduce_and_solve(problem: BucketedBAProblem, cam: reproj.Camera, active,
+                        robust_delta, mu, cg_iters: int = 100, cg_tol: float = 1e-6,
+                        plan: Optional[segment.SegmentPlan] = None):
+    """One damped-GN step via matrix-free Schur + PCG. The default `cg_tol`
+    is a tight solve; the LM loop passes the forcing term 1e-2. `plan` is
+    `pose_plan(problem, active)` (built here when absent).
+
+    Returns (dxp (P,6), dxl (L,3), chi2 (K2's), bp, bl, cg_n)."""
+    if plan is None:
+        plan = pose_plan(problem, active)
+    ctx = _cg_context(problem, cam, active, robust_delta, mu)
+    dtype, dev = ctx.bp.dtype, ctx.bp.device
+
+    # rhs = -(bp - W Hll_d^{-1} bl), slot-wise.
+    y = _apply_Ainv(ctx.Minv, ctx.bl)
+    Uy = torch.einsum("lkij,lj->lki", ctx.U, y)
+    rhs = -(ctx.bp - _pose_accumulate(plan, Uy))
+
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    diag_ok = problem.pose_valid & ~problem.pose_fixed
+    M = torch.where(diag_ok[:, None, None], ctx.Hpp_d, eye6)
+    Mp = torch.linalg.inv(M + 1e-8 * eye6)
+
+    dxp, cg_n = _pcg(lambda v: _schur_matvec(v, ctx, problem.obs_cam, problem.pose_fixed,
+                                             plan),
+                     rhs, Mp, problem.pose_fixed, cg_iters, cg_tol)
+    dxp = torch.where(problem.pose_fixed[:, None], torch.zeros_like(dxp), dxp)
+    Wt_dxp = torch.einsum("lkij,lki->lj", ctx.U, _pose_gather(problem.obs_cam, dxp))
+    dxl = _apply_Ainv(ctx.Minv, -ctx.bl - Wt_dxp)
+    dxl = torch.where(problem.point_valid[:, None], dxl, torch.zeros_like(dxl))
+    return dxp, dxl, ctx.chi2, ctx.bp, ctx.bl, cg_n
+
+
+def ba_iterate_cg(problem: BucketedBAProblem, cam: reproj.Camera, active, num_iters: int,
+                  robust_delta: Optional[float], cg_iters: int = 100
+                  ) -> Tuple[BucketedBAProblem, torch.Tensor, torch.Tensor]:
+    """LM loop on the matrix-free PCG step (whole-map scale). One K2 launch
+    per iteration builds the step; the accept test compares K3's chi2 at
+    the candidate with K3's chi2 at the current state."""
+    chi2 = chi2_only(problem, cam, active, robust_delta)
+    dtype, dev = chi2.dtype, chi2.device
+    mu = torch.tensor(1e-3, dtype=dtype, device=dev)
+    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
+    plan = pose_plan(problem, active)
+    prob = problem
+    for _ in range(num_iters):
+        # Inexact-Newton forcing term: the LM gate bounds step quality.
+        dxp, dxl, _, bp, bl, _ = cg_reduce_and_solve(prob, cam, active, robust_delta, mu,
+                                                     cg_iters=cg_iters, cg_tol=1e-2,
+                                                     plan=plan)
+        candidate = _apply_update(prob, dxp, dxl)
+        chi2_c = chi2_only(candidate, cam, active, robust_delta)
+        accept, prob, mu, nu = _lm_accept(prob, candidate, chi2, chi2_c, dxp, dxl, bp, bl,
+                                          mu, nu)
+        chi2 = torch.where(accept, chi2_c, chi2)
+        n_acc = n_acc + accept.to(torch.int32)
+    return prob, chi2, n_acc
+
+
+def global_ba_cg(problem: BucketedBAProblem, cam: reproj.Camera, num_iters: int = 20):
+    """Whole-map global BA on the matrix-free engine: `num_iters` robust LM
+    iterations, then the chi2/depth survivor gate. Returns (problem,
+    survivors (L, K), chi2)."""
+    delta2 = math.sqrt(losses.CHI2_2DOF)
+    problem, chi2, _ = ba_iterate_cg(problem, cam, problem.obs_valid, num_iters,
+                                     robust_delta=delta2)
+    is_stereo = problem.obs_uvr[..., 2] >= 0.0
+    gate = torch.where(is_stereo, losses.CHI2_3DOF, losses.CHI2_2DOF)
     e2, z = edge_chi2_and_depth(problem, cam)
     survivors = problem.obs_valid & (e2 <= gate) & (z > 0)
     return problem, survivors, chi2

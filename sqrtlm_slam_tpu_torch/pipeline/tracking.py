@@ -13,10 +13,13 @@ Device work stays on the frame's device; the host reads results twice per
 frame (the stage-A inlier count that decides the widened retry, and one
 packed fetch of the step's results) plus once per inserted keyframe.
 
+At every keyframe insertion the system's `vocab_hook` supplies the
+keyframe's word ids and BoW vector (place recognition reads them).
+
 Not ported yet (they raise `NotImplementedError`): the no-prior pose
-recovery and relocalisation, which need PnP RANSAC and place recognition
-(ROADMAP queue 1, item 9), monocular initialization (item 8), LiDAR
-coupling (item 7) and the pipelined mode.
+recovery and relocalisation, which need PnP RANSAC (ROADMAP queue 1,
+item 9), monocular initialization (item 8), LiDAR coupling (item 7) and the
+pipelined mode.
 """
 
 from __future__ import annotations
@@ -35,8 +38,8 @@ from ..utils import desc_to_numpy, desc_to_torch, to_host
 from .frame import Frame
 
 _NOT_PORTED_RELOC = (
-    "is not ported yet: it needs PnP RANSAC and place recognition "
-    "(ROADMAP queue 1, item 9: relocalisation and place recognition)"
+    "is not ported yet: it needs PnP RANSAC "
+    "(ROADMAP queue 1, item 9: relocalisation and PnP)"
 )
 
 
@@ -182,6 +185,10 @@ class Tracker:
         self.trajectory: list = []
         self.last_lm_ids: Optional[np.ndarray] = None
         self.new_kf_callback = None
+        # Set by the system: (desc, valid) -> (words, bow) device tensors, or
+        # (None, None) while no vocabulary exists.
+        self.vocab_hook = None
+        self.reloc_db = None  # KeyFrameDatabase set by the system
         # Device-resident local map, cached until the map mutates.
         self._lm_cache_key = None
         self._lm_cache: Optional[LocalMapBuffer] = None
@@ -251,14 +258,21 @@ class Tracker:
                          frame_id=None) -> int:
         """Create a keyframe + landmarks from depth (CreateNewKeyFrame): new
         landmarks come from depth-carrying keypoints not already matched to
-        the map, nearest-first, capped. One packed read of the frame."""
+        the map, nearest-first, capped. One packed read of the frame and its
+        words and BoW vector."""
         store = self.store
         kp = frame.kp
+        words = bow = None
+        if self.vocab_hook is not None:
+            words, bow = self.vocab_hook(kp.desc, kp.valid)
         pf = torch.cat([kp.xy, frame.uvr, frame.depth[:, None], kp.angle[:, None]], dim=-1)
         pi = torch.cat([kp.desc, kp.octave[:, None].to(torch.int32),
                         kp.valid[:, None].to(torch.int32)], dim=-1)
         ps = torch.cat([self.pose.R.reshape(-1), self.pose.t])
-        pf, pi, ps = to_host(pf, pi, ps)
+        if words is not None:
+            pf, pi, ps, words, bow = to_host(pf, pi, ps, words, bow)
+        else:
+            pf, pi, ps = to_host(pf, pi, ps)
         xy, uvr, depth_a, angle = pf[:, :2], pf[:, 2:5], pf[:, 5], pf[:, 6]
         desc = desc_to_numpy(np.ascontiguousarray(pi[:, :8]))
         octave = pi[:, 8].astype(np.int32)
@@ -269,7 +283,7 @@ class Tracker:
             R, t = ps[:9].reshape(3, 3), ps[9:12]
         kf = store.add_keyframe(
             R=np.asarray(R), t=np.asarray(t), xy=xy, uvr=uvr, depth=depth_a, desc=desc,
-            angle=angle, octave=octave, kp_valid=kp_valid, words=None, bow=None,
+            angle=angle, octave=octave, kp_valid=kp_valid, words=words, bow=bow,
             frame_id=self.frame_idx if frame_id is None else frame_id,
         )
 
