@@ -7,11 +7,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
   1. build the hand-written kernels K1 (csrc/hamming.cu) and K2 with its
      chi2-only instance K3 (csrc/ba_assembly.cu) with nvcc for sm_90a, one
      compiler per source, started together;
-  2. K1 against its plain PyTorch version at the main path's shapes on
-     random full-32-bit descriptors — exactly equal — with both times;
-  3. K2 against its plain version at (P, L, K) = (32, 4096, 8) and
-     (96, 8192, 5), with and without the Huber kernel, at rtol 5e-3 /
-     atol 5e-4, bitwise repeatable, with both times;
+  2. K1 against its plain PyTorch version on random full-32-bit
+     descriptors at the main path's shapes and at ragged ones (1x1, 37x5,
+     129x2047, 2047x129) — exactly equal — with both times; at the main
+     shapes also the library yardstick, one cuBLAS `addmm` on the
+     descriptors unpacked to +-1 in float16 (checked equal to K1 first; the
+     unpack timed apart; the port never calls it);
+  3. K2 against its plain version at (P, L, K) = (32, 4096, 8),
+     (96, 8192, 5) and (1400, 60000, 7) (past the ~954 poses of K2's first
+     design), with and without the Huber kernel, at rtol 5e-3 / atol 5e-4,
+     bitwise repeatable, with both times and the largest camera group of
+     the camera pass;
   4. the main path at KITTI size: `SlamSystem.track_depth` over 16 frames of
      a synthetic world rendered at 1226x370 with the KITTI 00-02
      intrinsics, 2000 ORB features, default tracking and mapping configs.
@@ -25,22 +31,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
   7. K3 against its plain version at (P, L, K) = (96, 8192, 5) (the bench
      problem) and (600, 120000, 7) (phase 8's global-BA problem), with and
      without the Huber kernel: rtol 1e-4 against
-     the plain version evaluated in float64, bitwise repeatable, compared
-     with K2's chi2 on the same inputs, with both times;
+     the plain version evaluated in float64, bitwise repeatable, bitwise
+     equal to K2's chi2 on the same inputs, with both times (and K2's
+     times on the global-BA problem);
   8. global BA at scale (benchmarks/bench_scale.py's flow): 600 keyframes,
      1.2e5 landmarks, 5 observations each, drift 4e-4; the true loop edge
      through the essential graph (edge_cap 16384, 30 iterations), then 10 LM
      iterations of `LoopCloser.run_global_ba`. Counters zeroed just before
-     the GBA and read just after; ATE must fall at each stage, chi2 must
-     fall, K2 and K3 must launch, and a second GBA from the same store must
-     give bitwise-equal poses and landmarks;
+     the GBA and read just after; the ATE at each stage (drift, essential
+     graph, GBA) must lie within 1e-3 m of 0.5363 / 0.1349 / 0.0951, chi2
+     must fall, K2 and K3 must launch, and a second GBA from the same store
+     must give bitwise-equal poses and landmarks;
   9. the loop path end to end: `SlamSystem(..., loop_detection=True)` over
      the ring scene of tests/test_e2e_loop.py (ring_world(7, 2500), 160
      frames at frac 1.3, 240x320, 600 features, default LoopClosingConfig).
      Counters zeroed just before and read just after; >= 158 frames tracked,
      >= 1 loop closed, >= 20 landmarks fused, ATE < 0.3 m, K3 launched
      inside the loop's global BA.
-Then the kernel summary line, the card line, and the final status line.
+Then the kernel summary line (each kernel's launches on the main path, its
+time, its plain version's, its bound from this run's shapes and, where one
+PyTorch call computes the same function, that call's time), the card line,
+and the final status line.
 
 Imports nothing of JAX and nothing of the JAX package; inputs are made
 from seeds with numpy. Needs `torch.cuda.is_available()`.
@@ -64,6 +75,19 @@ KITTI_W, KITTI_H = 1226, 370
 KITTI_INTRINSICS = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448)
 K2_RTOL, K2_ATOL = 5e-3, 5e-4
 K3_RTOL = 1e-4
+# Global BA at scale: ATE (m) after the drift, the essential graph and GBA,
+# as this flow gives them (first measured on the H100, float32 throughout).
+GBA_ATE_STAGES = (0.5363, 0.1349, 0.0951)
+GBA_ATE_TOL = 1e-3
+# The least time a kernel could take: NVIDIA H100 SXM peaks (data sheet).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12  # CUDA cores, no tensor cores
+INT8_OP_PER_S = 1979e12  # tensor cores, dense
+# Float32 operations per slot of the BA assembly, counted from its formulas:
+# projection, residual and Huber weight ~45, Jacobians ~110, Hll + bl ~110,
+# U ~160; per active slot the camera sums Jp^T w Jp (upper triangle) and
+# Jp^T w r ~180. K3 is the first ~45 alone.
+K2_FLOP_SLOT, K2_FLOP_CAMERA, K3_FLOP_SLOT = 430, 180, 45
 
 
 def emit(phase: str, **fields) -> None:
@@ -79,7 +103,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
-    """Median device time of `fn` in ms (CUDA events around each call)."""
+    """Median time of one call of `fn` in ms, CUDA events around each call:
+    the device time plus any gap while the host dispatches (a wrapper's
+    Python work idles the card for tens of microseconds)."""
     import torch
 
     for _ in range(warm):
@@ -95,6 +121,76 @@ def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, n: int = 20, warm: int = 3, by_kernel: bool = False):
+    """Device time of one call of `fn` in ms: the summed time of the kernels
+    (and copies) it runs on the card, from torch.profiler, over `n` calls.
+    Host dispatch gaps between them are not counted. With `by_kernel`, also
+    {kernel name: ms per call}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    us = sum(e.self_device_time_total for e in rows)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    if by_kernel:
+        return us / 1e3 / n, {e.key[:60]: e.self_device_time_total / 1e3 / n for e in rows}
+    return us / 1e3 / n
+
+
+def timed_ms(fn, n: int = 20) -> dict:
+    """Device time (ms) per kernel and in all, and the event-timed call
+    (call_ms) of `fn`."""
+    ms, per_kernel = device_ms(fn, n, by_kernel=True)
+    return {"ms": ms, "per_kernel_ms": per_kernel, "call_ms": cuda_ms(fn, n)}
+
+
+def bound(nbytes: float, ops: float, rate: float) -> dict:
+    """Least time (ms) for `nbytes` of memory traffic and `ops` operations
+    at `rate` per second, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def k1_bound(Q: int, T: int) -> dict:
+    # Descriptors read once (32 bytes a row), the int32 matrix written once;
+    # 2 * 256 int8 operations per output on the tensor cores.
+    return bound(32 * (Q + T) + 4 * Q * T, 2 * 256 * Q * T, INT8_OP_PER_S)
+
+
+def k2_bound(P: int, L: int, K: int, n_active: int) -> dict:
+    # In: poses (52 B), points (12 B), per slot camera + uvr + weight (20 B),
+    # the camera plan (4 B per camera and per active slot). Out: Hll + bl
+    # (48 B per landmark), U (72 B per slot), Hpp + bp (168 B per camera).
+    nbytes = 52 * P + 12 * L + 20 * L * K + 4 * (P + 1 + n_active) \
+        + 48 * L + 72 * L * K + 168 * P + 4
+    return bound(nbytes, K2_FLOP_SLOT * L * K + K2_FLOP_CAMERA * n_active, F32_FLOP_PER_S)
+
+
+def k3_bound(P: int, L: int, K: int) -> dict:
+    return bound(48 * P + 12 * L + 20 * L * K + 4, K3_FLOP_SLOT * L * K, F32_FLOP_PER_S)
+
+
+def pm1_half(desc):
+    """(N, 8) int32 descriptors -> (N, 256) float16 of +1 (bit clear) and -1
+    (bit set), bit j of word w at column 32 w + j: the operand of the
+    library yardstick for K1."""
+    import torch
+
+    shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
+    bits = (desc[:, :, None] >> shifts) & 1
+    return (1 - 2 * bits).reshape(desc.shape[0], 256).to(torch.float16)
 
 
 def gt_cam_to_world(poses) -> np.ndarray:
@@ -172,43 +268,74 @@ def main() -> None:
 
     # 2. K1 vs plain ------------------------------------------------------
     k1 = {}
-    for Q, T in ((2048, 2000), (4096, 2000), (2000, 2000)):
+    main_shapes = ((2048, 2000), (4096, 2000), (2000, 2000))
+    for Q, T in main_shapes + ((1, 1), (37, 5), (129, 2047), (2047, 129)):
         q, t = words(Q), words(T)
         got = hamming.hamming_matrix(q, t)
         want = hamming.hamming_matrix_plain(q, t)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"K1 differs from its plain version at {(Q, T)}")
-        ms = cuda_ms(lambda: hamming.hamming_matrix(q, t))
-        plain_ms = cuda_ms(lambda: hamming.hamming_matrix_plain(q, t), n=5)
-        k1[(Q, T)] = (ms, plain_ms)
-        emit("k1_vs_plain", shape=[Q, T], exact=True, ms=ms, plain_ms=plain_ms)
+        kt = timed_ms(lambda: hamming.hamming_matrix(q, t))
+        plain_ms = device_ms(lambda: hamming.hamming_matrix_plain(q, t), n=5)
+        lib = {}
+        if (Q, T) in main_shapes:
+            # The yardstick: 128 - dot / 2 of the +-1 operands, exact in
+            # float16 (integers <= 256) with float32 accumulation.
+            A, B = pm1_half(q), pm1_half(t)
+            c128 = torch.tensor(128.0, dtype=torch.float16, device=dev)
+            ref = torch.addmm(c128, A, B.T, alpha=-0.5)
+            torch.cuda.synchronize()
+            if not torch.equal(ref.to(torch.int32), got):
+                raise AssertionError(f"the addmm yardstick differs from K1 at {(Q, T)}")
+            lib = dict(library_ms=device_ms(lambda: torch.addmm(c128, A, B.T, alpha=-0.5)),
+                       library_unpack_ms=device_ms(lambda: (pm1_half(q), pm1_half(t))))
+        k1[(Q, T)] = dict(**kt, plain_ms=plain_ms, **k1_bound(Q, T), **lib)
+        emit("k1_vs_plain", shape=[Q, T], exact=True, **k1[(Q, T)])
 
     # 3. K2 vs plain ------------------------------------------------------
     cam_bench = synthetic.DEFAULT_CAM
     k2 = {}
     k2_err = 0.0
-    for P, L, K in ((32, 4096, 8), (96, 8192, 5)):
+    for P, L, K in ((32, 4096, 8), (96, 8192, 5), (1400, 60000, 7)):
+        # (1400, 60000, 7): KITTI 00's keyframe count on the bench problem's
+        # 14.4 m track, observations nearer than 1 m to a camera dropped.
+        big = dict(spacing=96 * 0.15 / P, min_depth=1.0) if P > 96 else {}
         flat, _ = synthetic.make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6,
-                                            obs_per_landmark=K)
+                                            obs_per_landmark=K, **big)
         prob = schur_bucketed.from_flat(flat, K, device=dev)
         w = prob.obs_inv_sigma2 * prob.obs_valid.float()
+        # The camera pass's slot table, as the LM loops build it once.
+        groups = schur_bucketed.camera_groups(prob, prob.obs_valid)
+        n_active = int(groups.offsets[-1])
+        max_group = int((groups.offsets[1:] - groups.offsets[:-1]).max())
         for delta in (None, 2.447):
             args = (prob.pose_R, prob.pose_t, (~prob.pose_fixed).float(), prob.points,
                     prob.obs_cam, prob.obs_uvr, w, cam_bench, delta)
             got = assembly.assemble(*args)
-            again = assembly.assemble(*args)
+            again = assembly.assemble(*args, groups=groups)
             plain32 = assembly.assemble_plain(*args)
             torch.cuda.synchronize()
             for name, g, a in zip(assembly.AssemblyOut._fields, got, again):
                 if not torch.equal(g, a):
                     raise AssertionError(f"K2 {name} not repeatable at {(P, L, K, delta)}")
             # Against the plain version evaluated in float64 on the same inputs
-            # (see assembly.excess_over_plain for the rule).
-            excess = assembly.excess_over_plain(got, *args, rtol=K2_RTOL, atol=K2_ATOL)
+            # (see assembly.excess_over_plain for the rule). With hundreds of
+            # slots per camera the rule admits the float32 summation bound for
+            # Hpp and bp too; the strict rule's excess of K2 and of the
+            # float32 plain version is printed beside it.
+            big_sums = P > 96
+            excess = assembly.excess_over_plain(got, *args, rtol=K2_RTOL, atol=K2_ATOL,
+                                                camera_sums=big_sums)
             bad = {n: e for n, (e, _) in excess.items() if e > 0}
             if bad:
                 raise AssertionError(f"K2 off its plain version at {(P, L, K, delta)}: {bad}")
+            strict = {}
+            if big_sums:
+                strict = {f"strict_excess_{who}": {
+                    n: e for n, (e, _) in assembly.excess_over_plain(
+                        res, *args, rtol=K2_RTOL, atol=K2_ATOL).items()}
+                    for who, res in (("k2", got), ("plain_f32", plain32))}
             args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a
                       for a in args]
             errs = {n: float((g.double() - p).abs().max()) for n, g, p in
@@ -216,13 +343,18 @@ def main() -> None:
             vs32 = {n: float((g - p).abs().max())
                     for n, g, p in zip(assembly.AssemblyOut._fields, got, plain32)}
             k2_err = max(k2_err, max(errs.values()))
-            ms = cuda_ms(lambda: assembly.assemble(*args))
-            plain_ms = cuda_ms(lambda: assembly.assemble_plain(*args), n=10)
-            k2[(P, L, K, delta)] = (ms, plain_ms)
+            kt = timed_ms(lambda: assembly.assemble(*args, groups=groups))
+            plain_ms = device_ms(lambda: assembly.assemble_plain(*args), n=5)
+            k2[(P, L, K, delta)] = dict(**kt, plain_ms=plain_ms,
+                                        **k2_bound(P, L, K, n_active))
             emit("k2_vs_plain", shape=[P, L, K], robust_delta=delta, rtol=K2_RTOL,
                  atol=K2_ATOL, max_abs_err_vs_plain_f64=errs,
                  beyond_rtol_atol={n: c for n, (_, c) in excess.items()},
-                 max_abs_diff_vs_plain_f32=vs32, repeatable=True, ms=ms, plain_ms=plain_ms)
+                 max_abs_diff_vs_plain_f32=vs32, repeatable=True,
+                 camera_sum_bound=big_sums, **strict,
+                 active_slots=n_active, max_slots_per_camera=max_group,
+                 **k2[(P, L, K, delta)])
+        del prob, groups, got, again, plain32
 
     # 4. Main path at KITTI size ------------------------------------------
     kcam = Camera(**KITTI_INTRINSICS)
@@ -331,9 +463,9 @@ def main() -> None:
                     cam_bench, delta)
             got = assembly.chi2_sum(*args)
             again = assembly.chi2_sum(*args)
-            k2_chi2 = assembly.assemble(prob.pose_R, prob.pose_t, (~prob.pose_fixed).float(),
-                                        prob.points, prob.obs_cam, prob.obs_uvr, w, cam_bench,
-                                        delta).chi2
+            k2_args = (prob.pose_R, prob.pose_t, (~prob.pose_fixed).float(), prob.points,
+                       prob.obs_cam, prob.obs_uvr, w, cam_bench, delta)
+            k2_chi2 = assembly.assemble(*k2_args).chi2
             torch.cuda.synchronize()
             if not torch.equal(got, again):
                 raise AssertionError(f"K3 not repeatable at {(P, L, K, delta)}")
@@ -345,13 +477,26 @@ def main() -> None:
                 raise AssertionError(f"K3 off its plain version at {(P, L, K, delta)}: "
                                      f"{float(got)} vs {want} (rel {rel})")
             k3_err = max(k3_err, abs(float(got) - want))
-            ms = cuda_ms(lambda: assembly.chi2_sum(*args))
-            plain_ms = cuda_ms(lambda: assembly.chi2_plain(*args), n=10)
-            k3[(P, L, K, delta)] = (ms, plain_ms)
+            equal_k2 = bool(torch.equal(got, k2_chi2))
+            if not equal_k2:
+                raise AssertionError(f"K3 differs from K2's chi2 at {(P, L, K, delta)}: "
+                                     f"{float(got)} vs {float(k2_chi2)}")
+            kt = timed_ms(lambda: assembly.chi2_sum(*args))
+            plain_ms = device_ms(lambda: assembly.chi2_plain(*args), n=10)
+            k3[(P, L, K, delta)] = dict(**kt, plain_ms=plain_ms, **k3_bound(P, L, K))
+            k2_here = {}
+            if P == 600 and delta is not None:
+                # K2 on global BA's problem, as its LM loop calls it.
+                groups = schur_bucketed.camera_groups(prob, prob.obs_valid)
+                n_active = int(groups.offsets[-1])
+                k2_here = dict(k2_at_this_shape=dict(
+                    **timed_ms(lambda: assembly.assemble(*k2_args, groups=groups)),
+                    plain_ms=device_ms(lambda: assembly.assemble_plain(*k2_args), n=3),
+                    max_slots_per_camera=int((groups.offsets[1:] - groups.offsets[:-1]).max()),
+                    **k2_bound(P, L, K, n_active)))
             emit("k3_vs_plain", shape=[P, L, K], robust_delta=delta, rtol=K3_RTOL,
                  chi2=float(got), plain_f64=want, rel_err=rel, repeatable=True,
-                 equal_to_k2_chi2=bool(torch.equal(got, k2_chi2)),
-                 k2_chi2_diff=float(got) - float(k2_chi2), ms=ms, plain_ms=plain_ms)
+                 equal_to_k2_chi2=equal_k2, **k3[(P, L, K, delta)], **k2_here)
         del prob
 
     # 8. Global BA at scale ----------------------------------------------
@@ -410,8 +555,10 @@ def main() -> None:
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if not (gba_ok and gba2_ok):
         raise AssertionError("global BA at scale did not complete")
-    if not ate_drift > ate_eg > ate_gba:
-        raise AssertionError(f"ATE did not fall at each stage: {ate_drift}, {ate_eg}, {ate_gba}")
+    stages = (ate_drift, ate_eg, ate_gba)
+    if not all(abs(a - b) <= GBA_ATE_TOL for a, b in zip(stages, GBA_ATE_STAGES)):
+        raise AssertionError(f"ATE stages {stages} m not within {GBA_ATE_TOL} m of "
+                             f"{GBA_ATE_STAGES}")
     if not chi2_after < chi2_before:
         raise AssertionError(f"GBA chi2 did not fall: {chi2_before} -> {chi2_after}")
     if min(gba_launches.values()) <= 0:
@@ -476,20 +623,23 @@ def main() -> None:
         raise AssertionError(f"ring: a kernel never launched: {loop_launches}, {gba_runs}")
 
     # Summary -------------------------------------------------------------
+    def timed(rec, *keys):  # the keys of the summary line
+        return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by") + keys}
+
     kernels = [
         dict(name="hamming", route="cuda", source="sqrtlm_slam_tpu_torch/csrc/hamming.cu",
              replaces="sqrtlm_slam_tpu/ops/hamming.py:45", launches=launches["hamming"],
-             max_abs_err=0.0, ms=k1[(2048, 2000)][0], plain_ms=k1[(2048, 2000)][1]),
+             max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
              replaces="sqrtlm_slam_tpu/optim/assembly_pallas.py:342",
              launches=launches["ba_assembly"], max_abs_err=k2_err,
-             ms=k2[(32, 4096, 8, 2.447)][0], plain_ms=k2[(32, 4096, 8, 2.447)][1]),
+             **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
              replaces="sqrtlm_slam_tpu/optim/assembly_pallas.py:508",
              launches=loop_launches["ba_chi2"], max_abs_err=k3_err,
-             ms=k3[(600, 120000, 7, 2.447)][0], plain_ms=k3[(600, 120000, 7, 2.447)][1]),
+             **timed(k3[(600, 120000, 7, 2.447)]), library_ms=None),
     ]
     emit("done", total_s=time.perf_counter() - t_start, build_s=built)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -169,12 +169,15 @@ DEFAULT_CAM = Camera(fx=220.0, fy=220.0, cx=160.0, cy=120.0, bf=44.0)
 def make_ba_problem(seed: int = 0, P: int = 8, L: int = 256, cam: Camera = DEFAULT_CAM,
                     noise: float = 0.3, pose_noise: float = 0.05, point_noise: float = 0.05,
                     stereo_frac: float = 0.6, n_fixed: int = 2, spacing: float = 0.15,
-                    obs_per_landmark: int = 0):
+                    obs_per_landmark: int = 0, min_depth: float = 0.0):
     """Synthetic flat BA problem (numpy), the layout of the JAX generator:
     poses on a rough line looking down +z, landmarks ahead, a perturbed
     initial estimate. `obs_per_landmark > 0` gives sparse covisibility (each
     landmark seen by that many consecutive poses around its home pose).
-    Returns (schur_bucketed.BAProblem, (R_true (P,3,3), t_true (P,3)))."""
+    `min_depth > 0` marks observations whose true depth is below it invalid
+    (at tens of thousands of landmarks a few fall next to a camera's
+    z = 0 plane, where no float32 evaluation is accurate). Returns
+    (schur_bucketed.BAProblem, (R_true (P,3,3), t_true (P,3)))."""
     from ..optim.schur_bucketed import BAProblem
 
     rng = np.random.RandomState(seed)
@@ -217,6 +220,7 @@ def make_ba_problem(seed: int = 0, P: int = 8, L: int = 256, cam: Camera = DEFAU
         pose_fixed=np.arange(P) < n_fixed, pose_valid=np.ones(P, bool),
         points=points_init, point_valid=np.ones(L, bool),
         obs_cam=obs_cam, obs_pt=obs_pt, obs_uvr=uvr,
-        obs_inv_sigma2=np.ones(E, f32), obs_valid=np.ones(E, bool),
+        obs_inv_sigma2=np.ones(E, f32),
+        obs_valid=z >= min_depth if min_depth > 0 else np.ones(E, bool),
     )
     return problem, (R_true.astype(f32), t_true)

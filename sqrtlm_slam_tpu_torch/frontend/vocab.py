@@ -66,7 +66,7 @@ def _majority_medoid(descs: np.ndarray) -> np.ndarray:
 
 
 def train(descriptors: np.ndarray, k: int = 10, depth: int = 3, iters: int = 8,
-          seed: int = 0, device="cpu") -> Vocabulary:
+          seed: int = 0, device="cuda") -> Vocabulary:
     """Hierarchical binary k-medians (numpy, host). descriptors: (N, 8)
     uint32 (N >= k^depth). The vocabulary is returned on `device`."""
     rng = np.random.RandomState(seed)
@@ -154,7 +154,7 @@ def bow_window_mask(words_q: torch.Tensor, words_t: torch.Tensor, levels_up: int
     return (words_q[:, None] == words_t[None, :]) & (words_q[:, None] >= 0)
 
 
-def load(path, device="cpu") -> Vocabulary:
+def load(path, device="cuda") -> Vocabulary:
     z = np.load(path)
     depth = int(z["depth"])
     return Vocabulary(
@@ -164,6 +164,6 @@ def load(path, device="cpu") -> Vocabulary:
     )
 
 
-def load_default(device="cpu") -> Optional[Vocabulary]:
+def load_default(device="cuda") -> Optional[Vocabulary]:
     """The shipped synthetic-domain vocabulary, or None if absent."""
     return load(DEFAULT_ASSET, device) if DEFAULT_ASSET.exists() else None

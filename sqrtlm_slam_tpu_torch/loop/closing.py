@@ -150,7 +150,7 @@ class LoopCloser:
     """Sequential loop closer over the SoA map store."""
 
     def __init__(self, store: MapStore, cam: Camera, voc: Optional[vocab.Vocabulary] = None,
-                 cfg: LoopClosingConfig = LoopClosingConfig(), device="cpu"):
+                 cfg: LoopClosingConfig = LoopClosingConfig(), device="cuda"):
         self.store = store
         self.cam = cam
         self.voc = voc
@@ -806,7 +806,7 @@ class LoopCloser:
 # ----------------------------------------------------------------------
 
 
-def gather_global_problem_bucketed(store: MapStore, device="cpu"):
+def gather_global_problem_bucketed(store: MapStore, device="cuda"):
     """All valid KFs + landmarks -> BucketedBAProblem on `device`. The store's
     per-landmark observation table is the bucketed layout already, so the
     gather is vectorized numpy slicing (no TPU lane padding of L)."""

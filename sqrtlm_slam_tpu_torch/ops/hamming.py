@@ -7,7 +7,7 @@ CPU, and XOR/popcount do not care about the sign bit.
 
 `hamming_matrix` dispatches by tensor device only: a CPU tensor takes the
 plain PyTorch version (XOR + byte-LUT popcount); a CUDA tensor launches the
-hand-written kernel `csrc/hamming.cu` or raises.
+hand-written tensor-core kernel `csrc/hamming.cu` or raises.
 """
 
 from __future__ import annotations
@@ -62,6 +62,9 @@ def _check_desc(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: expected shape (N, {_WORDS}), got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor (the kernel loads "
+                         "rows with 16-byte loads)")
 
 
 @functools.lru_cache(maxsize=None)

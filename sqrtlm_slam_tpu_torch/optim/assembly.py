@@ -12,9 +12,11 @@ and summation order: the LM candidate test of global BA.
 the plain PyTorch versions (`edge_terms` + `reductions`, the math of the JAX
 package's `schur_bucketed._edge_terms` + `reductions_from_terms`; K3's is
 `edge_terms(...)[4]`); CUDA tensors launch the hand-written kernels of
-`csrc/ba_assembly.cu` (K3 is its `kChi2Only` instance) or raise. The TPU
-layouts (landmarks on 128 lanes, one-hot MXU gathers, `L % 128`) are not
-carried over.
+`csrc/ba_assembly.cu` or raise. K2 there is a landmark pass and a camera
+pass; the camera pass walks each camera's slots from a `segment.KeyGroups`
+of the active slots (the caller's, or one built per call). The TPU layouts
+(landmarks on 128 lanes, one-hot MXU gathers, `L % 128`) are not carried
+over.
 """
 
 from __future__ import annotations
@@ -29,11 +31,11 @@ from ..factors import reprojection as reproj
 from ..geometry import se3
 from ..ops import build
 from . import loss as losses
+from . import segment
 
 # Number of K2 and of K3 launches in this process (reset by callers that count).
 launch_count = 0
 chi2_launch_count = 0
-_ENTRIES = 42  # per-camera partial: Hpp (36) + bp (6)
 _MAX_K = 16
 
 
@@ -98,7 +100,8 @@ def assemble_plain(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active
 
 def excess_over_plain(got: AssemblyOut, pose_R, pose_t, pose_free, points, obs_cam,
                       obs_uvr, w_active, cam: reproj.Camera, robust_delta: Optional[float],
-                      rtol: float = 5e-3, atol: float = 5e-4) -> dict:
+                      rtol: float = 5e-3, atol: float = 5e-4,
+                      camera_sums: bool = False) -> dict:
     """Hold a K2 result against the plain version evaluated in float64 on the
     same inputs. Returns {output: (worst excess, elements past rtol/atol)};
     a worst excess <= 0 passes.
@@ -109,7 +112,14 @@ def excess_over_plain(got: AssemblyOut, pose_R, pose_t, pose_free, points, obs_c
     3K terms of such a sum nearly cancel, no float32 evaluation meets 5e-4
     absolute (at the bench shape the float32 plain version itself misses it
     by 3e-4). By Cauchy-Schwarz, sum|terms| <= sqrt(Hll_ii * E_l) for bl_i
-    and <= sqrt(Hll_ii * Hll_jj) for Hll_ij, with E_l = sum_k w |r|^2."""
+    and <= sqrt(Hll_ii * Hll_jj) for Hll_ij, with E_l = sum_k w |r|^2.
+
+    `camera_sums` admits the same bound for the camera sums Hpp and bp, with
+    gamma = (3 n_p + 8) * eps32 for the n_p active slots of camera p. It is
+    for problems with hundreds of slots per camera: there an off-diagonal
+    Hpp entry can cancel from terms of 1e5 to a few hundredths, and the
+    float32 plain version misses atol too (by 5e-3 at (1400, 60000, 7)
+    with Huber)."""
     f64 = torch.float64
     args64 = [a.to(f64) if a.is_floating_point() else a
               for a in (pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active)]
@@ -122,6 +132,17 @@ def excess_over_plain(got: AssemblyOut, pose_R, pose_t, pose_free, points, obs_c
     gamma = (3 * obs_cam.shape[1] + 8) * torch.finfo(torch.float32).eps
     extra = {"Hll": gamma * torch.sqrt(d[:, :, None] * d[:, None, :]),
              "bl": gamma * torch.sqrt(d * E[:, None])}
+    if camera_sums:
+        P = pose_R.shape[0]
+        c = args64[4].reshape(-1).long()
+        active = (w > 0).reshape(-1)
+        n_p = torch.bincount(c[active], minlength=P).to(f64)
+        E_p = torch.zeros(P, dtype=f64, device=w.device).index_add_(
+            0, c, (w * torch.sum(r * r, dim=-1)).reshape(-1))
+        g_p = ((3 * n_p + 8) * torch.finfo(torch.float32).eps)[:, None]
+        dp = torch.diagonal(ref.Hpp, dim1=-2, dim2=-1).clamp(min=0)  # (P, 6)
+        extra["Hpp"] = g_p[..., None] * torch.sqrt(dp[:, :, None] * dp[:, None, :])
+        extra["bp"] = g_p * torch.sqrt(dp * E_p[:, None])
     out = {}
     for name, g, p in zip(AssemblyOut._fields, got, ref):
         err = (g.to(f64) - p).abs()
@@ -149,7 +170,7 @@ def _lib():
     """The kernel library (built at first use) with its C functions typed."""
     lib = build.load("ba_assembly")
     lib.ba_assembly_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
         + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 8
     )
     lib.ba_assembly_launch.restype = ctypes.c_int
@@ -158,24 +179,23 @@ def _lib():
         + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
     )
     lib.ba_chi2_launch.restype = ctypes.c_int
-    lib.ba_assembly_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.ba_assembly_smem_bytes.restype = ctypes.c_size_t
+    lib.ba_chi2_smem_bytes.argtypes = [ctypes.c_int]
+    lib.ba_chi2_smem_bytes.restype = ctypes.c_size_t
     lib.ba_assembly_smem_limit.argtypes = [ctypes.c_int]
     lib.ba_assembly_smem_limit.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def max_poses(device_index: int, chi2_only: bool = False) -> int:
-    """Largest P whose per-block shared memory (K2: poses + camera partial;
-    K3: poses) fits on the device."""
+def max_poses_chi2(device_index: int) -> int:
+    """Largest P whose staged poses fit in one K3 block's shared memory (K2
+    has no such cap)."""
     lib = _lib()
     limit = lib.ba_assembly_smem_limit(device_index)
     if limit <= 0:
         raise RuntimeError("cudaDeviceGetAttribute(MaxSharedMemoryPerBlockOptin) failed")
-    fn = lib.ba_assembly_smem_bytes
-    per_pose = fn(1, int(chi2_only)) - fn(0, int(chi2_only))
-    return int((limit - fn(0, int(chi2_only))) // per_pose)
+    fn = lib.ba_chi2_smem_bytes
+    return int((limit - fn(0)) // (fn(1) - fn(0)))
 
 
 def _device_index(device: torch.device) -> int:
@@ -183,8 +203,10 @@ def _device_index(device: torch.device) -> int:
 
 
 def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
-                  cam: reproj.Camera, robust_delta: Optional[float]) -> AssemblyOut:
-    """Launch K2 on the current stream (all inputs on one CUDA device)."""
+                  cam: reproj.Camera, robust_delta: Optional[float],
+                  groups: segment.KeyGroups) -> AssemblyOut:
+    """Launch K2 on the current stream (all inputs on one CUDA device).
+    `groups` lists the active slots of `obs_cam` by camera (P keys)."""
     global launch_count
     device = points.device
     if device.type != "cuda":
@@ -200,9 +222,8 @@ def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
     _check(w_active, "w_active", f32, (L, K), device)
     if P < 1 or K < 1 or K > _MAX_K:
         raise ValueError(f"assemble_cuda: need P >= 1 and 1 <= K <= {_MAX_K}, got P={P} K={K}")
-    cap = max_poses(_device_index(device))
-    if P > cap:
-        raise ValueError(f"assemble_cuda: P={P} exceeds the shared-memory cap of {cap} poses")
+    _check(groups.offsets, "groups.offsets", torch.int32, (P + 1,), device)
+    _check(groups.members, "groups.members", torch.int32, (L * K,), device)
 
     lib = _lib()
     threads = lib.ba_assembly_threads()
@@ -211,7 +232,7 @@ def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
     Hll = torch.empty((L, 3, 3), dtype=f32, device=device)
     bl = torch.empty((L, 3), dtype=f32, device=device)
     U = torch.empty((L, K, 6, 3), dtype=f32, device=device)
-    partial = torch.empty((max(n_blocks, 1), P * _ENTRIES + 1), dtype=f32, device=device)
+    partial = torch.empty((max(n_blocks, 1),), dtype=f32, device=device)
     Hpp = torch.empty((P, 6, 6), dtype=f32, device=device)
     bp = torch.empty((P, 6), dtype=f32, device=device)
     chi2 = torch.empty((), dtype=f32, device=device)
@@ -220,7 +241,8 @@ def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             pose_R.data_ptr(), pose_t.data_ptr(), pose_free.data_ptr(), points.data_ptr(),
-            obs_cam.data_ptr(), obs_uvr.data_ptr(), w_active.data_ptr(), P, L, K,
+            obs_cam.data_ptr(), obs_uvr.data_ptr(), w_active.data_ptr(),
+            groups.offsets.data_ptr(), groups.members.data_ptr(), P, L, K,
             float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), float(cam.bf),
             int(robust), float(robust_delta) if robust else 0.0,
             Hll.data_ptr(), bl.data_ptr(), U.data_ptr(), partial.data_ptr(),
@@ -232,19 +254,26 @@ def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
 
 
 def assemble(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
-             cam: reproj.Camera, robust_delta: Optional[float]) -> AssemblyOut:
+             cam: reproj.Camera, robust_delta: Optional[float],
+             groups: Optional[segment.KeyGroups] = None) -> AssemblyOut:
     """K2 dispatch by device: plain version on CPU, the kernel on CUDA.
 
     pose_free: (P,) bool or float (1 = free); w_active: (L, K) inv_sigma2 *
-    active."""
+    active. `groups`: the slots with w_active > 0 grouped by camera
+    (`segment.key_groups(obs_cam, P, keep=...)`; groups that also hold
+    inactive slots give the same result). The kernel needs them and they
+    are built here when none are given; the plain version does not use
+    them."""
     device = points.device
     if device.type == "cuda":
         f32 = torch.float32
+        if groups is None:
+            groups = segment.key_groups(obs_cam, pose_R.shape[0], keep=w_active > 0)
         return assemble_cuda(
             pose_R.to(f32).contiguous(), pose_t.to(f32).contiguous(),
             pose_free.to(f32).contiguous(), points.to(f32).contiguous(),
             obs_cam.to(torch.int32).contiguous(), obs_uvr.to(f32).contiguous(),
-            w_active.to(f32).contiguous(), cam, robust_delta,
+            w_active.to(f32).contiguous(), cam, robust_delta, groups,
         )
     if device.type == "cpu":
         return assemble_plain(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr,
@@ -281,7 +310,7 @@ def chi2_cuda(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Ca
     _check(w_active, "w_active", f32, (L, K), device)
     if P < 1 or K < 1:
         raise ValueError(f"chi2_cuda: need P >= 1 and K >= 1, got P={P} K={K}")
-    cap = max_poses(_device_index(device), chi2_only=True)
+    cap = max_poses_chi2(_device_index(device))
     if P > cap:
         raise ValueError(f"chi2_cuda: P={P} exceeds the shared-memory cap of {cap} poses")
 

@@ -97,7 +97,7 @@ def bucketed_from_numpy(arrays: dict, device) -> BucketedBAProblem:
     )
 
 
-def from_flat(problem: BAProblem, K: int, device="cpu") -> BucketedBAProblem:
+def from_flat(problem: BAProblem, K: int, device="cuda") -> BucketedBAProblem:
     """Re-bucket a flat problem (E,) by landmark into (L, K) slots (host-side
     numpy, one time); raises if a landmark has more than K valid edges."""
     L = np.asarray(problem.points).shape[0]
@@ -196,13 +196,16 @@ def reductions_from_terms(problem: BucketedBAProblem, terms) -> assembly.Assembl
 
 
 def assemble(problem: BucketedBAProblem, cam: reproj.Camera, active,
-             robust_delta) -> assembly.AssemblyOut:
+             robust_delta, groups: Optional[segment.KeyGroups] = None
+             ) -> assembly.AssemblyOut:
     """The reductions of one LM iteration: kernel K2 on CUDA, its plain
-    version (`_edge_terms` + `reductions_from_terms`) on the CPU."""
+    version (`_edge_terms` + `reductions_from_terms`) on the CPU. `groups`
+    is `camera_groups(problem, active)` (built by the kernel's wrapper when
+    absent)."""
     w_active = problem.obs_inv_sigma2 * active.to(problem.points.dtype)
     return assembly.assemble(problem.pose_R, problem.pose_t, ~problem.pose_fixed,
                              problem.points, problem.obs_cam, problem.obs_uvr, w_active,
-                             cam, robust_delta)
+                             cam, robust_delta, groups=groups)
 
 
 def edge_chi2_and_depth(problem: BucketedBAProblem, cam: reproj.Camera):
@@ -344,9 +347,12 @@ def _ba_iterate_core(problem: BucketedBAProblem, reduce_fn, num_iters: int):
 def ba_iterate(problem: BucketedBAProblem, cam: reproj.Camera, active, num_iters: int,
                robust_delta: Optional[float]
                ) -> Tuple[BucketedBAProblem, torch.Tensor, torch.Tensor]:
-    """Nielsen-damped LM loop; one K2 assembly per iteration."""
+    """Nielsen-damped LM loop; one K2 assembly per iteration. The camera
+    grouping of the active slots (K2's camera pass) is built once per call:
+    the observation graph does not change inside the loop."""
+    groups = camera_groups(problem, active)
     return _ba_iterate_core(
-        problem, lambda p: assemble(p, cam, active, robust_delta), num_iters
+        problem, lambda p: assemble(p, cam, active, robust_delta, groups), num_iters
     )
 
 
@@ -384,10 +390,16 @@ def chi2_only(problem: BucketedBAProblem, cam: reproj.Camera, active, robust_del
                              problem.obs_cam, problem.obs_uvr, w_active, cam, robust_delta)
 
 
+def camera_groups(problem: BucketedBAProblem, active) -> segment.KeyGroups:
+    """The active slots by camera, each camera's in their (L, K) order: the
+    table K2's camera pass walks. No host read."""
+    return segment.key_groups(problem.obs_cam, problem.num_poses, keep=active)
+
+
 def pose_plan(problem: BucketedBAProblem, active) -> segment.SegmentPlan:
     """Camera grouping of the active slots (the only slots whose U is
-    nonzero). Depends on the observation graph alone: built once per LM
-    loop (one host read)."""
+    nonzero), with its compressed form for K2 (`.groups`). Depends on the
+    observation graph alone: built once per LM loop (one host read)."""
     return segment.segment_plan(problem.obs_cam, problem.num_poses, keep=active)
 
 
@@ -407,11 +419,12 @@ class CGContext(NamedTuple):
 
 
 def _cg_context(problem: BucketedBAProblem, cam: reproj.Camera, active, robust_delta,
-                mu) -> CGContext:
+                mu, plan: Optional[segment.SegmentPlan] = None) -> CGContext:
     """Per-iteration quantities of the matrix-free solve, from K2's
     reductions (the TPU branch of the JAX package builds them from its
     Pallas assembly the same way)."""
-    red = assemble(problem, cam, active, robust_delta)
+    groups = plan.groups if plan is not None else None
+    red = assemble(problem, cam, active, robust_delta, groups)
     dtype, dev = red.bl.dtype, red.bl.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
@@ -503,7 +516,7 @@ def cg_reduce_and_solve(problem: BucketedBAProblem, cam: reproj.Camera, active,
     Returns (dxp (P,6), dxl (L,3), chi2 (K2's), bp, bl, cg_n)."""
     if plan is None:
         plan = pose_plan(problem, active)
-    ctx = _cg_context(problem, cam, active, robust_delta, mu)
+    ctx = _cg_context(problem, cam, active, robust_delta, mu, plan)
     dtype, dev = ctx.bp.dtype, ctx.bp.device
 
     # rhs = -(bp - W Hll_d^{-1} bl), slot-wise.

@@ -10,6 +10,10 @@ matrix products; here the members of every key are gathered into a padded
 summed by `torch.sum` over that table. The sort that builds the table
 orders each key's members by their position in the data, so the sum has a
 fixed order on every device and every run.
+
+`key_groups` is the same grouping in compressed form, built without a host
+read: each key's rows in their order in the data, one run per key. Kernels
+that walk one key's members read it (K2's camera pass).
 """
 
 from __future__ import annotations
@@ -21,11 +25,38 @@ import torch
 from ..utils import to_host
 
 
+class KeyGroups(NamedTuple):
+    offsets: torch.Tensor  # (num_keys + 1,) int32: key q's rows are
+    members: torch.Tensor  # (n,) int32 rows, members[offsets[q]:offsets[q + 1]]
+    # (rows of no key follow members[offsets[-1]:])
+
+
 class SegmentPlan(NamedTuple):
     keys: torch.Tensor  # (S,) int64 distinct keys that have members, ascending
     idx: torch.Tensor  # (S, D) int64 rows of the data; n (one past the end) pads
     n: int  # number of data rows
     num_keys: int  # size of the output's key axis
+    groups: KeyGroups  # the same grouping, compressed
+
+
+def _sort_keys(keys: torch.Tensor, num_keys: int, keep: Optional[torch.Tensor]):
+    """(keys with rows of no key set to num_keys, their stable sort order)."""
+    keys = keys.reshape(-1).long()
+    ok = (keys >= 0) & (keys < num_keys)
+    if keep is not None:
+        ok = ok & keep.reshape(-1)
+    k = torch.where(ok, keys, torch.full_like(keys, num_keys))
+    return k, torch.argsort(k, stable=True)
+
+
+def key_groups(keys: torch.Tensor, num_keys: int,
+               keep: Optional[torch.Tensor] = None) -> KeyGroups:
+    """Group the rows of a flat (n,) key vector as `segment_plan` does, in
+    compressed form and without a host read."""
+    k, order = _sort_keys(keys, num_keys, keep)
+    bounds = torch.arange(num_keys + 1, dtype=k.dtype, device=k.device)
+    offsets = torch.searchsorted(k[order], bounds)
+    return KeyGroups(offsets=offsets.to(torch.int32), members=order.to(torch.int32))
 
 
 def segment_plan(keys: torch.Tensor, num_keys: int,
@@ -33,24 +64,21 @@ def segment_plan(keys: torch.Tensor, num_keys: int,
     """Group the rows of a flat (n,) key vector; rows with keep False (or a
     key outside [0, num_keys)) belong to no key. One host read (the largest
     group size)."""
-    keys = keys.reshape(-1).long()
-    n = keys.shape[0]
-    ok = (keys >= 0) & (keys < num_keys)
-    if keep is not None:
-        ok = ok & keep.reshape(-1)
-    k = torch.where(ok, keys, torch.full_like(keys, num_keys))
-    order = torch.argsort(k, stable=True)
+    k, order = _sort_keys(keys, num_keys, keep)
+    n = k.shape[0]
     counts = torch.bincount(k, minlength=num_keys + 1)[:num_keys]
     width = max(int(to_host(counts.max())) if num_keys else 0, 1)
     starts = torch.cumsum(counts, 0) - counts
     k_sorted = k[order]
     member = k_sorted < num_keys
     k_m, rows = k_sorted[member], order[member]
-    rank = torch.arange(k_m.shape[0], device=keys.device) - starts[k_m]
-    table = torch.full((num_keys, width), n, dtype=torch.long, device=keys.device)
+    rank = torch.arange(k_m.shape[0], device=k.device) - starts[k_m]
+    table = torch.full((num_keys, width), n, dtype=torch.long, device=k.device)
     table[k_m, rank] = rows
     present = torch.nonzero(counts > 0).reshape(-1)
-    return SegmentPlan(keys=present, idx=table[present], n=n, num_keys=num_keys)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
+    return SegmentPlan(keys=present, idx=table[present], n=n, num_keys=num_keys,
+                       groups=KeyGroups(offsets=offsets, members=order.to(torch.int32)))
 
 
 def segment_sum(plan: SegmentPlan, data: torch.Tensor) -> torch.Tensor:

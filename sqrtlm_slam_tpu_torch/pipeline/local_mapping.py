@@ -78,7 +78,7 @@ class LocalMappingConfig(NamedTuple):
 
 class LocalMapper:
     def __init__(self, store: MapStore, cam: Camera,
-                 cfg: LocalMappingConfig = LocalMappingConfig(), device="cpu"):
+                 cfg: LocalMappingConfig = LocalMappingConfig(), device="cuda"):
         self.store = store
         self.cam = cam
         self.cfg = cfg

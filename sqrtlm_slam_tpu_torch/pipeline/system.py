@@ -1,7 +1,8 @@
 """SLAM system facade: tracking + local mapping (+ loop closing) on one device.
 
 Counterpart of `sqrtlm_slam_tpu/pipeline/system.py` for the RGB-D entry
-point: `SlamSystem(cam, cfg, device)` builds the shared numpy `MapStore`,
+point: `SlamSystem(cam, cfg, device)` (the CUDA device unless the caller
+passes another, e.g. `device="cpu"`) builds the shared numpy `MapStore`,
 the tracker, the local mapper and, with `cfg.loop_detection`, the loop
 closer (all run synchronously per keyframe), and recovers the per-frame
 trajectory from poses stored relative to reference keyframes, so BA and
@@ -43,7 +44,7 @@ class SystemConfig(NamedTuple):
 
 
 class SlamSystem:
-    def __init__(self, cam: Camera, cfg: SystemConfig = SystemConfig(), device="cpu",
+    def __init__(self, cam: Camera, cfg: SystemConfig = SystemConfig(), device="cuda",
                  vocabulary: Optional[vocab_mod.Vocabulary] = None,
                  loop_cfg: Optional[LoopClosingConfig] = None):
         self.cam = cam

@@ -170,7 +170,7 @@ class Tracker:
     """Host-side tracking state machine (one instance per SLAM system)."""
 
     def __init__(self, store: MapStore, cam: Camera, cfg: TrackingConfig = TrackingConfig(),
-                 device="cpu"):
+                 device="cuda"):
         self.store = store
         self.cam = cam
         self.cfg = cfg

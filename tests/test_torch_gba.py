@@ -200,7 +200,7 @@ def test_scale_store_matches_jax(scale_stores):
 def test_gather_global_problem_matches_jax(scale_stores):
     (js, _, _), (ts, _, _) = scale_stores
     pj, mj = j_closing.gather_global_problem_bucketed(js)
-    pt, mt = t_closing.gather_global_problem_bucketed(ts)
+    pt, mt = t_closing.gather_global_problem_bucketed(ts, device="cpu")
     L = pt.num_points  # the JAX gather pads L to 128 lanes; the port does not
     assert L == len(mt[1]) and pj.num_points == -(-L // 128) * 128
     assert not np.asarray(pj.point_valid[L:]).any() and not np.asarray(pj.obs_valid[L:]).any()
@@ -236,10 +236,11 @@ def _close_scale_loop(pkg, n_kf, n_lm):
         store, tR, tt = t_scale.make_scale_store(**kw)
         ate = t_scale.store_ate
         lc = t_closing.LoopCloser(store, CAM, cfg=t_closing.LoopClosingConfig(
-            edge_cap=16384, gba_iters=10, gba_chunk=5))
+            edge_cap=16384, gba_iters=10, gba_chunk=5), device="cpu")
         mk = lambda R, t: t_sim3.Sim3(torch.tensor(1.0), torch.as_tensor(R), torch.as_tensor(t))
-        optimize, gather, chi2 = t_eg.optimize_pose_graph, t_closing.gather_global_problem_bucketed, \
+        optimize, chi2 = t_eg.optimize_pose_graph, \
             lambda p: t_schur.chi2_only(p, CAM, p.obs_valid, None)
+        gather = lambda s: t_closing.gather_global_problem_bucketed(s, device="cpu")
     K = store.num_kf
     R_cl = tR[K - 1] @ tR[0].T
     t_cl = tt[K - 1] - R_cl @ tt[0]

@@ -17,7 +17,7 @@ from sqrtlm_slam_tpu.ops import hamming as jax_hamming
 from sqrtlm_slam_tpu.optim import assembly_pallas, schur_bucketed
 from sqrtlm_slam_tpu_torch import convert
 from sqrtlm_slam_tpu_torch.ops import hamming
-from sqrtlm_slam_tpu_torch.optim import assembly
+from sqrtlm_slam_tpu_torch.optim import assembly, segment
 from sqrtlm_slam_tpu_torch.optim import schur_bucketed as t_schur
 
 
@@ -159,7 +159,7 @@ def test_local_ba_matches_jax():
 def test_from_flat_matches_jax():
     flat, _ = make_ba_problem(seed=4, P=P, L=L, stereo_frac=0.5, obs_per_landmark=K)
     want = schur_bucketed.from_flat(flat, K)
-    got = t_schur.from_flat(t_schur.BAProblem(*[np.asarray(x) for x in flat]), K)
+    got = t_schur.from_flat(t_schur.BAProblem(*[np.asarray(x) for x in flat]), K, device="cpu")
     for name in want._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)), err_msg=name)
@@ -178,4 +178,83 @@ def test_excess_over_plain_accepts_f32_plain_and_rejects_errors():
         x = getattr(got, field).clone()
         x.view(-1)[7] += 1e-2 + 1e-2 * x.view(-1)[7].abs()
         bad = assembly.excess_over_plain(got._replace(**{field: x}), *args)
+        assert bad[field][0] > 0
+
+
+def test_ba_iterate_builds_one_camera_plan_of_the_active_slots(monkeypatch):
+    """ba_iterate hands K2 one camera grouping for its whole LM loop: each
+    camera's active slots in their (L, K) order, inactive slots left out --
+    a stable argsort of the active slots by camera."""
+    _, tp = _problems(6)
+    active = tp.obs_valid.clone()
+    active.view(-1)[::7] = False
+    seen = []
+    assemble = assembly.assemble
+
+    def spy(*args, groups=None, **kw):
+        seen.append(groups)
+        return assemble(*args, groups=groups, **kw)
+
+    monkeypatch.setattr(assembly, "assemble", spy)
+    t_schur.ba_iterate(tp, convert.camera(DEFAULT_CAM), active, 3, robust_delta=2.447)
+    assert len(seen) == 4 and all(g is seen[0] for g in seen)
+    offsets, members = seen[0].offsets.numpy(), seen[0].members.numpy()
+    assert offsets.dtype == members.dtype == np.int32
+    cam = tp.obs_cam.numpy().reshape(-1)
+    kept = np.flatnonzero(active.numpy().reshape(-1))
+    np.testing.assert_array_equal(offsets,
+                                  np.concatenate([[0], np.cumsum(np.bincount(cam[kept],
+                                                                             minlength=P))]))
+    np.testing.assert_array_equal(members[:offsets[-1]],
+                                  kept[np.argsort(cam[kept], kind="stable")])
+
+
+@pytest.mark.parametrize("robust_delta", [None, 2.447])
+def test_assembly_same_with_and_without_a_plan(robust_delta):
+    """`assemble` gives the same result whether or not the caller passes the
+    camera grouping, and the grouping's members (the active slots, by
+    camera) sum the per-slot camera terms to the same Hpp and bp."""
+    _, tp = _problems(7)
+    cam = convert.camera(DEFAULT_CAM)
+    w = tp.obs_inv_sigma2 * tp.obs_valid.float()
+    w.view(-1)[::5] = 0.0  # inactive slots
+    free = (~tp.pose_fixed).float()
+    args = (tp.pose_R, tp.pose_t, free, tp.points, tp.obs_cam, tp.obs_uvr, w, cam,
+            robust_delta)
+    groups = segment.key_groups(tp.obs_cam, P, keep=w > 0)
+    without, with_groups = assembly.assemble(*args), assembly.assemble(*args, groups=groups)
+    for name, a, b in zip(assembly.AssemblyOut._fields, without, with_groups):
+        assert torch.equal(a, b), name
+    r, Jp, _, w_slot = assembly.edge_terms(tp.pose_R, tp.pose_t, tp.points, tp.obs_cam,
+                                           tp.obs_uvr, w, cam, robust_delta)[:4]
+    Jp = Jp * free[tp.obs_cam.long()][..., None, None]
+    hpp = torch.einsum("lkri,lk,lkrj->lkij", Jp, w_slot, Jp).reshape(-1, 36)
+    bp = torch.einsum("lkri,lk,lkr->lki", Jp, w_slot, r).reshape(-1, 6)
+    offsets, members = groups.offsets.tolist(), groups.members.long()
+    assert offsets[-1] == int((w > 0).sum())
+    assert bool((w.view(-1)[members[:offsets[-1]]] > 0).all())
+    for p in range(P):
+        rows = members[offsets[p]:offsets[p + 1]]
+        assert bool((tp.obs_cam.view(-1)[rows] == p).all())
+        np.testing.assert_allclose(hpp[rows].sum(0).reshape(6, 6).numpy(),
+                                   without.Hpp[p].numpy(), rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(bp[rows].sum(0).numpy(), without.bp[p].numpy(),
+                                   rtol=1e-4, atol=1e-3)
+
+
+def test_excess_over_plain_camera_sum_bound_still_rejects_errors():
+    """The float32 summation bound admitted for the camera sums (problems
+    with hundreds of slots per camera) admits the float32 plain version and
+    still rejects an Hpp or bp entry off by 1%."""
+    _, tp = _problems(5)
+    w = tp.obs_inv_sigma2 * tp.obs_valid.float()
+    args = (tp.pose_R, tp.pose_t, (~tp.pose_fixed).float(), tp.points, tp.obs_cam,
+            tp.obs_uvr, w, convert.camera(DEFAULT_CAM), 2.447)
+    got = assembly.assemble_plain(*args)
+    ok = assembly.excess_over_plain(got, *args, camera_sums=True)
+    assert all(e <= 0 for e, _ in ok.values())
+    for field in ("Hpp", "bp"):
+        x = getattr(got, field).clone()
+        x.view(-1)[-7] += 1e-2 + 1e-2 * x.view(-1)[-7].abs()
+        bad = assembly.excess_over_plain(got._replace(**{field: x}), *args, camera_sums=True)
         assert bad[field][0] > 0

@@ -169,7 +169,7 @@ def ring_frames():
 
 @pytest.fixture(scope="module")
 def vocabs():
-    return j_vocab.load_default(), t_vocab.load_default()
+    return j_vocab.load_default(), t_vocab.load_default(device="cpu")
 
 
 def test_shipped_vocabulary_loads_identically(vocabs):
@@ -209,7 +209,7 @@ def test_vocabulary_training_matches():
     rng = np.random.RandomState(0)
     d = rng.randint(0, 2**32, size=(400, 8), dtype=np.uint64).astype(np.uint32)
     want = j_vocab.train(d, k=4, depth=2, iters=3, seed=1)
-    got = t_vocab.train(d, k=4, depth=2, iters=3, seed=1)
+    got = t_vocab.train(d, k=4, depth=2, iters=3, seed=1, device="cpu")
     for a, b in zip(got.centroids, want.centroids):
         np.testing.assert_array_equal(desc_to_numpy(a), np.asarray(b))
     np.testing.assert_allclose(_np(got.idf), np.asarray(want.idf), rtol=1e-6)
@@ -334,7 +334,7 @@ def test_correct_loop_same_decision_and_poses(kind, dt, committed):
     pre = {f: getattr(ts, f).copy() for f in ("kf_R", "kf_t", "lm_pos", "lm_obs_kf", "covis")}
     cfg_j = j_closing.LoopClosingConfig(run_gba=False)
     lc_j = j_closing.LoopCloser(js, CAM_J, cfg=cfg_j)
-    lc_t = t_closing.LoopCloser(ts, CAM, cfg=convert.loop_closing_config(cfg_j))
+    lc_t = t_closing.LoopCloser(ts, CAM, cfg=convert.loop_closing_config(cfg_j), device="cpu")
     S = _true_s12(js, 11, 0, dt)
     assert lc_j.correct_loop(11, 0, S) is committed
     assert lc_t.correct_loop(11, 0, convert.sim3(S)) is committed
@@ -362,7 +362,7 @@ def test_run_global_ba_matches_jax():
     js, ts = _gba_store(), _gba_store()
     cfg = j_closing.LoopClosingConfig(gba_iters=4, gba_chunk=2)
     assert j_closing.LoopCloser(js, CAM_J, cfg=cfg).run_global_ba() is True
-    lc = t_closing.LoopCloser(ts, CAM, cfg=convert.loop_closing_config(cfg))
+    lc = t_closing.LoopCloser(ts, CAM, cfg=convert.loop_closing_config(cfg), device="cpu")
     assert lc.run_global_ba() is True and lc.num_gba_completed == 1
     assert np.linalg.norm(ts.kf_t[3] - np.array([0, 0, -1.2])) < 0.02
     np.testing.assert_allclose(ts.kf_t, js.kf_t, atol=1e-3)
@@ -374,7 +374,8 @@ def test_gba_abort_leaves_map_untouched():
     ts = _gba_store()
     pre = {f: getattr(ts, f).copy() for f in ("kf_R", "kf_t", "lm_pos", "lm_obs_kf")}
     lc = t_closing.LoopCloser(ts, CAM, cfg=t_closing.LoopClosingConfig(gba_iters=4,
-                                                                        gba_chunk=2))
+                                                                        gba_chunk=2),
+                              device="cpu")
     lc._gba_tick = lambda: setattr(lc, "gba_generation", lc.gba_generation + 1)
     assert lc.run_global_ba() is False and lc.num_gba_aborted == 1
     for f, v in pre.items():
@@ -385,7 +386,8 @@ def test_gba_propagates_to_keyframes_created_meanwhile():
     ts = populated_store()
     ts.kf_t[5] += np.array([0.06, 0.05, -0.04], np.float32)
     lc = t_closing.LoopCloser(ts, CAM, cfg=t_closing.LoopClosingConfig(gba_iters=4,
-                                                                        gba_chunk=2))
+                                                                        gba_chunk=2),
+                              device="cpu")
     added = {}
 
     def tick():
@@ -413,7 +415,8 @@ def test_gba_propagates_to_keyframes_created_meanwhile():
 def test_async_gba_thread_and_generation_bump():
     ts = _gba_store()
     lc = t_closing.LoopCloser(ts, CAM, cfg=t_closing.LoopClosingConfig(gba_iters=2,
-                                                                        gba_chunk=1))
+                                                                        gba_chunk=1),
+                              device="cpu")
     lc.async_gba = True
     lc.gba_generation += 1
     import threading
@@ -492,7 +495,7 @@ def test_detect_loop_and_compute_sim3_on_real_descriptors(ring_frames, vocabs):
     cfg = j_closing.LoopClosingConfig(kf_gap=n_a)
     lc_j = j_closing.LoopCloser(copy.deepcopy(base), CAM_J, voc=jv, cfg=cfg)
     lc_t = t_closing.LoopCloser(copy.deepcopy(base), CAM, voc=tv,
-                                cfg=convert.loop_closing_config(cfg))
+                                cfg=convert.loop_closing_config(cfg), device="cpu")
     found = None
     for q in range(n_a, base.num_kf):
         c_j, c_t = lc_j.detect_loop(q), lc_t.detect_loop(q)
@@ -531,7 +534,7 @@ def test_ring_loop_closes_in_both_packages():
     frames = [tuple(np.asarray(a) for a in world.render(T, CAM_J)) for T in poses]
     cfg = SystemConfig(orb=j_orb.ORBConfig(max_features=600), loop_detection=True)
     systems = [SlamSystem(CAM_J, cfg, loop_cfg=j_closing.LoopClosingConfig()),
-               t_system.SlamSystem(CAM, convert.system_config(cfg),
+               t_system.SlamSystem(CAM, convert.system_config(cfg), device="cpu",
                                    loop_cfg=t_closing.LoopClosingConfig())]
     gt = []
     for T in poses:
@@ -560,7 +563,7 @@ def test_lazy_vocabulary_from_the_first_keyframe():
     pose = j_synth.ring_trajectory(160, frac=1.3)[0]
     s = t_system.SlamSystem(CAM, t_system.SystemConfig(
         orb=ORBConfig(max_features=300), tracking=TrackingConfig(init_min_depth_kp=50),
-        loop_detection=True, use_shipped_vocab=False))
+        loop_detection=True, use_shipped_vocab=False), device="cpu")
     assert s.vocabulary is None
     img, depth = world.render(pose, CAM_J)
     assert s.track_depth(np.asarray(img), np.asarray(depth)) is not None

@@ -123,7 +123,7 @@ def test_main_path_imports_no_jax():
         world = synthetic.SyntheticWorld(seed=3, n_points=900)
         s = SlamSystem(synthetic.DEFAULT_CAM, SystemConfig(
             orb=ORBConfig(max_features=300), tracking=TrackingConfig(init_min_depth_kp=50),
-            loop_detection=True))
+            loop_detection=True), device="cpu")
         assert s.vocabulary is not None and s.loop_closer is not None
         for T in synthetic.forward_trajectory(3):  # initialize, then two tracking steps
             img, depth = world.render(T, synthetic.DEFAULT_CAM)

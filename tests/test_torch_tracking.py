@@ -148,7 +148,7 @@ def test_no_prior_fallback_raises_not_implemented(tracking_state):
     tr, lm, frame = tracking_state
     store = t_tracking.MapStore(max_keyframes=8, max_landmarks=64, feats_per_kf=600)
     tracker = t_tracking.Tracker(store, convert.camera(DEFAULT_CAM),
-                                 convert.tracking_config(tr.cfg))
+                                 convert.tracking_config(tr.cfg), device="cpu")
     tracker.state = t_tracking.TrackState.OK
     tracker.ref_kf = 0
     store.kf_valid[0] = True
