@@ -29,11 +29,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      observations per landmark, Huber 2.447, 15 iterations per call, 5
      chained calls, one synchronize, best of 3); chi2 must fall;
   7. K3 against its plain version at (P, L, K) = (96, 8192, 5) (the bench
-     problem) and (600, 120000, 7) (phase 8's global-BA problem), with and
-     without the Huber kernel: rtol 1e-4 against
-     the plain version evaluated in float64, bitwise repeatable, bitwise
-     equal to K2's chi2 on the same inputs, with both times (and K2's
-     times on the global-BA problem);
+     problem), (600, 120000, 7) (phase 8's global-BA problem), and
+     (1400, 60000, 7) and (6000, 60000, 7) (phase 3's generator: KITTI 00's
+     keyframe count, and past the ~4,460 poses of K3's first design), with
+     and without the Huber kernel: rtol 1e-4 against the plain version
+     evaluated in float64, bitwise repeatable, bitwise equal to K2's chi2
+     on the same inputs, with both times, and with Huber K2's time at the
+     same shape split by kernel (its landmark pass beside K3);
   8. global BA at scale (benchmarks/bench_scale.py's flow): 600 keyframes,
      1.2e5 landmarks, 5 observations each, drift 4e-4; the true loop edge
      through the essential graph (edge_cap 16384, 30 iterations), then 10 LM
@@ -448,12 +450,13 @@ def main() -> None:
     build_store_s = time.perf_counter() - t0
     k3 = {}
     k3_err = 0.0
-    for P, L, K in ((96, 8192, 5), (600, 120000, 7)):
+    for P, L, K in ((96, 8192, 5), (600, 120000, 7), (1400, 60000, 7), (6000, 60000, 7)):
         if P == 600:
             prob = gather_global_problem_bucketed(store, dev)[0]
         else:
+            big = dict(spacing=96 * 0.15 / P, min_depth=1.0) if P > 96 else {}
             flat, _ = synthetic.make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6,
-                                                obs_per_landmark=K)
+                                                obs_per_landmark=K, **big)
             prob = schur_bucketed.from_flat(flat, K, device=dev)
         if tuple(prob.obs_cam.shape) != (L, K) or prob.num_poses != P:
             raise AssertionError(f"K3 problem shape {prob.num_poses, *prob.obs_cam.shape}")
@@ -485,15 +488,21 @@ def main() -> None:
             plain_ms = device_ms(lambda: assembly.chi2_plain(*args), n=10)
             k3[(P, L, K, delta)] = dict(**kt, plain_ms=plain_ms, **k3_bound(P, L, K))
             k2_here = {}
-            if P == 600 and delta is not None:
-                # K2 on global BA's problem, as its LM loop calls it.
+            if delta is not None:
+                # K2 at the same shape, as an LM loop calls it: its landmark
+                # pass makes the same tile partials as K3. (The plain K2's
+                # one-hot camera sum needs L K P floats: timed at P=600 only.)
                 groups = schur_bucketed.camera_groups(prob, prob.obs_valid)
                 n_active = int(groups.offsets[-1])
+                k2_t = timed_ms(lambda: assembly.assemble(*k2_args, groups=groups))
                 k2_here = dict(k2_at_this_shape=dict(
-                    **timed_ms(lambda: assembly.assemble(*k2_args, groups=groups)),
-                    plain_ms=device_ms(lambda: assembly.assemble_plain(*k2_args), n=3),
+                    **k2_t, landmark_pass_ms=sum(
+                        v for n, v in k2_t["per_kernel_ms"].items() if "ba_landmark_kernel" in n),
                     max_slots_per_camera=int((groups.offsets[1:] - groups.offsets[:-1]).max()),
                     **k2_bound(P, L, K, n_active)))
+                if P == 600:
+                    k2_here["k2_at_this_shape"]["plain_ms"] = device_ms(
+                        lambda: assembly.assemble_plain(*k2_args), n=3)
             emit("k3_vs_plain", shape=[P, L, K], robust_delta=delta, rtol=K3_RTOL,
                  chi2=float(got), plain_f64=want, rel_err=rel, repeatable=True,
                  equal_to_k2_chi2=equal_k2, **k3[(P, L, K, delta)], **k2_here)

@@ -12,7 +12,12 @@ its kernels, then measures
     2048x2000 and 4096x2000 on random descriptors, K2 at (P, L, K) =
     (32, 4096, 8) and (96, 8192, 5) from `make_ba_problem` and at
     (600, 120000, 7) from the global-BA-at-scale store, and K3 at
-    (96, 8192, 5) and (600, 120000, 7), Huber 2.447;
+    (96, 8192, 5), (600, 120000, 7), (1400, 60000, 7) and (6000, 60000, 7)
+    (the last two on the bench problem's 14.4 m track, observations nearer
+    than 1 m dropped; "pose cap" where the tree's K3 refuses P), with K2
+    beside it at each K3 shape, Huber 2.447; each also split by kernel
+    (`<name>_by_kernel`); and `ticket_zero_ms`, the device time of zeroing
+    one int32 on the card (what a per-call zeroed K3 ticket would add);
   * local_ba_lm_iters_per_s: the bench.py protocol (P=96, L=8192, 5
     observations per landmark, stereo 0.6, Huber 2.447, 15 LM iterations
     per `ba_iterate` call, 5 chained calls, one synchronize, best of 3);
@@ -40,8 +45,9 @@ import numpy as np
 OWN_KERNEL = re.compile(r"::(hamming\w*|ba_\w+|chi2_\w+)_kernel\b")
 
 
-def _own_kernels_ms(fn, n: int = 20) -> float:
-    """Device ms per call of `fn`, counting only the repository's kernels."""
+def _device_rows(fn, n: int = 20, own_only: bool = True) -> dict:
+    """{kernel: device ms per call of `fn`}: the repository's kernels, or
+    with `own_only=False` every kernel and memset that `fn` runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -52,13 +58,19 @@ def _own_kernels_ms(fn, n: int = 20) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and OWN_KERNEL.search(e.key))
-    return us / 1e3 / n
+    rows = {}
+    for e in prof.key_averages():
+        m = OWN_KERNEL.search(e.key)
+        if e.device_type != torch.autograd.DeviceType.CUDA or (own_only and not m):
+            continue
+        name = m.group(1) + "_kernel" if m else e.key
+        rows[name] = rows.get(name, 0.0) + e.self_device_time_total / 1e3 / n
+    return rows
 
 
 def _kernel_ms(dev, cam) -> dict:
+    import torch
+
     from sqrtlm_slam_tpu_torch import utils
     from sqrtlm_slam_tpu_torch.eval import synthetic
     from sqrtlm_slam_tpu_torch.eval.scale import make_scale_store
@@ -71,11 +83,12 @@ def _kernel_ms(dev, cam) -> dict:
     for Q, T in ((2048, 2000), (4096, 2000)):
         q, t = (utils.desc_to_torch(rng.randint(0, 2**32, size=(n, 8), dtype=np.uint64)
                                     .astype(np.uint32), dev) for n in (Q, T))
-        out[f"k1_{Q}x{T}"] = _own_kernels_ms(lambda: hamming.hamming_matrix(q, t))
+        out[f"k1_{Q}x{T}"] = sum(_device_rows(lambda: hamming.hamming_matrix(q, t)).values())
     problems = {}
-    for P, L, K in ((32, 4096, 8), (96, 8192, 5)):
+    for P, L, K in ((32, 4096, 8), (96, 8192, 5), (1400, 60000, 7), (6000, 60000, 7)):
+        big = dict(spacing=96 * 0.15 / P, min_depth=1.0) if P > 96 else {}
         flat, _ = synthetic.make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6,
-                                            obs_per_landmark=K)
+                                            obs_per_landmark=K, **big)
         problems[(P, L, K)] = schur_bucketed.from_flat(flat, K, device=dev)
     store, _, _ = make_scale_store(n_kf=600, n_lm=120_000, obs_per_lm=5, drift=4e-4)
     problems[(600, 120000, 7)] = gather_global_problem_bucketed(store, dev)[0]
@@ -83,10 +96,22 @@ def _kernel_ms(dev, cam) -> dict:
         w = p.obs_inv_sigma2 * p.obs_valid.float()
         args = (p.pose_R, p.pose_t, (~p.pose_fixed).float(), p.points, p.obs_cam, p.obs_uvr,
                 w, cam, 2.447)
-        out[f"k2_{P}_{L}_{K}"] = _own_kernels_ms(lambda: assembly.assemble(*args))
-        if P != 32:
-            out[f"k3_{P}_{L}_{K}"] = _own_kernels_ms(lambda: assembly.chi2_sum(
-                p.pose_R, p.pose_t, p.points, p.obs_cam, p.obs_uvr, w, cam, 2.447))
+        key = f"{P}_{L}_{K}"
+        rows = _device_rows(lambda: assembly.assemble(*args))
+        out[f"k2_{key}"], out[f"k2_{key}_by_kernel"] = sum(rows.values()), rows
+        if P == 32:
+            continue
+        k3_args = (p.pose_R, p.pose_t, p.points, p.obs_cam, p.obs_uvr, w, cam, 2.447)
+        try:
+            assembly.chi2_sum(*k3_args)
+        except ValueError as err:  # an older tree's pose cap
+            out[f"k3_{key}"] = "pose cap"
+            out[f"k3_{key}_refused"] = str(err)
+            continue
+        rows = _device_rows(lambda: assembly.chi2_sum(*k3_args))
+        out[f"k3_{key}"], out[f"k3_{key}_by_kernel"] = sum(rows.values()), rows
+    out["ticket_zero_ms"] = sum(_device_rows(
+        lambda: torch.zeros((), dtype=torch.int32, device=dev), n=50, own_only=False).values())
     return out
 
 

@@ -18,16 +18,16 @@
 // Hpp/bp in one VMEM accumulator across its *sequential* grid; Hopper
 // blocks run in parallel and in no order.
 //
-// Design: two passes on one stream, neither with atomics, so every sum has a
-// fixed order and runs are bit-for-bit repeatable (an LM accept test at gain
-// ratio ~0 flips on float32 reassociation).
+// Design: two passes on one stream. No float is reduced by an atomic, so
+// every sum has a fixed order and runs are bit-for-bit repeatable (an LM
+// accept test at gain ratio ~0 flips on float32 reassociation).
 //  1. Landmark pass (landmark-major): one thread per landmark loops over its
 //     K slots, reading poses through the read-only cache (they stay in L2),
 //     keeping Hll, bl and its chi2 in registers. The block stages its U rows
 //     in shared memory (one padding float every 32, so the per-slot writes
 //     spread over the banks) and writes its contiguous U span, then Hll and
 //     bl, with 16-byte stores. Its shared memory depends on K only, not on P.
-//     The block's chi2 is summed in thread order into one float per block.
+//     The block is one chi2 tile (below) and writes its tile partial.
 //  2. Camera pass (camera-major): one block per camera walks that camera's
 //     slots from the compressed slot table of optim/segment.py (members in
 //     their order in the data), recomputes each slot's Jp, r and w, and
@@ -35,33 +35,47 @@
 //     fixed stride of 256 slots per thread; then a fixed-shape warp-shuffle
 //     tree and a sum over the 8 warps in warp order. A fixed camera's rows
 //     are zeros. Slots not in the table are inactive (w = 0) and would add
-//     exact zeros. One extra block sums the landmark blocks' chi2 in block
-//     order. No pose cap: nothing here scales with P but the grid.
+//     exact zeros. One extra block sums the tile partials into the chi2
+//     total. No pose cap: nothing here scales with P but the grid.
+//
+// The chi2 order, shared by K2 and K3 and defined per tile of 128 landmarks
+// whatever the grid: a thread sums its landmark's K slots in slot order;
+// `tile_sum` adds the 128 values by a fixed warp-shuffle tree in each warp,
+// then the 4 warp sums in warp order (one partial per tile); `total_sum` has
+// lane t of 128 add the partials t, t + 128, ... in index order, then the
+// same tree. Every pass computes a slot through one function, `slot_terms`,
+// whose residual, weight and loss use explicitly rounded operations (no FMA
+// contraction that could differ between instantiations), so K3's chi2 is
+// bitwise equal to K2's and a slot's w is the same in both K2 passes.
 //
 // K3 (chi2 only) replaces the TPU kernel assembly_pallas.py::chi2_prepared
 // (body `_chi2_kernel`), the residual-only robust chi2 of the LM candidate
-// test. It keeps its one-thread-per-landmark loop with the poses staged in
-// shared memory (13 floats each, so at most ~4,460 poses fit) and the same
-// summation order as K2's landmark pass (per thread over its K slots, per
-// 128-thread block in thread order, then the blocks in block order). Every
-// pass computes a slot through one function, `slot_terms`, whose residual,
-// weight and loss use explicitly rounded operations (no FMA contraction that
-// could differ between instantiations), so K3's chi2 is bitwise equal to
-// K2's and a slot's w is the same in both K2 passes. Bound: ~20 bytes read
-// per slot; 4 bytes written per block.
+// test. Bound: bytes, ~20 read per slot (18 MB at (L, K) = (120000, 7)),
+// ~45 FLOP per slot. One launch, one block per tile: the block's threads
+// evaluate the tile's slots in flat order (coalesced observation reads) and
+// read the poses through the read-only cache and L2 (nothing staged, so no
+// pose cap: only the poses a tile hits are read); the block that finishes
+// last (an integer ticket, after a fence) sums the tile partials by tile
+// index, so the order of arrival does not enter the float order. Measured
+// against this (PERF.md): one thread per landmark reading its own
+// slots, and staging a tile's observation spans in shared memory by 16-byte
+// loads or by `cp.async.bulk` (one or two stages) were all slower; the
+// gathers of the poses and the slot arithmetic, not the observation bytes,
+// set the time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kLmThreads = 128;   // landmarks per block (landmark pass and K3)
+constexpr int kLmThreads = 128;   // landmarks per chi2 tile (a landmark-pass or K3 block)
+constexpr int kLmWarps = kLmThreads / 32;
 constexpr int kCamThreads = 256;  // threads per camera (camera pass)
 constexpr int kCamWarps = kCamThreads / 32;
 constexpr int kSym = 21;          // independent entries of the symmetric Hpp
 constexpr int kCamVals = kSym + 6;  // + bp
 constexpr int kUFloats = 18;      // U per slot (6 x 3)
-constexpr int kPose = 13;         // K3's staged pose: R (9, row-major), t (3), pad
+constexpr int kMaxK = 16;         // slots per landmark (the wrappers check K)
 constexpr float kZeps = 1e-6f;
 
 struct Cam {
@@ -151,13 +165,32 @@ __device__ __forceinline__ void slot_terms(const Pose& ps, float fr, float X0, f
 // Camera ids are clamped into [0, P), as XLA's gather clamps.
 __device__ __forceinline__ int clamp_cam(int c, int P) { return c < 0 ? 0 : (c >= P ? P - 1 : c); }
 
-// Serial sum in index order: the per-block chi2 (over threads) and the
-// total (over blocks) of both K2 and K3.
-__device__ __forceinline__ float sum_in_order(const float* x, int n) {
-  float s = 0.f;
-#pragma unroll 16
-  for (int i = 0; i < n; ++i) s = __fadd_rn(s, x[i]);  // loads batched, adds in order
+// The chi2 tile sum of K2 and K3: thread t's value v is landmark t of the
+// tile (threads >= 128 give nothing). A fixed-shape shuffle tree per warp
+// (lane i adds lane i + 16, then i + 8, ...), then the 4 warp sums in warp
+// order. Every thread of the block calls it (blockDim.x >= 128) and gets the
+// sum; it holds two block barriers.
+__device__ __forceinline__ float tile_sum(float v, float* s_warp) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0 && warp < kLmWarps) s_warp[warp] = v;
+  __syncthreads();
+  float s = s_warp[0];
+#pragma unroll
+  for (int w = 1; w < kLmWarps; ++w) s = __fadd_rn(s, s_warp[w]);
+  __syncthreads();  // s_warp is free for the next call
   return s;
+}
+
+// The chi2 total over `n` tile partials: lane t (< 128) adds the partials
+// t, t + 128, t + 256, ... in index order, then `tile_sum`. Read through L2
+// (the partials may come from other blocks of the same launch).
+__device__ __forceinline__ float total_sum(const float* partial, int n, float* s_warp) {
+  float v = 0.f;
+  if (threadIdx.x < kLmThreads)
+    for (int i = threadIdx.x; i < n; i += kLmThreads) v = __fadd_rn(v, __ldcg(partial + i));
+  return tile_sum(v, s_warp);
 }
 
 // Position of U float f of the block in the padded staging buffer.
@@ -186,7 +219,7 @@ ba_landmark_kernel(const float* __restrict__ pose_R, const float* __restrict__ p
                    float* __restrict__ chi_partial) {
   extern __shared__ float4 smem4[];
   float* s_u = reinterpret_cast<float*>(smem4);
-  __shared__ float s_chi[kLmThreads];
+  __shared__ float s_warp[kLmWarps];
 
   const int tid = threadIdx.x;
   const int l0 = blockIdx.x * kLmThreads;
@@ -234,8 +267,10 @@ ba_landmark_kernel(const float* __restrict__ pose_R, const float* __restrict__ p
       }
     }
   }
-  s_chi[tid] = chi;
-  __syncthreads();
+  // The block is chi2 tile blockIdx.x; the sum's barrier also orders the U
+  // staging before the stores.
+  const float tile_chi = tile_sum(chi, s_warp);
+  if (tid == 0) chi_partial[blockIdx.x] = tile_chi;
 
   // The block's U rows are one contiguous span of U, 16-byte aligned
   // (l0 * K * 72 bytes with l0 a multiple of 128).
@@ -247,7 +282,6 @@ ba_landmark_kernel(const float* __restrict__ pose_R, const float* __restrict__ p
     U4[q] = make_float4(s_u[b], s_u[b + 1], s_u[b + 2], s_u[b + 3]);
   }
   for (int f = (n / 4) * 4 + tid; f < n; f += kLmThreads) Ub[f] = s_u[u_pos(f)];
-  if (tid == 0) chi_partial[blockIdx.x] = sum_in_order(s_chi, kLmThreads);
   __syncthreads();
 
   // Hll and bl through the same buffer (their spans start at l0 * 36 and
@@ -277,10 +311,12 @@ ba_camera_kernel(const float* __restrict__ pose_R, const float* __restrict__ pos
                  const float* __restrict__ chi_partial, int n_chi, float* __restrict__ Hpp,
                  float* __restrict__ bp, float* __restrict__ chi2) {
   __shared__ float s_red[kCamWarps][kCamVals];
+  __shared__ float s_warp[kLmWarps];
   const int p = blockIdx.x;
   const int tid = threadIdx.x;
-  if (p == P) {  // the extra block: total chi2 over the landmark blocks, in order
-    if (tid == 0) chi2[0] = sum_in_order(chi_partial, n_chi);
+  if (p == P) {  // the extra block: the chi2 total over the landmark pass's tiles
+    const float total = total_sum(chi_partial, n_chi, s_warp);
+    if (tid == 0) chi2[0] = total;
     return;
   }
   float acc[kCamVals];
@@ -340,52 +376,64 @@ ba_camera_kernel(const float* __restrict__ pose_R, const float* __restrict__ pos
   }
 }
 
-__global__ void __launch_bounds__(kLmThreads)
+// ---------------------------------------------------------------------------
+// K3
+// ---------------------------------------------------------------------------
+
+// K3: block t is chi2 tile t. Its threads evaluate the tile's 128 K slots in
+// flat order (slot f by thread f mod blockDim.x, so neighbouring lanes read
+// neighbouring slots and every observation load is coalesced; poses through
+// the read-only cache and L2), each slot's rho into shared memory. Thread i
+// then adds landmark i's K values in slot order, the sum K2's thread makes,
+// and `tile_sum` gives the tile partial. The block that finishes last (an
+// integer ticket after a fence) sums the partials by tile index and resets
+// the ticket for the next launch on its stream.
+__global__ void __launch_bounds__(1024)
 ba_chi2_kernel(const float* __restrict__ pose_R, const float* __restrict__ pose_t,
                const float* __restrict__ points, const int32_t* __restrict__ obs_cam,
                const float* __restrict__ obs_uvr, const float* __restrict__ w_active, int P,
-               int L, int K, Cam cam, float* __restrict__ chi_partial) {
-  extern __shared__ float s_pose[];  // P * kPose
-  __shared__ float s_chi[kLmThreads];
+               int L, int K, Cam cam, float* __restrict__ partial,
+               unsigned int* __restrict__ ticket, float* __restrict__ chi2) {
+  __shared__ float s_rho[kLmThreads * kMaxK];
+  __shared__ float s_warp[kLmWarps];
+  __shared__ bool s_last;
   const int tid = threadIdx.x;
-  for (int i = tid; i < P; i += kLmThreads) {
-#pragma unroll
-    for (int j = 0; j < 9; ++j) s_pose[i * kPose + j] = pose_R[i * 9 + j];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) s_pose[i * kPose + 9 + j] = pose_t[i * 3 + j];
+  const int t = blockIdx.x;
+  const int nl = min(kLmThreads, L - t * kLmThreads);
+  const size_t e0 = (size_t)t * kLmThreads * K;
+#pragma unroll 4
+  for (int f = tid; f < nl * K; f += blockDim.x) {
+    const size_t e = e0 + f;
+    const size_t l = (size_t)t * kLmThreads + f / K;
+    const Pose ps = load_pose(pose_R, pose_t, clamp_cam(__ldg(obs_cam + e), P));
+    Slot s;
+    slot_terms<false>(ps, 1.f, __ldg(points + l * 3 + 0), __ldg(points + l * 3 + 1),
+                      __ldg(points + l * 3 + 2), __ldg(obs_uvr + e * 3 + 0),
+                      __ldg(obs_uvr + e * 3 + 1), __ldg(obs_uvr + e * 3 + 2),
+                      __ldg(w_active + e), cam, s);
+    s_rho[f] = s.rho;
   }
   __syncthreads();
-
-  const int l = blockIdx.x * kLmThreads + tid;
   float chi = 0.f;
-  if (l < L) {
-    const float X0 = points[l * 3 + 0], X1 = points[l * 3 + 1], X2 = points[l * 3 + 2];
-    for (int k = 0; k < K; ++k) {
-      const size_t e = (size_t)l * K + k;
-      const float* sp = s_pose + clamp_cam(obs_cam[e], P) * kPose;
-      Pose ps;
-#pragma unroll
-      for (int j = 0; j < 9; ++j) ps.R[j] = sp[j];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) ps.t[j] = sp[9 + j];
-      Slot s;
-      slot_terms<false>(ps, 1.f, X0, X1, X2, obs_uvr[e * 3 + 0], obs_uvr[e * 3 + 1],
-                        obs_uvr[e * 3 + 2], w_active[e], cam, s);
-      chi = __fadd_rn(chi, s.rho);
+  if (tid < nl)
+    for (int k = 0; k < K; ++k) chi = __fadd_rn(chi, s_rho[tid * K + k]);
+  const float tile_chi = tile_sum(chi, s_warp);
+
+  if (tid == 0) {
+    partial[t] = tile_chi;
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (s_last) {
+    __threadfence();
+    const float total = total_sum(partial, (L + kLmThreads - 1) / kLmThreads, s_warp);
+    if (tid == 0) {
+      chi2[0] = total;
+      *ticket = 0u;
     }
   }
-  s_chi[tid] = chi;
-  __syncthreads();
-  if (tid == 0) chi_partial[blockIdx.x] = sum_in_order(s_chi, kLmThreads);
 }
-
-__global__ void chi2_total_kernel(const float* __restrict__ chi_partial, int n,
-                                  float* __restrict__ chi2) {
-  if (threadIdx.x == 0) chi2[0] = sum_in_order(chi_partial, n);
-}
-
-// K3's dynamic shared memory (the staged poses); its s_chi is static.
-size_t chi2_smem_bytes(int P) { return sizeof(float) * (size_t)P * kPose; }
 
 // Raise `kernel`'s dynamic shared-memory limit to `bytes` on the current
 // device when a launch needs more than was allowed so far. `allowed` is the
@@ -403,27 +451,12 @@ int set_smem(const void* kernel, size_t bytes, size_t* allowed) {
   return 0;
 }
 size_t g_landmark_smem[kMaxDevices];
-size_t g_chi2_smem[kMaxDevices];
+int g_sms[kMaxDevices];  // SMs per device, 0 until read
 
 }  // namespace
 
-// K3's shared memory for P poses, static part included; the wrapper checks
-// it against the device limit before launching.
-extern "C" size_t ba_chi2_smem_bytes(int P) {
-  return chi2_smem_bytes(P) + sizeof(float) * kLmThreads;
-}
-
-// Opt-in shared-memory limit of one block on `device` (bytes; -1 on error).
-extern "C" int ba_assembly_smem_limit(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-      cudaSuccess)
-    return -1;
-  return v;
-}
-
-// Landmarks per block of the landmark pass and of K3: the wrapper sizes the
-// per-block chi2 scratch as ceil(L / threads) floats.
+// Landmarks per chi2 tile (a landmark-pass block): the wrappers size the
+// tile-partial scratch as ceil(L / threads) floats.
 extern "C" int ba_assembly_threads() { return kLmThreads; }
 
 // K2: the landmark pass, then the camera pass (with the chi2 total), on
@@ -461,29 +494,35 @@ extern "C" int ba_assembly_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: the per-block chi2 pass, then the total, on `stream`; returns
-// cudaGetLastError() (0 = launched).
+// K3: one launch on `stream`, one block per tile of 128 landmarks.
+// chi_partial holds max(ceil(L / 128), 1) floats; ticket is this stream's
+// counter, 0 between launches (the last block resets it). 256 threads per
+// tile; one thread per slot (at most 1,024) when the tiles are fewer than
+// the SMs, where latency and not throughput sets the time. The block size
+// does not enter the float order. Returns cudaGetLastError() (0 = launched).
 extern "C" int ba_chi2_launch(
     const void* pose_R, const void* pose_t, const void* points, const void* obs_cam,
     const void* obs_uvr, const void* w_active, int P, int L, int K, float fx, float fy,
-    float cx, float cy, float bf, int robust, float delta, void* chi_partial, void* chi2,
-    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Cam cam{fx, fy, cx, cy, bf, robust, delta};
-  const int n_blocks = (L + kLmThreads - 1) / kLmThreads;
-  if (n_blocks > 0) {
-    const size_t smem = chi2_smem_bytes(P);
-    int err = set_smem(reinterpret_cast<const void*>(ba_chi2_kernel), smem, g_chi2_smem);
-    if (err != 0) return err;
-    ba_chi2_kernel<<<n_blocks, kLmThreads, smem, s>>>(
-        static_cast<const float*>(pose_R), static_cast<const float*>(pose_t),
-        static_cast<const float*>(points), static_cast<const int32_t*>(obs_cam),
-        static_cast<const float*>(obs_uvr), static_cast<const float*>(w_active), P, L, K, cam,
-        static_cast<float*>(chi_partial));
-    err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
+    float cx, float cy, float bf, int robust, float delta, void* chi_partial, void* ticket,
+    void* chi2, void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = dev < kMaxDevices ? g_sms[dev] : 0;
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) g_sms[dev] = sms;
   }
-  chi2_total_kernel<<<1, 32, 0, s>>>(static_cast<const float*>(chi_partial), n_blocks,
-                                     static_cast<float*>(chi2));
+  const int n_tiles = (L + kLmThreads - 1) / kLmThreads;
+  int threads = 2 * kLmThreads;
+  if (n_tiles < sms) threads = K * kLmThreads > 1024 ? 1024 : K * kLmThreads;
+  const Cam cam{fx, fy, cx, cy, bf, robust, delta};
+  ba_chi2_kernel<<<n_tiles > 0 ? n_tiles : 1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pose_R), static_cast<const float*>(pose_t),
+      static_cast<const float*>(points), static_cast<const int32_t*>(obs_cam),
+      static_cast<const float*>(obs_uvr), static_cast<const float*>(w_active), P, L, K, cam,
+      static_cast<float*>(chi_partial), static_cast<unsigned int*>(ticket),
+      static_cast<float*>(chi2));
   return static_cast<int>(cudaGetLastError());
 }

@@ -176,30 +176,10 @@ def _lib():
     lib.ba_assembly_launch.restype = ctypes.c_int
     lib.ba_chi2_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
-        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 4
     )
     lib.ba_chi2_launch.restype = ctypes.c_int
-    lib.ba_chi2_smem_bytes.argtypes = [ctypes.c_int]
-    lib.ba_chi2_smem_bytes.restype = ctypes.c_size_t
-    lib.ba_assembly_smem_limit.argtypes = [ctypes.c_int]
-    lib.ba_assembly_smem_limit.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def max_poses_chi2(device_index: int) -> int:
-    """Largest P whose staged poses fit in one K3 block's shared memory (K2
-    has no such cap)."""
-    lib = _lib()
-    limit = lib.ba_assembly_smem_limit(device_index)
-    if limit <= 0:
-        raise RuntimeError("cudaDeviceGetAttribute(MaxSharedMemoryPerBlockOptin) failed")
-    fn = lib.ba_chi2_smem_bytes
-    return int((limit - fn(0)) // (fn(1) - fn(0)))
-
-
-def _device_index(device: torch.device) -> int:
-    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
@@ -293,9 +273,26 @@ def chi2_plain(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.C
                       robust_delta)[4]
 
 
+# K3's launch counters, one int32 per (device, stream), 0 between launches:
+# the block of a launch that finishes last sums the tile partials and
+# resets its stream's counter. Launches on one stream run in order; each
+# stream has its own counter, so launches on two streams never share one.
+_tickets: dict = {}
+
+
+def _ticket(stream: int) -> torch.Tensor:
+    """The counter of `stream` on the current device."""
+    key = (torch.cuda.current_device(), stream)
+    t = _tickets.get(key)
+    if t is None:  # made on this stream, so ordered before its first use
+        t = _tickets.setdefault(key, torch.zeros((), dtype=torch.int32, device="cuda"))
+    return t
+
+
 def chi2_cuda(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Camera,
               robust_delta: Optional[float]) -> torch.Tensor:
-    """Launch K3 on the current stream (all inputs on one CUDA device)."""
+    """Launch K3 on the current stream (all inputs on one CUDA device): one
+    kernel launch, no pose cap."""
     global chi2_launch_count
     device = points.device
     if device.type != "cuda":
@@ -308,25 +305,23 @@ def chi2_cuda(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Ca
     _check(obs_cam, "obs_cam", torch.int32, (L, K), device)
     _check(obs_uvr, "obs_uvr", f32, (L, K, 3), device)
     _check(w_active, "w_active", f32, (L, K), device)
-    if P < 1 or K < 1:
-        raise ValueError(f"chi2_cuda: need P >= 1 and K >= 1, got P={P} K={K}")
-    cap = max_poses_chi2(_device_index(device))
-    if P > cap:
-        raise ValueError(f"chi2_cuda: P={P} exceeds the shared-memory cap of {cap} poses")
+    if P < 1 or K < 1 or K > _MAX_K:
+        raise ValueError(f"chi2_cuda: need P >= 1 and 1 <= K <= {_MAX_K}, got P={P} K={K}")
 
     lib = _lib()
-    n_blocks = -(-L // lib.ba_assembly_threads())
-    partial = torch.empty((max(n_blocks, 1),), dtype=f32, device=device)
+    n_tiles = -(-L // lib.ba_assembly_threads())
+    partial = torch.empty((max(n_tiles, 1),), dtype=f32, device=device)
     chi2 = torch.empty((), dtype=f32, device=device)
     robust = robust_delta is not None
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
+        ticket = _ticket(stream)
         rc = lib.ba_chi2_launch(
             pose_R.data_ptr(), pose_t.data_ptr(), points.data_ptr(), obs_cam.data_ptr(),
             obs_uvr.data_ptr(), w_active.data_ptr(), P, L, K,
             float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), float(cam.bf),
             int(robust), float(robust_delta) if robust else 0.0,
-            partial.data_ptr(), chi2.data_ptr(), stream,
+            partial.data_ptr(), ticket.data_ptr(), chi2.data_ptr(), stream,
         )
     build.check(rc, "ba_chi2_launch")
     chi2_launch_count += 1

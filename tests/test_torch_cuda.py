@@ -110,27 +110,41 @@ def test_ba_iterate_on_card_tracks_cpu(cuda_device):
 
 
 def _k3_problem(shape, device):
-    """The bench-shape problem, a small one, or the global-BA-at-scale
-    problem (600 keyframes, 1.2e5 landmarks, 7 slots)."""
+    """The bench-shape problem, a small one, the global-BA-at-scale problem
+    (600 keyframes, 1.2e5 landmarks, 7 slots), or one with KITTI 00's
+    keyframe count or more on the bench problem's 14.4 m track
+    (observations nearer than 1 m to a camera dropped)."""
     if shape == "scale":
         store, _, _ = make_scale_store(n_kf=600, n_lm=120_000, obs_per_lm=5, drift=4e-4)
         return closing.gather_global_problem_bucketed(store, device)[0]
     P, L, K = shape
-    flat, _ = make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6, obs_per_landmark=K)
+    big = dict(spacing=96 * 0.15 / P, min_depth=1.0) if P > 96 else {}
+    flat, _ = make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6, obs_per_landmark=K, **big)
     return schur_bucketed.from_flat(flat, K, device=device)
 
 
+def _k3_args(prob, robust_delta):
+    w = prob.obs_inv_sigma2 * prob.obs_valid.float()
+    w[::5, 0] = 0.0  # inactive slots
+    return (prob.pose_R, prob.pose_t, prob.points, prob.obs_cam, prob.obs_uvr, w,
+            DEFAULT_CAM, robust_delta)
+
+
+def _k2_chi2(prob, args):
+    return assembly.assemble(prob.pose_R, prob.pose_t, (~prob.pose_fixed).float(), prob.points,
+                             *args[3:]).chi2
+
+
 @pytest.mark.parametrize("robust_delta", [None, 2.447])
-@pytest.mark.parametrize("shape", [(96, 8192, 5), (8, 300, 4), "scale"])
+@pytest.mark.parametrize("shape", [(96, 8192, 5), (8, 300, 4), "scale", (1400, 60000, 7),
+                                   (6000, 60000, 7)])
 def test_chi2_kernel_matches_plain_on_card(cuda_device, robust_delta, shape):
     """K3 within rtol 1e-4 of its plain version evaluated in float64,
     bitwise repeatable, and bitwise equal to K2's chi2 on the same inputs
-    (same projection, loss and summation order)."""
+    (same projection, loss and summation order). P=6000 lies past the
+    ~4,460 poses that K3's first design staged in shared memory."""
     prob = _k3_problem(shape, cuda_device)
-    w = prob.obs_inv_sigma2 * prob.obs_valid.float()
-    w[::5, 0] = 0.0  # inactive slots
-    args = (prob.pose_R, prob.pose_t, prob.points, prob.obs_cam, prob.obs_uvr, w,
-            DEFAULT_CAM, robust_delta)
+    args = _k3_args(prob, robust_delta)
     before = assembly.chi2_launch_count
     got = assembly.chi2_sum(*args)
     again = assembly.chi2_sum(*args)
@@ -141,9 +155,43 @@ def test_chi2_kernel_matches_plain_on_card(cuda_device, robust_delta, shape):
     args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
     want = float(assembly.chi2_plain(*args64))
     np.testing.assert_allclose(float(got), want, rtol=1e-4)
-    k2 = assembly.assemble(prob.pose_R, prob.pose_t, (~prob.pose_fixed).float(), prob.points,
-                           prob.obs_cam, prob.obs_uvr, w, DEFAULT_CAM, robust_delta)
-    assert torch.equal(got, k2.chi2)
+    assert torch.equal(got, _k2_chi2(prob, args))
+
+
+@pytest.mark.parametrize("L", [1, 127, 129, 1000, 8191])
+def test_chi2_kernel_equals_k2_at_ragged_landmark_counts(cuda_device, L):
+    """K2's chi2 and K3's are bitwise equal when L is not a multiple of the
+    128-landmark tile (K3 copies a ragged last tile by its threads)."""
+    prob = _k3_problem((24, L, 6), cuda_device)
+    for delta in (None, 2.447):
+        args = _k3_args(prob, delta)
+        got = assembly.chi2_sum(*args)
+        assert torch.equal(got, _k2_chi2(prob, args))
+        args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                  for a in args]
+        np.testing.assert_allclose(float(got), float(assembly.chi2_plain(*args64)), rtol=1e-4)
+
+
+def test_chi2_kernel_on_two_streams_at_once(cuda_device):
+    """K3 on two streams at once, on the same inputs and on different ones,
+    gives the bits of a lone call: each stream has its own launch ticket and
+    partials. Each stream runs several launches back to back, so the two
+    streams' launches overlap on the card."""
+    probs = [_k3_problem((96, 8192, 5), cuda_device), _k3_problem((600, 60000, 7), cuda_device)]
+    args = [_k3_args(p, 2.447) for p in probs]
+    alone = [assembly.chi2_sum(*a) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for pair in ((0, 0), (0, 1), (1, 0)):
+        outs = [[], []]
+        for _ in range(8):
+            for s, (stream, which) in enumerate(zip(streams, pair)):
+                with torch.cuda.stream(stream):
+                    outs[s].append(assembly.chi2_sum(*args[which]))
+        torch.cuda.synchronize()
+        for s, which in enumerate(pair):
+            for got in outs[s]:
+                assert torch.equal(got, alone[which]), (pair, s)
 
 
 def test_chi2_kernel_rejects_bad_inputs(cuda_device):
@@ -159,6 +207,13 @@ def test_chi2_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         assembly.chi2_cuda(prob.pose_R.cpu(), prob.pose_t, prob.points, prob.obs_cam,
                            prob.obs_uvr, w, DEFAULT_CAM, None)
+    # More slots per landmark than the kernel's rho buffer holds (16).
+    flat, _ = make_ba_problem(seed=0, P=20, L=64, obs_per_landmark=17)
+    wide = schur_bucketed.from_flat(flat, 17, device=cuda_device)
+    with pytest.raises(ValueError):
+        assembly.chi2_cuda(wide.pose_R, wide.pose_t, wide.points, wide.obs_cam, wide.obs_uvr,
+                           wide.obs_inv_sigma2, DEFAULT_CAM, None)
+
 
 
 def test_global_ba_on_card_is_repeatable_and_tracks_cpu(cuda_device):

@@ -77,6 +77,24 @@ def test_chi2_only_matches_jax_xla():
         np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
+def test_chi2_only_matches_jax_xla_past_the_old_pose_cap():
+    """4,608 poses (past the ~4,460 that K3's first design staged per block;
+    K3 has no pose cap now) on the bench problem's 14.4 m track, 256
+    landmarks of 4 slots: the port's chi2_only within rtol 1e-5 of the JAX
+    package's on the same problem."""
+    P = 4608
+    flat, _ = make_ba_problem(seed=7, P=P, L=256, stereo_frac=0.5, obs_per_landmark=4,
+                              spacing=96 * 0.15 / P)
+    prob = schur_bucketed.from_flat(flat, 4)
+    tp = convert.ba_problem(prob)
+    assert tp.num_poses == P
+    for delta in (None, 2.447):
+        want = float(schur_bucketed.chi2_only(prob, DEFAULT_CAM, prob.obs_valid, delta))
+        got = float(t_schur.chi2_only(tp, CAM, tp.obs_valid, delta))
+        assert np.isfinite(want) and want > 0
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 def test_chi2_rejects_unknown_device_types():
     with pytest.raises(ValueError):
         z = torch.zeros((1, 3), device="meta")
