@@ -50,7 +50,31 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      Counters zeroed just before and read just after; >= 158 frames tracked,
      >= 1 loop closed, >= 20 landmarks fused, ATE < 0.3 m, K3 launched
      inside the loop's global BA.
-Then the kernel summary line (each kernel's launches on the main path, its
+ 10. camera+LiDAR fusion at KITTI size: `SlamSystem.track_fusion` over 28
+     frames of the street circuit of eval/planeworld.py
+     (street_circuit_world(seed=0), circuit_trajectory(step=0.8)) rendered
+     at 1226x370 with the KITTI 00-02 intrinsics, 2000 ORB features, the
+     default LidarConfig (64 rings x 1800 columns) and TrackingConfig, scans
+     of 64 rings x 1800 rays (~114,000 points; the rays centred on the
+     range image's columns, `planeworld.center_scan_on_columns`), T_CAM_VELO.
+     Run twice: once timed per frame with the launch counters zeroed just
+     before and read just after, once with every stage bracketed by
+     synchronizes (frame build split into ORB | LiDAR features | cloud
+     projection + depth association, the tracking step, local mapping and
+     its LiDAR stage) and the last frames under torch.profiler (launches per
+     frame, device idle share). Every frame must track in both, with >= 2
+     keyframes, ATE < 0.5 m, > 20 LiDAR associations on every steady frame,
+     the LiDAR stage of local BA run at least once, K1 and K2 launched, and
+     the two runs' trajectories, keyframe poses and landmarks bitwise equal;
+ 11. relocalisation on the same sequence: one `recover_pose_no_prior` timed
+     cold and warm; the map saved, `SlamSystem.load`ed on the card and a
+     frame of the sequence fed in localisation mode (it must relocalise
+     within 0.5 m of the ground truth and insert no keyframe); then, in the
+     running system (> 5 keyframes), two frames with a blank image -> LOST
+     -> recovery within two frames of vision returning.
+Then the kernel summary line (each kernel's launches on the main path (K1
+and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
+path's count), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
 and the final status line.
@@ -135,16 +159,23 @@ def device_ms(fn, n: int = 20, warm: int = 3, by_kernel: bool = False):
 
     for _ in range(warm):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    # The tracer now and then returns a window without any device row; such a
+    # window is taken again (three in a row fail the run).
+    for attempt in range(3):
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    us = sum(e.self_device_time_total for e in rows)
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        us = sum(e.self_device_time_total for e in rows)
+        if us > 0:
+            break
+        print(json.dumps({"phase": "profiler_window_empty", "attempt": attempt}), flush=True)
+    else:
+        raise AssertionError("torch.profiler recorded no device time in three windows")
     if by_kernel:
         return us / 1e3 / n, {e.key[:60]: e.self_device_time_total / 1e3 / n for e in rows}
     return us / 1e3 / n
@@ -202,6 +233,13 @@ def gt_cam_to_world(poses) -> np.ndarray:
         M[:3, :3], M[:3, 3] = T.R, T.t
         out.append(np.linalg.inv(M))
     return np.stack(out)
+
+
+def camera_center(pose) -> np.ndarray:
+    """World position of the camera of a T_cw pose (tensors or arrays)."""
+    R = np.asarray(pose.R.cpu() if hasattr(pose.R, "cpu") else pose.R, np.float64)
+    t = np.asarray(pose.t.cpu() if hasattr(pose.t, "cpu") else pose.t, np.float64)
+    return -R.T @ t
 
 
 def run_sequence(SlamSystem, cfg, cam, frames, device, time_from: int):
@@ -631,23 +669,259 @@ def main() -> None:
     if k3_in_gba <= 0 or min(loop_launches.values()) <= 0:
         raise AssertionError(f"ring: a kernel never launched: {loop_launches}, {gba_runs}")
 
+    # 10. Camera+LiDAR fusion at KITTI size --------------------------------
+    from sqrtlm_slam_tpu_torch.eval import planeworld
+    from sqrtlm_slam_tpu_torch.lidar import features as lidar_features
+    from sqrtlm_slam_tpu_torch.pipeline import frame as frame_mod
+    from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking
+    from sqrtlm_slam_tpu_torch.pipeline import system as system_mod
+    from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackState
+
+    n_fusion, n_extra = 28, 4  # the extra frames serve the relocalisation phase
+    t0 = time.perf_counter()
+    street = planeworld.street_circuit_world(seed=0)
+    world_s = time.perf_counter() - t0
+    f_poses, _ = planeworld.circuit_trajectory(n_fusion + n_extra, step=0.8)
+    t0 = time.perf_counter()
+    f_frames = []
+    for i, T in enumerate(f_poses):
+        blank = n_fusion <= i < n_fusion + 2  # the occluded frames: no image needed
+        img = (np.full((KITTI_H, KITTI_W), 16.0, np.float32) if blank else
+               street.render(T, kcam, H=KITTI_H, W=KITTI_W, noise_seed=i)[0])
+        scan = street.lidar_scan(T, planeworld.T_CAM_VELO, n_azimuth=1800, noise_seed=i)
+        pts, T_cv = planeworld.center_scan_on_columns(scan, planeworld.T_CAM_VELO)
+        f_frames.append((img, pts))
+    render_s = time.perf_counter() - t0
+    T_cl = (T_cv[:3, :3].astype(np.float32), T_cv[:3, 3].astype(np.float32))
+    f_cfg = SystemConfig(orb=ORBConfig(max_features=2000),
+                         lidar=lidar_features.LidarConfig())
+    f_gt = gt_cam_to_world(f_poses)
+    # The map's frame is the first camera's: ground truth relative to frame 0.
+    f_gt_rel = np.linalg.inv(f_gt[0]) @ f_gt
+
+    def fusion_run(profile_last: int = 0):
+        """One pass over the fusion frames: (system, seconds per frame, tracked,
+        LiDAR associations per frame, profiler events or None)."""
+        sysf = SlamSystem(kcam, f_cfg, device=dev)
+        secs, hits, tracked, prof = [], [], 0, None
+        for i, (img, pts) in enumerate(f_frames[:n_fusion]):
+            if profile_last and i == n_fusion - profile_last:
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            t = time.perf_counter()
+            pose = sysf.track_fusion(img, pts, T_cam_lidar=T_cl)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            tracked += pose is not None
+            hits.append(sysf.tracker.last_lidar_matches)
+        events = None
+        if prof is not None:
+            wall = time.perf_counter() - t_prof
+            prof.__exit__(None, None, None)
+            ev = prof.key_averages()
+            dev_us = sum(e.self_device_time_total for e in ev
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+            n_launch = sum(e.count for e in ev if e.key in (
+                "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+            events = dict(profiled_frames=profile_last,
+                          launches_per_frame=n_launch / profile_last,
+                          device_ms_per_frame=dev_us / 1e3 / profile_last,
+                          device_idle_share=1.0 - (dev_us / 1e6) / wall)
+        return sysf, secs, tracked, hits, events
+
+    hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
+    utils.host_reads = 0
+    t0 = time.perf_counter()
+    fus, f_secs, f_tracked, f_hits, _ = fusion_run()
+    fusion_wall = time.perf_counter() - t0
+    fusion_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count}
+    f_reads = utils.host_reads
+    f_est = fus.get_trajectory()
+    f_ate, _ = ate_rmse(f_est, f_gt[: len(f_est)], align_scale=False)
+
+    # The same frames again, every stage bracketed by synchronizes.
+    stage_s = {}
+
+    def staged(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage_s.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    patched = [
+        (system_mod, "build_frame", "build_frame"),
+        (frame_mod.orb, "extract", "orb_extract"),
+        (lidar_features, "extract_features", "lidar_extract_features"),
+        (frame_mod, "project_cloud_to_depth_image", "project_cloud_to_depth_image"),
+        (frame_mod, "associate_depth", "associate_depth"),
+        (tracking, "track_frame_step", "track_frame_step"),
+        (local_mapping.LocalMapper, "process_keyframe", "process_keyframe"),
+        (local_mapping.LocalMapper, "local_ba", "local_ba"),
+        (local_mapping.LocalMapper, "_lidar_stage", "lidar_stage"),
+        (tracking.Tracker, "_store_kf_lidar", "store_kf_lidar"),
+    ]
+    originals = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patched]
+    n_prof = 3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for obj, attr, name in patched:
+            setattr(obj, attr, staged(name, getattr(obj, attr)))
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fus2, _, f_tracked2, f_hits2, f_prof = fusion_run(profile_last=n_prof)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            for obj, attr, fn in originals:
+                setattr(obj, attr, fn)
+    f_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # Stage medians over the frames outside the profiler's window.
+    n_calls = {k: len(v) for k, v in stage_s.items()}
+    per_frame = ("build_frame", "orb_extract", "lidar_extract_features",
+                 "project_cloud_to_depth_image", "associate_depth")
+    stage_ms = {k: 1e3 * float(np.median(v[: n_fusion - n_prof] if k in per_frame else v))
+                for k, v in stage_s.items()}
+    fusion_equal = all(np.array_equal(a, b) for a, b in (
+        (f_est, fus2.get_trajectory()), (fus.store.kf_R, fus2.store.kf_R),
+        (fus.store.kf_t, fus2.store.kf_t), (fus.store.lm_pos, fus2.store.lm_pos),
+        (fus.store.kf_flat_normal, fus2.store.kf_flat_normal)))
+    steady_hits = f_hits[2:]
+    fusion = dict(
+        frames=n_fusion, tracked=f_tracked, tracked_rerun=f_tracked2,
+        points_per_scan=int(np.mean([len(p) for _, p in f_frames])),
+        keyframes=fus.num_keyframes(), landmarks=fus.num_landmarks(),
+        local_ba=fus.local_mapper.num_local_ba, lidar_stages=fus.local_mapper.num_lidar_stages,
+        lidar_matches_min=int(min(steady_hits)), lidar_matches_median=float(np.median(steady_hits)),
+        launches=fusion_launches, ate_m=f_ate,
+        tracked_frames_per_s=1.0 / float(np.median(f_secs[5:])),
+        median_ms=1e3 * float(np.median(f_secs[5:])), max_ms=1e3 * float(np.max(f_secs[5:])),
+        host_reads_per_frame=f_reads / n_fusion,
+        synchronizing_ops_per_frame=f_syncs / n_fusion,
+        stage_ms_median=stage_ms, stage_calls=n_calls, **f_prof,
+        rerun_bitwise_equal=fusion_equal, world_s=world_s,
+        render_s_per_frame=render_s / len(f_frames), wall_s=fusion_wall,
+        note="stage times and synchronizing operations from the second run "
+             "(torch.cuda.set_sync_debug_mode('warn'), stages bracketed by synchronizes)")
+    emit("fusion_kitti", **fusion)
+    if f_tracked != n_fusion or f_tracked2 != n_fusion:
+        raise AssertionError(f"fusion tracked {f_tracked} and {f_tracked2} of {n_fusion}")
+    if fusion["keyframes"] < 2 or fusion["lidar_stages"] < 1:
+        raise AssertionError(f"fusion: {fusion['keyframes']} keyframes, "
+                             f"{fusion['lidar_stages']} LiDAR stages")
+    if not f_ate < 0.5:
+        raise AssertionError(f"fusion ATE {f_ate} m >= 0.5 m")
+    if min(steady_hits) <= 20:
+        raise AssertionError(f"fusion: LiDAR associations per frame {f_hits}")
+    if min(fusion_launches.values()) <= 0:
+        raise AssertionError(f"fusion: a kernel never launched: {fusion_launches}")
+    if not fusion_equal or f_hits != f_hits2:
+        raise AssertionError("two fusion runs on the card differ")
+    del fus2
+
+    # 11. Relocalisation and map resume ------------------------------------
+    hamming.launch_count = 0
+    utils.host_reads = 0
+    img_r, pts_r = f_frames[20]
+    frame_r = frame_mod.build_frame(
+        torch.as_tensor(img_r, device=dev), kcam, f_cfg.orb,
+        cloud_lidar=torch.as_tensor(pts_r, device=dev), T_cam_lidar=T_cl, lidar_cfg=f_cfg.lidar)
+    buf_r = fus.tracker._gather_local_map()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    recover_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pose_r, n_r = tracking.recover_pose_no_prior(buf_r, frame_r, kcam, generator=gen)
+        n_r = int(n_r)
+        recover_ms.append(1e3 * (time.perf_counter() - t))
+    recover_err = float(np.linalg.norm(camera_center(pose_r) - f_gt_rel[20][:3, 3]))
+
+    map_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "chip_smoke_map.npz")
+    os.makedirs(os.path.dirname(map_path), exist_ok=True)
+    fus.save(map_path)
+    resumed = SlamSystem.load(map_path, kcam, f_cfg, device=dev)
+    os.remove(map_path)
+    kfs_loaded = resumed.num_keyframes()
+    start_state = resumed.state
+    resumed.activate_localization_mode()
+    t = time.perf_counter()
+    pose_l = resumed.track_fusion(img_r, pts_r, T_cam_lidar=T_cl)
+    torch.cuda.synchronize()
+    resume_ms = 1e3 * (time.perf_counter() - t)
+    resume_err = (float(np.linalg.norm(camera_center(pose_l) - f_gt_rel[20][:3, 3]))
+                  if pose_l is not None else float("inf"))
+    resume = dict(start_state=start_state, state=resumed.state, err_m=resume_err,
+                  candidates_tried=resumed.tracker.reloc_candidates_tried,
+                  keyframes_loaded=kfs_loaded, keyframes_after=resumed.num_keyframes(),
+                  lidar_matches=resumed.tracker.last_lidar_matches, ms=resume_ms)
+
+    # The running system: two frames with a blank image, then vision returns.
+    kfs_before = fus.num_keyframes()
+    occl = []
+    for img, pts in f_frames[n_fusion:]:
+        pose = fus.track_fusion(img, pts, T_cam_lidar=T_cl)
+        occl.append(dict(tracked=pose is not None, state=fus.state,
+                         candidates_tried=fus.tracker.reloc_candidates_tried))
+    last_err = float(np.linalg.norm(camera_center(fus.tracker.pose) - f_gt_rel[-1][:3, 3]))
+    emit("relocalisation", recover_pose_no_prior_ms_cold=recover_ms[0],
+         recover_pose_no_prior_ms_warm=float(np.median(recover_ms[1:])),
+         recover_inliers=n_r, recover_err_m=recover_err, resume=resume,
+         keyframes_before_occlusion=kfs_before, occlusion=occl,
+         pose_err_after_recovery_m=last_err, hamming_launches=hamming.launch_count,
+         host_reads=utils.host_reads)
+    if n_r < 30 or not recover_err < 0.5:
+        raise AssertionError(f"recover_pose_no_prior: {n_r} inliers, {recover_err} m off")
+    if start_state != TrackState.LOST or resume["state"] != TrackState.OK \
+            or not resume_err < 0.5 or resume["keyframes_after"] != kfs_loaded:
+        raise AssertionError(f"resume from the saved map failed: {resume}")
+    if kfs_before <= 5:
+        raise AssertionError(f"only {kfs_before} keyframes before the occlusion")
+    if occl[0]["tracked"] or occl[1]["tracked"] or occl[1]["state"] != TrackState.LOST:
+        raise AssertionError(f"blank frames were not lost: {occl}")
+    if not (occl[2]["tracked"] or occl[3]["tracked"]) or fus.state != TrackState.OK \
+            or not last_err < 0.5:
+        raise AssertionError(f"no recovery after the occlusion: {occl}, {last_err} m off")
+    if hamming.launch_count <= 0:
+        raise AssertionError("relocalisation never launched K1")
+    reloc_launches = hamming.launch_count
+
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by") + keys}
 
     kernels = [
         dict(name="hamming", route="cuda", source="sqrtlm_slam_tpu_torch/csrc/hamming.cu",
-             replaces="sqrtlm_slam_tpu/ops/hamming.py:45", launches=launches["hamming"],
+             replaces="sqrtlm_slam_tpu/ops/hamming.py:45",
+             launches=fusion_launches["hamming"],
+             launches_by_path=dict(kitti_rgbd=launches["hamming"],
+                                   fusion=fusion_launches["hamming"],
+                                   relocalisation=reloc_launches,
+                                   ring_loop=loop_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
              replaces="sqrtlm_slam_tpu/optim/assembly_pallas.py:342",
-             launches=launches["ba_assembly"], max_abs_err=k2_err,
+             launches=fusion_launches["ba_assembly"],
+             launches_by_path=dict(kitti_rgbd=launches["ba_assembly"],
+                                   fusion=fusion_launches["ba_assembly"],
+                                   gba_at_scale=gba_launches["ba_assembly"],
+                                   ring_loop=loop_launches["ba_assembly"]),
+             max_abs_err=k2_err,
              **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
              replaces="sqrtlm_slam_tpu/optim/assembly_pallas.py:508",
-             launches=loop_launches["ba_chi2"], max_abs_err=k3_err,
+             launches=loop_launches["ba_chi2"],
+             launches_by_path=dict(gba_at_scale=gba_launches["ba_chi2"],
+                                   ring_loop=loop_launches["ba_chi2"]),
+             max_abs_err=k3_err,
              **timed(k3[(600, 120000, 7, 2.447)]), library_ms=None),
     ]
     emit("done", total_s=time.perf_counter() - t_start, build_s=built)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's tracking time goes on one GPU.
 
-    python3 scripts/profile_torch_tracking.py
+    python3 scripts/profile_torch_tracking.py            # RGB-D, bench shape
+    python3 scripts/profile_torch_tracking.py --fusion   # camera+LiDAR, KITTI size
 
 Runs `sqrtlm_slam_tpu_torch` SlamSystem.track_depth over the bench.py
 tracking scene (240x320 synthetic world, seed 1, 1200 points, step 0.3 m)
@@ -11,6 +12,13 @@ tracking scene (240x320 synthetic world, seed 1, 1200 points, step 0.3 m)
   * a torch.profiler window over steady-state frames: wall ms per frame,
     device (CUDA kernel) ms per frame, kernel launches per frame, the
     device's idle share, and the top kernels / host ops by time.
+With `--fusion` the scene is the street circuit of `eval/planeworld.py` at
+KITTI size (1226x370, KITTI 00-02 intrinsics, 2000 features, scans of 64
+rings x 1800 rays centred on the range image's columns, ~114,000 points,
+default LidarConfig and TrackingConfig) through
+`SlamSystem.track_fusion` (20 frames, the last 4 profiled), and the stage
+split also times the parts of the frame build (ORB, LiDAR features, cloud
+projection, depth association) and the LiDAR stage of local BA.
 The first lines carry the card's name and power limit from nvidia-smi.
 """
 
@@ -28,8 +36,32 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def fusion_scene(n_frames: int):
+    """(camera, SystemConfig, [(image, scan)], T_cam_lidar) at KITTI size."""
+    from sqrtlm_slam_tpu_torch.eval import planeworld
+    from sqrtlm_slam_tpu_torch.factors.reprojection import Camera
+    from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch.lidar.features import LidarConfig
+    from sqrtlm_slam_tpu_torch.pipeline.system import SystemConfig
+
+    cam = Camera(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448)
+    world = planeworld.street_circuit_world(seed=0)
+    poses, _ = planeworld.circuit_trajectory(n_frames, step=0.8)
+    frames = []
+    for i, T in enumerate(poses):
+        img, _ = world.render(T, cam, H=370, W=1226, noise_seed=i)
+        scan = world.lidar_scan(T, planeworld.T_CAM_VELO, n_azimuth=1800, noise_seed=i)
+        pts, T_cv = planeworld.center_scan_on_columns(scan, planeworld.T_CAM_VELO)
+        frames.append((img, pts))
+    T_cl = (T_cv[:3, :3].astype(np.float32), T_cv[:3, 3].astype(np.float32))
+    cfg = SystemConfig(orb=ORBConfig(max_features=2000), lidar=LidarConfig())
+    return cam, cfg, frames, T_cl
+
+
 def main() -> None:
     import torch
+
+    fusion = "--fusion" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         sys.exit("profile_torch_tracking: needs a CUDA device")
@@ -38,6 +70,8 @@ def main() -> None:
 
     from sqrtlm_slam_tpu_torch.eval import synthetic
     from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch.lidar import features as lidar_features
+    from sqrtlm_slam_tpu_torch.pipeline import frame as frame_mod
     from sqrtlm_slam_tpu_torch.pipeline import local_mapping, system, tracking
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -62,27 +96,48 @@ def main() -> None:
         "process_keyframe", local_mapping.LocalMapper.process_keyframe)
     local_mapping.LocalMapper.local_ba = timed("local_ba", local_mapping.LocalMapper.local_ba)
 
-    world = synthetic.SyntheticWorld(seed=1, n_points=1200)
-    poses = synthetic.forward_trajectory(24, step=0.3)
-    frames = [world.render(T, synthetic.DEFAULT_CAM) for T in poses]
-    s = system.SlamSystem(synthetic.DEFAULT_CAM,
-                          system.SystemConfig(orb=ORBConfig(max_features=1000)),
-                          device="cuda")
     n_prof = 4
-    for img, depth in frames[:-n_prof]:
-        s.track_depth(img, depth)
+    if fusion:
+        frame_mod.orb.extract = timed("orb_extract", frame_mod.orb.extract)
+        lidar_features.extract_features = timed("lidar_extract_features",
+                                                lidar_features.extract_features)
+        frame_mod.project_cloud_to_depth_image = timed(
+            "project_cloud_to_depth_image", frame_mod.project_cloud_to_depth_image)
+        frame_mod.associate_depth = timed("associate_depth", frame_mod.associate_depth)
+        local_mapping.LocalMapper._lidar_stage = timed(
+            "lidar_stage", local_mapping.LocalMapper._lidar_stage)
+        tracking.Tracker._gather_lidar_local_map = timed(
+            "gather_lidar_local_map", tracking.Tracker._gather_lidar_local_map)
+        cam, cfg, frames, T_cl = fusion_scene(20)
+        s = system.SlamSystem(cam, cfg, device="cuda")
+
+        def step(fr):
+            return s.track_fusion(fr[0], fr[1], T_cam_lidar=T_cl)
+    else:
+        world = synthetic.SyntheticWorld(seed=1, n_points=1200)
+        poses = synthetic.forward_trajectory(24, step=0.3)
+        frames = [world.render(T, synthetic.DEFAULT_CAM) for T in poses]
+        s = system.SlamSystem(synthetic.DEFAULT_CAM,
+                              system.SystemConfig(orb=ORBConfig(max_features=1000)),
+                              device="cuda")
+
+        def step(fr):
+            return s.track_depth(*fr)
+    tracked = sum(step(fr) is not None for fr in frames[:-n_prof])
     print(json.dumps({
         "stages_ms_median": {k: 1e3 * float(np.median(v)) for k, v in stage_s.items()},
         "stage_calls": {k: len(v) for k, v in stage_s.items()},
-        "card": card}), flush=True)
+        "mode": "fusion" if fusion else "rgbd", "tracked": tracked,
+        "frames": len(frames) - n_prof, "keyframes": s.num_keyframes(),
+        "last_lidar_matches": s.tracker.last_lidar_matches, "card": card}), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for img, depth in frames[-n_prof:]:
-            s.track_depth(img, depth)
+        for fr in frames[-n_prof:]:
+            step(fr)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()

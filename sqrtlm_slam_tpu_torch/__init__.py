@@ -10,7 +10,12 @@ matching, pose-only LM tracking, keyframe insertion into the shared numpy
 `MapStore` (with vocabulary words and BoW), and local mapping with the
 bucketed sqrt-Schur local BA — and the loop path: place recognition, Sim3
 verification, loop correction, the Sim3 essential graph and the
-matrix-free PCG global BA.
+matrix-free PCG global BA; the failure path: PnP RANSAC, the no-prior pose
+recovery, relocalisation, map checkpoint and resume, localisation mode; and
+camera+LiDAR fusion (`SlamSystem.track_fusion`): LiDAR feature extraction
+on the range image, voxel-hash association, the tightly coupled pose
+optimisation in tracking and the LiDAR stage of local BA. The LiDAR code is
+plain PyTorch (it is XLA, not Pallas, in the JAX package).
 
 Every TPU kernel on that path is a hand-written CUDA kernel under `csrc/`,
 built with nvcc at first use (`ops/build.py`) and bound through ctypes:
@@ -26,7 +31,10 @@ a CUDA tensor launches the kernel or raises.
 Package layout
 --------------
   geometry/   SO3 / SE3 / Sim3 Lie ops, Umeyama alignment
-  factors/    reprojection residuals + Jacobians, the Sim3 pose-graph factor
+  factors/    reprojection and LiDAR residuals + Jacobians, the Sim3
+              pose-graph factor
+  algorithm/  PnP RANSAC banks (2D-3D DLT, 3D-3D Horn)
+  lidar/      range-image features, voxel-hash NN + downsampling, local map
   optim/      robust losses, LM, pose-only optimisation, BA assembly (K2) and
               chi2 (K3), bucketed sqrt-Schur local BA, matrix-free PCG global
               BA, fixed-order keyed sums, optimizer facade
@@ -34,8 +42,10 @@ Package layout
   frontend/   ORB extraction, descriptor matching, vocabulary + BoW
   pipeline/   frame build, tracking, triangulation, local mapping, system
   loop/       keyframe database, Sim3 RANSAC, essential graph, loop closer
-  mapstore/   the JAX package's numpy MapStore, carried over unchanged
-  eval/       numpy synthetic worlds, BA problems, the scale store, ATE
+  mapstore/   the JAX package's numpy MapStore, carried over unchanged;
+              the map checkpoint (same npz layout as the JAX package's)
+  eval/       numpy synthetic worlds (points, textured planes + LiDAR
+              scanner), BA problems, the scale store, ATE
   convert.py  JAX-package objects -> port objects (parity tests)
 """
 

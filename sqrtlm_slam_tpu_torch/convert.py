@@ -17,6 +17,9 @@ from .frontend.orb import Keypoints, ORBConfig
 from .frontend.vocab import Vocabulary
 from .geometry.se3 import SE3
 from .geometry.sim3 import Sim3
+from .lidar.features import LidarConfig, LidarFeatures
+from .lidar.odometry import LocalMap
+from .lidar.voxel_map import VoxelMap
 from .loop.closing import LoopClosingConfig
 from .loop.essential_graph import PoseGraphProblem
 from .optim.schur_bucketed import BucketedBAProblem, bucketed_from_numpy
@@ -56,10 +59,16 @@ def local_mapping_config(cfg) -> LocalMappingConfig:
     return _fields(LocalMappingConfig, cfg)
 
 
+def lidar_config(cfg) -> LidarConfig:
+    return _fields(LidarConfig, cfg)
+
+
 def system_config(cfg) -> SystemConfig:
-    if getattr(cfg, "lidar", None) is not None or getattr(cfg, "async_mapping", False):
-        raise NotImplementedError("LiDAR fusion and async mapping are not ported yet")
+    if getattr(cfg, "async_mapping", False):
+        raise NotImplementedError("async mapping is not ported yet")
+    lidar = getattr(cfg, "lidar", None)
     return SystemConfig(
+        lidar=lidar_config(lidar) if lidar is not None else None,
         orb=orb_config(cfg.orb), tracking=tracking_config(cfg.tracking),
         local_mapping=local_mapping_config(cfg.local_mapping),
         max_keyframes=cfg.max_keyframes, max_landmarks=cfg.max_landmarks,
@@ -83,9 +92,27 @@ def keypoints(kp, device="cpu") -> Keypoints:
     )
 
 
+def lidar_features(lf, device="cpu") -> LidarFeatures:
+    src = lf._asdict()
+    return LidarFeatures(**{k: _t(v, device, torch.bool if k.endswith("_valid") else None)
+                            for k, v in src.items()})
+
+
+def voxel_map(vm, device="cpu") -> VoxelMap:
+    return VoxelMap(points=_t(vm.points, device), keys=_t(vm.keys, device, torch.int32),
+                    payload=_t(vm.payload, device), cell=float(vm.cell),
+                    valid=_t(vm.valid, device, torch.bool))
+
+
+def local_map(lm, device="cpu") -> LocalMap:
+    return LocalMap(corner=voxel_map(lm.corner, device), flat=voxel_map(lm.flat, device))
+
+
 def frame(fr, device="cpu") -> Frame:
+    lidar = getattr(fr, "lidar", None)
     return Frame(kp=keypoints(fr.kp, device), uvr=_t(fr.uvr, device),
-                 depth=_t(fr.depth, device), inv_sigma2=_t(fr.inv_sigma2, device))
+                 depth=_t(fr.depth, device), inv_sigma2=_t(fr.inv_sigma2, device),
+                 lidar=lidar_features(lidar, device) if lidar is not None else None)
 
 
 def ba_problem(prob, device="cpu") -> BucketedBAProblem:

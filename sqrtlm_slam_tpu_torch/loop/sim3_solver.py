@@ -34,14 +34,14 @@ class Sim3RansacResult(NamedTuple):
 
 
 def minimal_sets(valid: torch.Tensor, num_hypotheses: int,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """(H, 3) distinct valid indices per hypothesis: masked Gumbel top-k."""
+                 generator: Optional[torch.Generator] = None, k: int = 3) -> torch.Tensor:
+    """(H, k) distinct valid indices per hypothesis: masked Gumbel top-k."""
     tiny = torch.finfo(torch.float32).tiny
     u = torch.rand((num_hypotheses, valid.shape[0]), generator=generator,
                    device=valid.device).clamp(min=tiny)
     g = -torch.log(-torch.log(u))
     g = torch.where(valid[None, :], g, torch.full_like(g, -math.inf))
-    return torch.topk(g, 3, dim=-1).indices
+    return torch.topk(g, k, dim=-1).indices
 
 
 def _inlier_errors(S: sim3.Sim3, x1, x2, uv1, uv2, is2_1, is2_2, cam: Camera):

@@ -1,10 +1,13 @@
-"""Frame construction: ORB extraction + depth association (RGB-D path).
+"""Frame construction: ORB extraction + depth association.
 
-Counterpart of the depth-image branch of `sqrtlm_slam_tpu/pipeline/frame.py`:
-ORB runs on the image's device; each keypoint takes the nearest valid depth
-of an 8x14 patch of the depth image unless the patch spans more than 2 m
-(unstable), and depth-carrying keypoints get a stereo-style pseudo
-observation ``u_right = u - bf / z``.
+Counterpart of `sqrtlm_slam_tpu/pipeline/frame.py` without the stereo
+branch: ORB runs on the image's device; each keypoint takes the nearest
+valid depth of an 8x14 patch of the depth image unless the patch spans more
+than 2 m (unstable), and depth-carrying keypoints get a stereo-style pseudo
+observation ``u_right = u - bf / z``. The depth image is given (RGB-D) or
+projected from a LiDAR cloud (fusion); with a `LidarConfig` the cloud's
+corner / flat features are extracted in the LiDAR frame and carried, in the
+camera frame, on `Frame.lidar` for the tight coupling.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from ..factors.reprojection import Camera
 from ..frontend import orb
+from ..lidar import features as lidar_features
 
 
 class Frame(NamedTuple):
@@ -25,11 +29,39 @@ class Frame(NamedTuple):
     uvr: torch.Tensor  # (N, 3) [u, v, u_right]; u_right < 0 -> mono
     depth: torch.Tensor  # (N,) associated depth (<= 0 -> none)
     inv_sigma2: torch.Tensor  # (N,) information by pyramid level
+    lidar: Optional[lidar_features.LidarFeatures] = None  # fusion coupling
 
 
 @functools.lru_cache(maxsize=16)
 def _level_sigma2_on(orb_cfg: orb.ORBConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(orb.level_sigma2(orb_cfg), device=device)
+
+
+def project_cloud_to_depth_image(cloud_cam: torch.Tensor, cam: Camera, height: int,
+                                 width: int, valid: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """Project a camera-frame cloud (N, 3) to a sparse depth image, keeping
+    the nearest point per pixel. Returns (H, W) depth, 0 where empty. Rows
+    holding NaN are inert (NaN fails z > 0.1)."""
+    z = cloud_cam[:, 2]
+    ok = z > 0.1
+    zs = torch.where(ok, z, torch.ones_like(z))
+    u = cam.fx * cloud_cam[:, 0] / zs + cam.cx
+    v = cam.fy * cloud_cam[:, 1] / zs + cam.cy
+    # Outside the image either way; keeps the int conversion defined.
+    u = torch.clamp(torch.nan_to_num(u, nan=-2.0), -2.0, width + 1.0)
+    v = torch.clamp(torch.nan_to_num(v, nan=-2.0), -2.0, height + 1.0)
+    ui = torch.round(u).to(torch.int64)
+    vi = torch.round(v).to(torch.int64)
+    ok = ok & (ui >= 0) & (ui < width) & (vi >= 0) & (vi < height)
+    if valid is not None:
+        ok = ok & valid
+    flat = torch.where(ok, vi * width + ui, torch.full_like(ui, height * width))
+    big = 1e9
+    depth = torch.full((height * width + 1,), big, dtype=z.dtype, device=z.device)
+    depth = depth.scatter_reduce(0, flat, torch.where(ok, z, torch.full_like(z, big)),
+                                 reduce="amin", include_self=True)[: height * width]
+    return torch.where(depth < big, depth, torch.zeros_like(depth)).reshape(height, width)
 
 
 def associate_depth(depth_img: torch.Tensor, xy: torch.Tensor, patch_h: int = 8,
@@ -55,11 +87,34 @@ def associate_depth(depth_img: torch.Tensor, xy: torch.Tensor, patch_h: int = 8,
 
 
 def build_frame(image: torch.Tensor, cam: Camera, orb_cfg: orb.ORBConfig,
-                depth_img: Optional[torch.Tensor] = None) -> Frame:
-    """Extract ORB and associate depth from a depth image (both on the same
-    device). Without a depth image every keypoint is monocular."""
+                depth_img: Optional[torch.Tensor] = None,
+                cloud_cam: Optional[torch.Tensor] = None,
+                cloud_lidar: Optional[torch.Tensor] = None,
+                T_cam_lidar: Optional[tuple] = None,
+                lidar_cfg: Optional[lidar_features.LidarConfig] = None) -> Frame:
+    """Extract ORB and associate depth from a depth image or a LiDAR cloud
+    (all on the image's device). `cloud_lidar` (N, 3) is in the LiDAR frame
+    (x forward, z up) with `T_cam_lidar` = (R (3, 3), t (3,)) the extrinsics
+    (identity when None); `cloud_cam` is a cloud already in the camera frame.
+    With `lidar_cfg`, feature extraction runs on `cloud_lidar` and the
+    features are brought into the camera frame. Without any depth source
+    every keypoint is monocular."""
     kp = orb.extract(image, orb_cfg)
     dev = kp.xy.device
+    H, W = image.shape
+    lidar = None
+    if cloud_lidar is not None:
+        if T_cam_lidar is not None:
+            R_cl, t_cl = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in T_cam_lidar)
+        else:
+            R_cl, t_cl = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        if lidar_cfg is not None:
+            feat = lidar_features.extract_features(cloud_lidar, lidar_cfg)
+            lidar = lidar_features.transform_features(feat, R_cl, t_cl)
+        if cloud_cam is None:
+            cloud_cam = torch.sum(cloud_lidar[:, None, :3] * R_cl[None], dim=-1) + t_cl
+    if depth_img is None and cloud_cam is not None:
+        depth_img = project_cloud_to_depth_image(cloud_cam, cam, H, W)
     if depth_img is not None:
         depth, stable = associate_depth(depth_img.to(torch.float32), kp.xy)
     else:
@@ -73,4 +128,4 @@ def build_frame(image: torch.Tensor, cam: Camera, orb_cfg: orb.ORBConfig,
     uvr = torch.cat([kp.xy, u_right[:, None]], dim=-1)
     sigma2 = _level_sigma2_on(orb_cfg, dev)
     inv_sigma2 = 1.0 / sigma2[torch.clamp(kp.octave.long(), 0, orb_cfg.num_levels - 1)]
-    return Frame(kp=kp, uvr=uvr, depth=depth, inv_sigma2=inv_sigma2)
+    return Frame(kp=kp, uvr=uvr, depth=depth, inv_sigma2=inv_sigma2, lidar=lidar)

@@ -6,7 +6,9 @@ neighbours, the two-way neighbour fuse, local BA on the bucketed
 sqrt-Schur engine (kernel K2 per LM iteration) with write-back and outlier
 pruning, and keyframe culling. The map bookkeeping is the shared numpy
 `MapStore`; device work runs on the mapper's device and is read back once
-per dispatch group. The LiDAR stage is not ported yet.
+per dispatch group. When the keyframes carry LiDAR feature clouds, local BA
+ends with the LiDAR stage: the centre keyframe's pose is refined against the
+LiDAR local map rebuilt from the optimized neighbour poses.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ from ..factors.reprojection import Camera
 from ..frontend import matching
 from ..geometry import se3
 from ..mapstore import MapStore
-from ..optim import facade, schur_bucketed
+from ..optim import facade, pose_opt, schur_bucketed
 from ..utils import desc_to_torch, to_host
 from . import triangulation
+from .tracking import aggregate_kf_lidar, lidar_association, local_map_from_clouds
 
 
 def _project_and_match(pose_R, pose_t, lm_pos, lm_desc, lm_valid, lm_normal, lm_min_dist,
@@ -86,6 +89,7 @@ class LocalMapper:
         self._optimizer = facade.Optimizer(cfg.backend)
         self.recent_landmarks: list = []  # (lm_id, created_at_kf)
         self.num_local_ba = 0
+        self.num_lidar_stages = 0
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -340,7 +344,8 @@ class LocalMapper:
         return problem, (kf_ids, lm_ids, e_kf, e_kp, pose_fixed)
 
     def local_ba(self, center_kf: int):
-        """Gather -> two-phase LM -> write back -> prune outliers."""
+        """Gather -> two-phase LM -> write back -> prune outliers, then the
+        LiDAR stage when the centre keyframe carries LiDAR clouds."""
         problem, (kf_ids, lm_ids, e_kf, e_kp, pose_fixed) = self.gather_problem(center_kf)
         result, survivors, chi2 = self._optimizer.local_bundle_adjustment(problem, self.cam)
         self.num_local_ba += 1
@@ -356,7 +361,48 @@ class LocalMapper:
         dropped = (e_kf >= 0) & ~surv
         for li, j in zip(*np.nonzero(dropped)):
             store.erase_observation(int(lm_ids[li]), int(e_kf[li, j]))
+        if store.kf_corner_valid[center_kf].any():
+            self._lidar_stage(center_kf)
         return chi2
+
+    def _lidar_stage(self, kf: int, match_dist: float = 0.45):
+        """Fused visual + LiDAR refinement of the centre keyframe's pose
+        against the LiDAR local map of its (just optimized) covisible
+        neighbours: one visual round of 5 iterations, then 20 fused ones."""
+        store = self.store
+        neighbors = [int(x) for x in store.best_covisible(kf, 10)]
+        neighbors = [k for k in neighbors if store.kf_corner_valid[k].any()]
+        if not neighbors:
+            return
+        clouds = aggregate_kf_lidar(store, neighbors, 10)
+        if clouds[1].sum() + clouds[4].sum() < 100:
+            return
+        lmap = local_map_from_clouds(clouds, self.device)
+
+        # Visual observations of the centre keyframe from its landmark bindings.
+        pose = se3.SE3(self._t(store.kf_R[kf]), self._t(store.kf_t[kf]))
+        kp_lm = store.kf_obs_lm[kf]
+        cap = 1024
+        pts = np.zeros((cap, 3), np.float32)
+        uvr = np.full((cap, 3), -1.0, np.float32)
+        is2 = np.ones(cap, np.float32)
+        val = np.zeros(cap, bool)
+        idx = np.where(kp_lm >= 0)[0][:cap]
+        pts[: len(idx)] = store.lm_pos[kp_lm[idx]]
+        uvr[: len(idx)] = store.kf_uvr[kf, idx]
+        is2[: len(idx)] = 1.0 / (1.2 ** (2 * store.kf_octave[kf, idx]))
+        val[: len(idx)] = True
+        obs = pose_opt.VisualObs(points_w=self._t(pts), uvr=self._t(uvr),
+                                 inv_sigma2=self._t(is2), valid=self._t(val))
+
+        # Associate the keyframe's own (stored, keyframe-frame) features at its pose.
+        lobs = lidar_association(pose, self._t(store.kf_corner[kf]),
+                                 self._t(store.kf_corner_valid[kf]), self._t(store.kf_flat[kf]),
+                                 self._t(store.kf_flat_valid[kf]), lmap, match_dist)
+        result = pose_opt.optimize_pose(pose, obs, self.cam, lidar_obs=lobs, rounds=1,
+                                        iters_per_round=5, lidar_iters=20)
+        store.set_kf_pose(kf, *to_host(result.pose.R, result.pose.t))
+        self.num_lidar_stages += 1
 
     # ------------------------------------------------------------------
 

@@ -1,12 +1,15 @@
 """SLAM system facade: tracking + local mapping (+ loop closing) on one device.
 
 Counterpart of `sqrtlm_slam_tpu/pipeline/system.py` for the RGB-D entry
-point: `SlamSystem(cam, cfg, device)` (the CUDA device unless the caller
-passes another, e.g. `device="cpu"`) builds the shared numpy `MapStore`,
-the tracker, the local mapper and, with `cfg.loop_detection`, the loop
-closer (all run synchronously per keyframe), and recovers the per-frame
-trajectory from poses stored relative to reference keyframes, so BA and
-loop corrections propagate at save time.
+point `track_depth` and the camera+LiDAR entry point `track_fusion`:
+`SlamSystem(cam, cfg, device)` (the CUDA device unless the caller passes
+another, e.g. `device="cpu"`) builds the shared numpy `MapStore`, the
+tracker, the local mapper and, with `cfg.loop_detection`, the loop closer
+(all run synchronously per keyframe), and recovers the per-frame trajectory
+from poses stored relative to reference keyframes, so BA and loop
+corrections propagate at save time. `save` / `load` checkpoint and resume
+the map (a resumed system starts LOST and relocalises); localisation mode
+tracks the frozen map without inserting keyframes.
 
 A vocabulary is attached as in the JAX package: the one given, else the
 shipped asset (`cfg.use_shipped_vocab`), else one trained lazily from the
@@ -24,13 +27,14 @@ import torch
 from ..factors.reprojection import Camera
 from ..frontend import orb, vocab as vocab_mod
 from ..geometry import so3
+from ..lidar.features import LidarConfig
 from ..loop import LoopCloser, LoopClosingConfig
 from ..loop.database import KeyFrameDatabase
-from ..mapstore import MapStore
+from ..mapstore import MapStore, checkpoint
 from ..utils import desc_to_numpy, to_host
 from .frame import build_frame
 from .local_mapping import LocalMapper, LocalMappingConfig
-from .tracking import Tracker, TrackingConfig
+from .tracking import Tracker, TrackingConfig, TrackState
 
 
 class SystemConfig(NamedTuple):
@@ -40,6 +44,7 @@ class SystemConfig(NamedTuple):
     max_keyframes: int = 512
     max_landmarks: int = 60000
     loop_detection: bool = False  # attach the loop closer
+    lidar: Optional[LidarConfig] = None  # LiDAR feature extraction for fusion
     use_shipped_vocab: bool = True  # load the shipped vocabulary when none is given
 
 
@@ -59,20 +64,25 @@ class SlamSystem:
             feats_per_kf=cfg.orb.max_features,
             num_words=vocabulary.num_words if vocabulary is not None else 1000,
         )
-        # The tracker's scale-aware search must agree with the pyramid shape.
-        tracking_cfg = cfg.tracking._replace(
-            num_levels=cfg.orb.num_levels, scale_factor=cfg.orb.scale_factor
-        )
-        self.tracker = Tracker(self.store, cam, tracking_cfg, device=self.device)
-        self.local_mapper = LocalMapper(self.store, cam, cfg.local_mapping, device=self.device)
-        self.tracker.new_kf_callback = self._on_new_keyframe
-        self.tracker.vocab_hook = self._assign_words
-        self.tracker.reloc_db = KeyFrameDatabase(self.store)
+        self._wire_tracker_and_mapper()
         self.loop_closer = None
         if cfg.loop_detection:
             self.loop_closer = LoopCloser(self.store, cam, voc=vocabulary,
                                           cfg=loop_cfg or LoopClosingConfig(),
                                           device=self.device)
+
+    def _wire_tracker_and_mapper(self):
+        cfg = self.cfg
+        # The tracker's scale-aware search must agree with the pyramid shape.
+        tracking_cfg = cfg.tracking._replace(
+            num_levels=cfg.orb.num_levels, scale_factor=cfg.orb.scale_factor
+        )
+        self.tracker = Tracker(self.store, self.cam, tracking_cfg, device=self.device)
+        self.local_mapper = LocalMapper(self.store, self.cam, cfg.local_mapping,
+                                        device=self.device)
+        self.tracker.new_kf_callback = self._on_new_keyframe
+        self.tracker.vocab_hook = self._assign_words
+        self.tracker.reloc_db = KeyFrameDatabase(self.store)
 
     def _assign_words(self, desc: torch.Tensor, valid: torch.Tensor):
         """Word ids (N,) and BoW vector (W,) of a new keyframe, on the
@@ -113,6 +123,20 @@ class SlamSystem:
         frame = build_frame(img, self.cam, self.cfg.orb, depth_img=depth)
         return self.tracker.track(frame)
 
+    def track_fusion(self, image, cloud_lidar, T_cam_lidar=None):
+        """Camera + LiDAR entry: (H, W) intensity image and the (N, 3) scan
+        in the LiDAR frame (x forward, y left, z up; numpy arrays or
+        tensors), with `T_cam_lidar` = (R, t) the extrinsics. The cloud
+        gives keypoint depth and, with `cfg.lidar` set, the corner / flat
+        features of the tight coupling. Scans of any length are taken as
+        they are; rows holding NaN are ignored. Returns the frame's T_cw or
+        None while uninitialized or lost."""
+        img = torch.as_tensor(image, dtype=torch.float32).to(self.device)
+        cloud = torch.as_tensor(cloud_lidar, dtype=torch.float32).to(self.device)
+        frame = build_frame(img, self.cam, self.cfg.orb, cloud_lidar=cloud[:, :3],
+                            T_cam_lidar=T_cam_lidar, lidar_cfg=self.cfg.lidar)
+        return self.tracker.track(frame)
+
     @property
     def state(self) -> int:
         return self.tracker.state
@@ -122,6 +146,78 @@ class SlamSystem:
 
     def num_landmarks(self) -> int:
         return int(self.store.lm_valid.sum())
+
+    # ------------------------------------------------------------------
+    # Checkpoint / resume, localisation mode, reset, snapshot
+    # ------------------------------------------------------------------
+
+    def save(self, path: str):
+        """Write the map and the vocabulary to `path` (.npz)."""
+        checkpoint.save_map(self.store, path, vocabulary=self.vocabulary)
+
+    @classmethod
+    def load(cls, path: str, cam: Camera, cfg: SystemConfig = SystemConfig(),
+             device="cuda", loop_cfg: Optional[LoopClosingConfig] = None) -> "SlamSystem":
+        """Resume from a map checkpoint: the system starts LOST and
+        relocalises against the loaded map."""
+        store, voc = checkpoint.load_map(path, device=device)
+        sys_ = cls(cam, cfg, device=device, vocabulary=voc, loop_cfg=loop_cfg)
+        version = sys_.store.version
+        sys_.store.__dict__.update(store.__dict__)
+        # The arrays were swapped in place: no cache keyed on the old store
+        # may be served.
+        sys_.store.version = version + 1
+        sys_.tracker.state = TrackState.LOST
+        sys_.tracker.ref_kf = max(store.num_kf - 1, 0)
+        return sys_
+
+    def activate_localization_mode(self):
+        """Track against the frozen map without inserting keyframes."""
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.localization_only = False
+
+    def reset(self):
+        """Clear the map and the tracking state (the store's version moves
+        on, so no device cache of the old map is served)."""
+        self.store.reset()
+        self._wire_tracker_and_mapper()
+
+    def get_slam_result(self) -> dict:
+        """Visualization snapshot, numpy only: keyframe poses, tracking
+        state, the landmarks seen last frame, the global map cloud, the
+        local-map cloud around the reference keyframe, the trajectory and,
+        when it has them, the reference keyframe's LiDAR feature clouds."""
+        store, tracker = self.store, self.tracker
+        kfs = np.where(store.kf_valid[: store.num_kf])[0]
+        lms = np.where(store.lm_valid[: store.num_lm])[0]
+        local_lms = np.empty(0, np.int64)
+        if tracker.ref_kf >= 0:
+            window = [tracker.ref_kf] + [int(x) for x in store.best_covisible(tracker.ref_kf, 10)]
+            ids = np.unique(store.kf_obs_lm[window])
+            ids = ids[ids >= 0]
+            local_lms = ids[store.lm_valid[ids]]
+        result = {
+            "state": tracker.state,
+            "ref_kf": tracker.ref_kf,
+            "num_inliers": tracker.last_inliers,
+            "kf_ids": kfs,
+            "kf_R": store.kf_R[kfs].copy(),
+            "kf_t": store.kf_t[kfs].copy(),
+            "map_points": store.lm_pos[lms].copy(),
+            "local_map_points": store.lm_pos[local_lms].copy(),
+            "tracked_landmarks": (
+                np.asarray([lm for lm, _ in tracker.last_lm_ids])
+                if tracker.last_lm_ids is not None else np.empty(0, np.int64)
+            ),
+            "trajectory": self.get_trajectory(),
+        }
+        if tracker.ref_kf >= 0 and store.kf_corner_valid[tracker.ref_kf].any():
+            k = tracker.ref_kf
+            result["lidar_corner"] = store.kf_corner[k][store.kf_corner_valid[k]]
+            result["lidar_flat"] = store.kf_flat[k][store.kf_flat_valid[k]]
+        return result
 
     def get_trajectory(self) -> np.ndarray:
         """Per-frame camera-to-world 4x4 poses, T_wc = (T_rel · T_ref_w)^{-1}

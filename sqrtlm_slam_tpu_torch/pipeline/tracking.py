@@ -7,19 +7,31 @@ Counterpart of `sqrtlm_slam_tpu/pipeline/tracking.py` in sync mode, RGB-D:
     + pose LM at `r_motion` (widened x2 when it finds too few inliers),
     stages B and C at `r_local`, the next velocity, the close-point
     keyframe counters and per-landmark visibility;
-  * keyframe policy and insertion into the shared numpy `MapStore`.
+  * with LiDAR features on the frame and a LiDAR local map, stages B and C
+    are `match_and_optimize_fused`: voxel-hash NN association of the
+    frame's corner / flat features against the keyframe-window LiDAR map,
+    then one pose optimization over reprojection, point-to-point and
+    point-to-plane residuals;
+  * `recover_pose_no_prior`: descriptor-only matching and the two PnP RANSAC
+    banks, the seed when stage A finds too few inliers and the core of
+    relocalisation (`Tracker._relocalize`: BoW candidates plus the last
+    reference keyframe);
+  * the LOST branch: a map of <= 5 keyframes is reset and re-initialised,
+    a larger one is relocalised against;
+  * keyframe policy and insertion into the shared numpy `MapStore`
+    (skipped in localisation mode).
 
 Device work stays on the frame's device; the host reads results twice per
 frame (the stage-A inlier count that decides the widened retry, and one
-packed fetch of the step's results) plus once per inserted keyframe.
+packed fetch of the step's results), once more per inserted keyframe (twice
+with LiDAR features: their downsampled clouds), once per fallback and once
+per relocalisation candidate tried.
 
 At every keyframe insertion the system's `vocab_hook` supplies the
 keyframe's word ids and BoW vector (place recognition reads them).
 
-Not ported yet (they raise `NotImplementedError`): the no-prior pose
-recovery and relocalisation, which need PnP RANSAC (ROADMAP queue 1,
-item 9), monocular initialization (item 8), LiDAR coupling (item 7) and the
-pipelined mode.
+Not ported yet: monocular initialization (raises `NotImplementedError`;
+ROADMAP queue 1: stereo and monocular) and the pipelined mode.
 """
 
 from __future__ import annotations
@@ -29,18 +41,16 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..algorithm import pnp
 from ..factors.reprojection import Camera
 from ..frontend import matching
 from ..geometry import se3
+from ..lidar import odometry as lidar_odometry
+from ..lidar import voxel_map
 from ..mapstore import MapStore
 from ..optim import pose_opt
 from ..utils import desc_to_numpy, desc_to_torch, to_host
 from .frame import Frame
-
-_NOT_PORTED_RELOC = (
-    "is not ported yet: it needs PnP RANSAC "
-    "(ROADMAP queue 1, item 9: relocalisation and PnP)"
-)
 
 
 class TrackingConfig(NamedTuple):
@@ -58,6 +68,10 @@ class TrackingConfig(NamedTuple):
     kf_close_tracked: int = 100
     kf_close_untracked: int = 70
     max_landmarks_per_kf: int = 300
+    # LiDAR tight coupling.
+    lidar_min_map_pts: int = 100  # only couple if the local map is populated
+    lidar_match_dist: float = 0.45  # NN gate (m)
+    lidar_map_kfs: int = 10  # KFs aggregated into the LiDAR local map
     # Pyramid shape for the scale-aware projection search; MUST match the
     # extractor's ORBConfig (SlamSystem syncs them).
     num_levels: int = 8
@@ -120,15 +134,65 @@ def match_and_optimize(pose_guess: se3.SE3, lm: LocalMapBuffer, frame: Frame, ca
     return result.pose, res.idx, res.valid & result.inlier_mask, result.num_inliers
 
 
+def lidar_association(pose_guess: se3.SE3, c_pts, c_val, f_pts, f_val,
+                      lidar_map: lidar_odometry.LocalMap, match_dist: float
+                      ) -> pose_opt.LidarObs:
+    """Associate camera-frame corner / flat features, placed in the world
+    at `pose_guess`, with their nearest neighbour of the LiDAR local map
+    (within `match_dist`): corners to points, flats to the neighbour's plane."""
+    T_wc = se3.inverse(pose_guess)
+    ci, _, cok = voxel_map.knn(lidar_map.corner, se3.act(T_wc, c_pts), k=1, max_dist=match_dist)
+    fi, _, fok = voxel_map.knn(lidar_map.flat, se3.act(T_wc, f_pts), k=1, max_dist=match_dist)
+    f_target = lidar_map.flat.points[fi[:, 0]]
+    f_normal = lidar_map.flat.payload[fi[:, 0]]
+    return pose_opt.LidarObs(
+        flat_pts=f_pts, plane_n=f_normal, plane_d=-torch.sum(f_normal * f_target, dim=-1),
+        flat_valid=fok[:, 0] & f_val,
+        corner_pts=c_pts, corner_target=lidar_map.corner.points[ci[:, 0]],
+        corner_valid=cok[:, 0] & c_val,
+    )
+
+
+def match_and_optimize_fused(pose_guess: se3.SE3, lm: LocalMapBuffer, frame: Frame,
+                             cam: Camera, radius_px: float,
+                             lidar_map: lidar_odometry.LocalMap, match_dist: float,
+                             num_levels: int = 8, scale_factor: float = 1.2):
+    """Tracking stage with LiDAR tight coupling: visual window matching, NN
+    association of the frame's sharp / flat features against the LiDAR local
+    map at the pose guess, then one fused pose optimization.
+    Returns (pose, lm_match_idx, lm_match_valid, num_inliers, n_lidar)."""
+    x_c = se3.act(pose_guess, lm.pos)
+    uv_pred = cam.project(x_c)
+    proj_ok = lm.valid & (x_c[..., 2] > 0.5)
+    window = _scale_aware_window(x_c, uv_pred, lm, frame, radius_px, num_levels, scale_factor)
+    res = matching.match_descriptors(
+        lm.desc, frame.kp.desc, proj_ok, frame.kp.valid, window_mask=window,
+        max_dist=matching.TH_HIGH, ratio=0.8, mutual="claim", octave_t=frame.kp.octave,
+    )
+    idx = res.idx.long()
+    obs = pose_opt.VisualObs(points_w=lm.pos, uvr=frame.uvr[idx],
+                             inv_sigma2=frame.inv_sigma2[idx], valid=res.valid)
+    lf = frame.lidar
+    lobs = lidar_association(pose_guess, lf.sharp, lf.sharp_valid, lf.flat, lf.flat_valid,
+                             lidar_map, match_dist)
+    n_lidar = torch.sum(lobs.flat_valid) + torch.sum(lobs.corner_valid)
+    result = pose_opt.optimize_pose(pose_guess, obs, cam, lidar_obs=lobs)
+    return (result.pose, res.idx, res.valid & result.inlier_mask, result.num_inliers,
+            n_lidar)
+
+
 def track_frame_step(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuffer,
                      frame: Frame, cam: Camera, r_motion: float, r_local: float,
-                     min_inliers: int, close_depth: float, num_levels: int = 8,
+                     min_inliers: int, close_depth: float, lidar_map=None,
+                     match_dist: float = 0.45, num_levels: int = 8,
                      scale_factor: float = 1.2):
-    """The per-frame device computation (stages A, B, C + counters).
+    """The per-frame device computation (stages A, B, C + counters). With a
+    `lidar_map`, stages B and C are the fused stage (C re-matches and
+    re-associates from B's improved pose).
 
     Returns (pose, new_velocity, packed_i (3, M) int32 [match idx, match
     valid, frustum-visible], packed_f (17,) f32 [R.ravel(9), t(3), n_inliers,
-    nA, n_lidar (0), tracked_close, total_close]), all on the device. The
+    nA, n_lidar, tracked_close, total_close]), all on the device. The
     JAX package's `lax.cond` on the stage-A inlier count is one host read."""
     guess = se3.retract(prev_pose, velocity)
     pyr = dict(num_levels=num_levels, scale_factor=scale_factor)
@@ -136,8 +200,15 @@ def track_frame_step(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuf
     if int(to_host(outA[3])) < min_inliers:
         outA = match_and_optimize(guess, lm, frame, cam, r_motion * 2, **pyr)
     poseA, _, _, nA = outA
-    poseB, _, _, _ = match_and_optimize(poseA, lm, frame, cam, r_local, **pyr)
-    pose, m_idx, m_valid, n_inl = match_and_optimize(poseB, lm, frame, cam, r_local, **pyr)
+    if lidar_map is not None:
+        poseB = match_and_optimize_fused(poseA, lm, frame, cam, r_local, lidar_map,
+                                         match_dist, **pyr)[0]
+        pose, m_idx, m_valid, n_inl, n_lidar = match_and_optimize_fused(
+            poseB, lm, frame, cam, r_local, lidar_map, match_dist, **pyr)
+    else:
+        poseB = match_and_optimize(poseA, lm, frame, cam, r_local, **pyr)[0]
+        pose, m_idx, m_valid, n_inl = match_and_optimize(poseB, lm, frame, cam, r_local, **pyr)
+        n_lidar = torch.zeros_like(n_inl)
     new_velocity = se3.local_delta(pose, prev_pose)
 
     close = (frame.depth > 0) & (frame.depth < close_depth)
@@ -160,10 +231,66 @@ def track_frame_step(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuf
     )
     packed_i = torch.stack([m_idx.to(torch.int32), m_valid.to(torch.int32),
                             visible.to(torch.int32)])
-    counts = torch.stack([n_inl, nA, torch.zeros_like(n_inl), tracked_close,
-                          total_close]).to(torch.float32)
+    counts = torch.stack([n_inl, nA, n_lidar, tracked_close, total_close]).to(torch.float32)
     packed_f = torch.cat([pose.R.reshape(-1), pose.t, counts])
     return pose, new_velocity, packed_i, packed_f
+
+
+def recover_pose_no_prior(lm: LocalMapBuffer, frame: Frame, cam: Camera,
+                          generator: Optional[torch.Generator] = None,
+                          sel3: Optional[torch.Tensor] = None,
+                          sel2: Optional[torch.Tensor] = None):
+    """Pose recovery without a motion prior: descriptor-only matching, then
+    both RANSAC banks (3D-3D Horn on depth-carrying matches, 2D-3D DLT on all
+    matches), keeping the one with more inliers (3D-3D on a tie). The pose
+    LM cannot pull a pose in from 50+ px of initial error; this closed-form
+    estimate seeds it instead. `sel3` (H, 3) / `sel2` (H, 6) replace the
+    minimal sets drawn from `generator`. Returns (pose, num_inliers), both
+    on the device."""
+    res = matching.match_descriptors(lm.desc, frame.kp.desc, lm.valid, frame.kp.valid,
+                                     max_dist=matching.TH_HIGH, ratio=0.9, mutual=True)
+    idx = res.idx.long()
+    depth = frame.depth[idx]
+    uv = frame.kp.xy[idx]
+    is2 = frame.inv_sigma2[idx]
+    pts_c = torch.stack([(uv[:, 0] - cam.cx) * depth / cam.fx,
+                         (uv[:, 1] - cam.cy) * depth / cam.fy, depth], dim=-1)
+    out3 = pnp.ransac_pose_3d3d(lm.pos, pts_c, uv, res.valid & (depth > 0), is2, cam,
+                                generator=generator, sel=sel3)
+    out2 = pnp.ransac_pnp_2d3d(lm.pos, uv, res.valid, is2, cam, generator=generator,
+                               sel=sel2)
+    use3 = out3.num_inliers >= out2.num_inliers
+    pose = se3.SE3(torch.where(use3, out3.pose.R, out2.pose.R),
+                   torch.where(use3, out3.pose.t, out2.pose.t))
+    return pose, torch.maximum(out3.num_inliers, out2.num_inliers)
+
+
+def aggregate_kf_lidar(store: MapStore, kfs, n_slots: int):
+    """World-frame corner / flat clouds of up to `n_slots` keyframes, from
+    their stored keyframe-frame clouds and current poses, in fixed-capacity
+    numpy arrays: (corner, corner_valid, flat, flat_normal, flat_valid)."""
+    Nc, Nf = store.corner_per_kf, store.flat_per_kf
+    corner = np.zeros((n_slots * Nc, 3), np.float32)
+    corner_v = np.zeros(n_slots * Nc, bool)
+    flat = np.zeros((n_slots * Nf, 3), np.float32)
+    flat_n = np.zeros((n_slots * Nf, 3), np.float32)
+    flat_v = np.zeros(n_slots * Nf, bool)
+    for i, k in enumerate(kfs[:n_slots]):
+        R, t = store.kf_R[k], store.kf_t[k]
+        corner[i * Nc:(i + 1) * Nc] = (store.kf_corner[k] - t) @ R  # R^T (p - t)
+        corner_v[i * Nc:(i + 1) * Nc] = store.kf_corner_valid[k]
+        flat[i * Nf:(i + 1) * Nf] = (store.kf_flat[k] - t) @ R
+        flat_n[i * Nf:(i + 1) * Nf] = store.kf_flat_normal[k] @ R
+        flat_v[i * Nf:(i + 1) * Nf] = store.kf_flat_valid[k]
+    return corner, corner_v, flat, flat_n, flat_v
+
+
+def local_map_from_clouds(clouds, device) -> lidar_odometry.LocalMap:
+    """Upload `aggregate_kf_lidar`'s arrays and build the voxel-hash maps."""
+    corner, corner_v, flat, flat_n, flat_v = (torch.as_tensor(a, device=device)
+                                              for a in clouds)
+    return lidar_odometry.build_local_map(corner, corner_v, flat, flat_v, flat_n,
+                                          lidar_odometry.OdomConfig())
 
 
 class Tracker:
@@ -181,6 +308,14 @@ class Tracker:
         self.ref_kf: int = -1
         self.frames_since_kf = 0
         self.frame_idx = -1
+        self.last_inliers = 0
+        self.frames_lost = 0
+        self.localization_only = False  # track the frozen map, insert no keyframe
+        self.last_lidar_matches = 0  # tight-coupling association count
+        self.reloc_candidates_tried = 0  # by the last relocalisation attempt
+        # Minimal sets of the RANSAC banks (fallback and relocalisation).
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(42)
         # (frame_id, ref_kf, R_rel, t_rel) per tracked frame.
         self.trajectory: list = []
         self.last_lm_ids: Optional[np.ndarray] = None
@@ -192,6 +327,8 @@ class Tracker:
         # Device-resident local map, cached until the map mutates.
         self._lm_cache_key = None
         self._lm_cache: Optional[LocalMapBuffer] = None
+        self._lidar_cache_key = None
+        self._lidar_cache: Optional[lidar_odometry.LocalMap] = None
 
     # ------------------------------------------------------------------
 
@@ -237,6 +374,40 @@ class Tracker:
 
     # ------------------------------------------------------------------
 
+    def _gather_lidar_local_map(self) -> Optional[lidar_odometry.LocalMap]:
+        """World-frame voxel-hash maps of the corner / flat clouds stored on
+        the reference keyframe and its best covisible keyframes; None while
+        they hold fewer than `lidar_min_map_pts` points. Cached on the
+        device until the store's version changes."""
+        key = (self.ref_kf, self.store.version)
+        if self._lidar_cache_key == key:
+            return self._lidar_cache
+        store, cfg = self.store, self.cfg
+        kfs = [self.ref_kf] + [int(x) for x in store.best_covisible(self.ref_kf,
+                                                                    cfg.lidar_map_kfs)]
+        kfs = [k for k in kfs if k >= 0 and store.kf_corner_valid[k].any()]
+        out = None
+        if kfs:
+            clouds = aggregate_kf_lidar(store, kfs, cfg.lidar_map_kfs + 1)
+            if int(clouds[1].sum()) + int(clouds[4].sum()) >= cfg.lidar_min_map_pts:
+                out = local_map_from_clouds(clouds, self.device)
+        self._lidar_cache_key = key
+        self._lidar_cache = out
+        return out
+
+    def _store_kf_lidar(self, kf: int, frame: Frame):
+        """Downsample the frame's features into the keyframe's cloud slots
+        (flat points keep their fitted normals); one packed read."""
+        lf = frame.lidar
+        store = self.store
+        c_ds, c_ok = voxel_map.voxel_downsample(lf.less_sharp, lf.less_sharp_valid, 0.4,
+                                                store.corner_per_kf)
+        f6, f_ok = lidar_odometry._voxel_downsample_payload(
+            torch.cat([lf.flat, lf.flat_normal], dim=-1), lf.flat_valid, 0.4,
+            store.flat_per_kf)
+        c_ds, c_ok, f6, f_ok = to_host(c_ds, c_ok, f6, f_ok)
+        store.set_kf_lidar(kf, c_ds, c_ok, f6[:, :3], f6[:, 3:], f_ok)
+
     def _initialize(self, frame: Frame) -> bool:
         """Depth initialization: enough depth-carrying keypoints seed the map."""
         depth_ok, kp_ok = to_host(frame.depth > 0, frame.kp.valid)
@@ -251,6 +422,7 @@ class Tracker:
         self.pose = se3.identity(device=self.device)
         self._insert_keyframe(frame)
         self.state = TrackState.OK
+        self.last_inliers = int(usable.sum())
         self._record_trajectory()
         return True
 
@@ -319,6 +491,8 @@ class Tracker:
         store.update_connections(kf)
         new_lms = store.kf_obs_lm[kf]
         store.update_landmark_stats(new_lms[new_lms >= 0])
+        if frame.lidar is not None:
+            self._store_kf_lidar(kf, frame)
         self.ref_kf = kf
         self.frames_since_kf = 0
         if self.new_kf_callback is not None:
@@ -344,7 +518,38 @@ class Tracker:
         return (weak or close_rule) and num_inliers > 15
 
     def _relocalize(self, frame: Frame) -> bool:
-        raise NotImplementedError(f"relocalisation {_NOT_PORTED_RELOC}")
+        """Try the BoW relocalisation candidates (plus the last reference
+        keyframe): recover a pose against each one's local landmarks until
+        one finds `min_inliers_track` inliers (one host read per candidate
+        tried). On success the pose and reference keyframe are reset and the
+        normal stages refine this frame."""
+        cand = [self.ref_kf]
+        if self.reloc_db is not None and self.vocab_hook is not None:
+            _, bow = self.vocab_hook(frame.kp.desc, frame.kp.valid)
+            if bow is not None:
+                cand = self.reloc_db.detect_reloc_candidates(to_host(bow))[:5] + cand
+        cap = self.cfg.local_map_capacity
+        self.reloc_candidates_tried = 0
+        for kf in cand:
+            if kf < 0 or not self.store.kf_valid[kf]:
+                continue
+            kfs = [kf] + [int(x) for x in self.store.best_covisible(kf, 10)]
+            lm_ids = np.unique(self.store.kf_obs_lm[kfs])
+            lm_ids = lm_ids[lm_ids >= 0]
+            lm_ids = lm_ids[self.store.lm_valid[lm_ids]][-cap:]  # newest ids
+            if len(lm_ids) < 30:
+                continue
+            self.reloc_candidates_tried += 1
+            pose, n = recover_pose_no_prior(self._buffer_from_ids(lm_ids), frame, self.cam,
+                                            generator=self._generator)
+            if int(to_host(n)) >= self.cfg.min_inliers_track:
+                self.pose = pose
+                self.velocity = torch.zeros(6, device=self.device)
+                self.ref_kf = kf
+                self.state = TrackState.OK
+                self.frames_lost = 0
+                return True
+        return False
 
     def _record_trajectory(self, pose_R_h=None, pose_t_h=None, frame_idx=None):
         """Store T_cur_ref = T_cw · T_ref_w^{-1} (relative to ref KF)."""
@@ -378,35 +583,59 @@ class Tracker:
                 self.trajectory.clear()
                 self.last_lm_ids = None
                 return self.pose if self._initialize(frame) else None
-            self._relocalize(frame)
+            # BoW candidate keyframes -> RANSAC against their local
+            # landmarks -> re-seeded tracking of this frame.
+            if not self._relocalize(frame):
+                self.frames_lost += 1
+                return None
         return self._track_steady(frame)
+
+    def _step(self, pose: se3.SE3, velocity: torch.Tensor, lm_buffer, lidar_map, frame):
+        cfg = self.cfg
+        return track_frame_step(
+            pose, velocity, lm_buffer, frame, self.cam, cfg.match_radius_motion,
+            cfg.match_radius_local, cfg.min_inliers_track, cfg.close_depth,
+            lidar_map=lidar_map, match_dist=cfg.lidar_match_dist,
+            num_levels=cfg.num_levels, scale_factor=cfg.scale_factor,
+        )
 
     def _track_steady(self, frame: Frame) -> Optional[se3.SE3]:
         lm_buffer = self._gather_local_map()
+        lidar_map = self._gather_lidar_local_map() if frame.lidar is not None else None
         prev_pose = self.pose
-        pose, velocity, packed_i, packed_f = track_frame_step(
-            self.pose, self.velocity, lm_buffer, frame, self.cam,
-            self.cfg.match_radius_motion, self.cfg.match_radius_local,
-            self.cfg.min_inliers_track, self.cfg.close_depth,
-            num_levels=self.cfg.num_levels, scale_factor=self.cfg.scale_factor,
-        )
-        ok = self._consume_step(frame, self.frame_idx, lm_buffer, pose, velocity,
+        pose, velocity, packed_i, packed_f = self._step(self.pose, self.velocity, lm_buffer,
+                                                        lidar_map, frame)
+        ok = self._consume_step(frame, self.frame_idx, lm_buffer, lidar_map, pose, velocity,
                                 packed_i, packed_f, prev_pose)
         return self.pose if ok else None
 
-    def _consume_step(self, frame, frame_idx, lm_buffer, pose, velocity, packed_i,
-                      packed_f, prev_pose) -> bool:
+    def _consume_step(self, frame, frame_idx, lm_buffer, lidar_map, pose, velocity,
+                      packed_i, packed_f, prev_pose) -> bool:
         """Fetch + host bookkeeping for one step. Returns False when tracking
         was lost at this frame."""
         packed_i, packed_f = to_host(packed_i, packed_f)
         if int(packed_f[13]) < self.cfg.min_inliers_track:  # nA
-            raise NotImplementedError(f"the no-prior pose recovery {_NOT_PORTED_RELOC}")
+            # No-prior fallback: descriptor-only match + RANSAC seed, then the
+            # whole step again from the seed with zero velocity.
+            seed_pose, n_ransac = recover_pose_no_prior(lm_buffer, frame, self.cam,
+                                                        generator=self._generator)
+            if int(to_host(n_ransac)) >= self.cfg.min_inliers_track:
+                pose, _, packed_i, packed_f = self._step(
+                    seed_pose, torch.zeros(6, device=self.device), lm_buffer, lidar_map, frame)
+                # The step's own velocity is local_delta(final, seed), the LM
+                # refinement only. The motion model needs the motion between
+                # the last two frame poses, or the next prediction lags by
+                # the whole motion and the fallback fires again.
+                velocity = se3.local_delta(pose, prev_pose)
+                packed_i, packed_f = to_host(packed_i, packed_f)
 
         pose_R_h = packed_f[:9].reshape(3, 3)
         pose_t_h = packed_f[9:12]
         n = int(packed_f[12])
         tracked_close = int(packed_f[15])
         untracked_close = int(packed_f[16]) - tracked_close
+        if lidar_map is not None:
+            self.last_lidar_matches = int(packed_f[14])
 
         if n < self.cfg.min_inliers_local:
             self.state = TrackState.LOST
@@ -424,7 +653,9 @@ class Tracker:
         self.velocity = velocity
         self.pose = pose
         self.state = TrackState.OK
-        if self._need_keyframe(n, tracked_close, untracked_close):
+        self.last_inliers = n
+        if not self.localization_only and self._need_keyframe(n, tracked_close,
+                                                              untracked_close):
             self._insert_keyframe(frame, pose_R_h=pose_R_h, pose_t_h=pose_t_h,
                                   frame_id=frame_idx)
         self._record_trajectory(pose_R_h, pose_t_h, frame_idx=frame_idx)

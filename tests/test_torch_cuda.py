@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels K1, K2 and K3 against their plain PyTorch versions.
+"""Hand-written CUDA kernels K1, K2 and K3 against their plain PyTorch versions,
+and the LiDAR / RANSAC modules of the fusion and relocalisation paths on the
+card against the CPU (same rules for ties and scatter winners on both).
 
 Marked `cuda`: each test skips where no CUDA device exists (the kernels have
 no CPU mode). The file imports neither JAX nor the JAX package, so it also
@@ -11,11 +13,18 @@ import numpy as np
 import pytest
 import torch
 
+from sqrtlm_slam_tpu_torch.algorithm import pnp
+from sqrtlm_slam_tpu_torch.eval import planeworld, synthetic
 from sqrtlm_slam_tpu_torch.eval.scale import make_scale_store
 from sqrtlm_slam_tpu_torch.eval.synthetic import DEFAULT_CAM, make_ba_problem
+from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+from sqrtlm_slam_tpu_torch.lidar import features as lidar_features
+from sqrtlm_slam_tpu_torch.lidar import voxel_map
 from sqrtlm_slam_tpu_torch.loop import closing
+from sqrtlm_slam_tpu_torch.loop.sim3_solver import minimal_sets
 from sqrtlm_slam_tpu_torch.ops import hamming
 from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
+from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
 from sqrtlm_slam_tpu_torch.utils import desc_to_torch
 
 pytestmark = pytest.mark.cuda
@@ -236,3 +245,160 @@ def test_global_ba_on_card_is_repeatable_and_tracks_cpu(cuda_device):
         np.testing.assert_array_equal(a, b)
     for a, c in zip(results[0], results[2]):
         np.testing.assert_allclose(a, c, rtol=1e-4, atol=1e-3)
+
+
+# ----------------------------------------------------------------------
+# LiDAR features, voxel-hash NN and the RANSAC banks: card against CPU
+# ----------------------------------------------------------------------
+
+
+def _small_scan():
+    """A noisy 32-ring x 720-ray scan of a small street, rays at the column
+    centres of a 0.5-degree range image."""
+    world = planeworld.street_circuit_world(seed=0, A=12.0, B=8.0, half_width=4.0, texel=0.05,
+                                            panel_spacing=6.0)
+    poses, _ = planeworld.circuit_trajectory(4, A=12.0, B=8.0, corner_r=3.0, step=0.5)
+    raw = world.lidar_scan(poses[3], planeworld.T_CAM_VELO, n_rings=32, n_azimuth=720,
+                           noise_seed=3)
+    pts, _ = planeworld.center_scan_on_columns(raw, planeworld.T_CAM_VELO, 0.5)
+    # Duplicated points: cells with several candidates at one range.
+    pts = np.concatenate([pts, pts[::17], np.full((5, 3), np.nan, np.float32)])
+    return pts, lidar_features.LidarConfig(num_rings=32, horizon_res_deg=0.5)
+
+
+def test_extract_features_on_card_equals_cpu_and_repeats(cuda_device):
+    """The same cells are picked on the card as on the CPU (points and masks
+    exact: stable sorts, explicit scatter winners); normals to 1e-4 (the
+    plane fit solves its normal equations in float64); two runs on the card
+    are bitwise equal."""
+    pts, cfg = _small_scan()
+    f_cpu = lidar_features.extract_features(torch.as_tensor(pts), cfg)
+    f_a = lidar_features.extract_features(torch.as_tensor(pts, device=cuda_device), cfg)
+    f_b = lidar_features.extract_features(torch.as_tensor(pts, device=cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert int(f_cpu.sharp_valid.sum()) > 5 and int(f_cpu.flat_valid.sum()) > 100
+    for name, a, b in zip(f_a._fields, f_a, f_b):
+        assert torch.equal(a, b), f"{name}: two runs on the card differ"
+    for name in ("sharp", "less_sharp", "less_flat"):
+        v = getattr(f_cpu, name + "_valid")
+        assert torch.equal(getattr(f_a, name + "_valid").cpu(), v), name
+        assert torch.equal(getattr(f_a, name).cpu()[v], getattr(f_cpu, name)[v]), name
+    # Flat picks also depend on the plane fit's validity (a float threshold).
+    v_cpu, v_gpu = f_cpu.flat_valid, f_a.flat_valid.cpu()
+    assert int((v_cpu != v_gpu).sum()) <= 0.01 * int(v_cpu.sum())
+    same = v_cpu & v_gpu & (f_a.flat.cpu() == f_cpu.flat).all(-1)
+    assert int(same.sum()) >= 0.95 * int(v_cpu.sum())
+    diff = (f_a.flat_normal.cpu()[same] - f_cpu.flat_normal[same]).abs().max(-1).values
+    assert float(diff.max()) < 1e-4, float(diff.max())
+
+
+def test_range_image_and_downsample_winners_on_card(cuda_device):
+    """Scatters with repeated indices: the range image's cell point and the
+    voxel representative are the same on the card as on the CPU (the range
+    itself to 1e-6 relative: the card contracts x*x + y*y + z*z into FMAs)."""
+    pts, cfg = _small_scan()
+    img_cpu = lidar_features.build_range_image(torch.as_tensor(pts), cfg)
+    img_gpu = lidar_features.build_range_image(torch.as_tensor(pts, device=cuda_device), cfg)
+    np.testing.assert_allclose(img_gpu.depth.cpu().numpy(), img_cpu.depth.numpy(), rtol=1e-6)
+    for name in ("xyz", "valid", "ground"):
+        assert torch.equal(getattr(img_gpu, name).cpu(), getattr(img_cpu, name)), name
+    good = torch.as_tensor(np.isfinite(pts).all(-1))
+    for cap in (4096, 300):
+        o_cpu, v_cpu = voxel_map.voxel_downsample(torch.as_tensor(pts), good, 0.4, cap)
+        o_gpu, v_gpu = voxel_map.voxel_downsample(torch.as_tensor(pts, device=cuda_device),
+                                                  good.to(cuda_device), 0.4, cap)
+        assert torch.equal(v_gpu.cpu(), v_cpu) and torch.equal(o_gpu.cpu(), o_cpu)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_knn_on_card_equals_cpu(cuda_device, k):
+    rng = np.random.RandomState(4)
+    pts = (rng.randn(5000, 3) * [20.0, 20.0, 2.0]).astype(np.float32)
+    pts[1000:1500] = pts[:500]  # equal distances: the lowest slot must win
+    valid = rng.rand(5000) > 0.1
+    queries = (pts[:800] + rng.randn(800, 3) * 0.1).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        vm = voxel_map.build(torch.as_tensor(pts, device=dev), torch.as_tensor(valid, device=dev),
+                             0.8)
+        out.append([x.cpu() for x in voxel_map.knn(vm, torch.as_tensor(queries, device=dev), k=k,
+                                                   max_dist=0.45)])
+    (i0, d0, ok0), (i1, d1, ok1) = out
+    assert torch.equal(ok0, ok1) and int(ok0.sum()) > 400
+    assert torch.equal(i0[ok0], i1[ok1])
+    np.testing.assert_allclose(d1[ok1].numpy(), d0[ok0].numpy(), rtol=1e-5, atol=1e-7)
+
+
+def test_ransac_banks_on_card_equal_cpu_and_repeat(cuda_device):
+    """Both banks from the same minimal sets: inlier counts within 2 and
+    poses within 1e-4 / 1e-3 m of the CPU (cuSOLVER's batched SVD against
+    LAPACK's; degenerate samples differ, the winner does not); two runs on
+    the card from equal generator seeds are bitwise equal."""
+    rng = np.random.RandomState(9)
+    n = 400
+    X = (rng.uniform(-6, 6, (n, 3)) + [0, 0, 14.0]).astype(np.float32)
+    R = np.array([[0.98, -0.05, 0.19], [0.06, 0.997, -0.04], [-0.19, 0.05, 0.98]])
+    U, _, Vt = np.linalg.svd(R)
+    R = (U @ Vt).astype(np.float32)
+    t = np.array([0.4, -0.2, 1.0], np.float32)
+    x_c = X @ R.T + t
+    cam = DEFAULT_CAM
+    uv = np.stack([cam.fx * x_c[:, 0] / x_c[:, 2] + cam.cx,
+                   cam.fy * x_c[:, 1] / x_c[:, 2] + cam.cy], -1) + rng.randn(n, 2) * 0.5
+    uv[:120] += rng.randn(120, 2) * 60.0
+    uv = uv.astype(np.float32)
+    valid = torch.ones(n, dtype=torch.bool)
+    sel3 = minimal_sets(valid, 256, torch.Generator().manual_seed(1), k=3)
+    sel6 = minimal_sets(valid, 256, torch.Generator().manual_seed(2), k=6)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        a = [torch.as_tensor(x, device=dev) for x in (X, x_c, uv)]
+        ones = torch.ones(n, device=dev)
+        res[str(dev)] = (
+            pnp.ransac_pose_3d3d(a[0], a[1], a[2], ones.bool(), ones, cam, sel=sel3.to(dev)),
+            pnp.ransac_pnp_2d3d(a[0], a[2], ones.bool(), ones, cam, sel=sel6.to(dev)))
+    for r_cpu, r_gpu in zip(res["cpu"], res[str(cuda_device)]):
+        assert int(r_cpu.num_inliers) > 250
+        assert abs(int(r_gpu.num_inliers) - int(r_cpu.num_inliers)) <= 2
+        np.testing.assert_allclose(r_gpu.pose.R.cpu().numpy(), r_cpu.pose.R.numpy(), atol=1e-4)
+        np.testing.assert_allclose(r_gpu.pose.t.cpu().numpy(), r_cpu.pose.t.numpy(), atol=1e-3)
+    a = [torch.as_tensor(x, device=cuda_device) for x in (X, uv)]
+    ones = torch.ones(n, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        g = torch.Generator(device=cuda_device).manual_seed(7)
+        runs.append(pnp.ransac_pnp_2d3d(a[0], a[1], ones.bool(), ones, cam, generator=g))
+    assert torch.equal(runs[0].pose.R, runs[1].pose.R)
+    assert torch.equal(runs[0].pose.t, runs[1].pose.t)
+    assert torch.equal(runs[0].inliers, runs[1].inliers)
+
+
+def test_two_fusion_runs_on_card_give_the_same_trajectory(cuda_device):
+    """`track_fusion` over 8 frames of a small street twice: trajectories,
+    keyframe poses and landmarks bitwise equal (no scatter or tie is left to
+    the device's write order), LiDAR associations active, K1 and K2 launched."""
+    world = planeworld.street_circuit_world(seed=0, A=24.0, B=16.0, half_width=6.0, texel=0.03,
+                                            panel_spacing=8.0)
+    poses, _ = planeworld.circuit_trajectory(8, A=24.0, B=16.0, corner_r=5.0, step=0.4)
+    cam = synthetic.DEFAULT_CAM
+    lcfg = lidar_features.LidarConfig(num_rings=32, horizon_res_deg=0.5)
+    frames = []
+    for i, T in enumerate(poses):
+        img, _ = world.render(T, cam, H=240, W=320, noise_seed=i)
+        raw = world.lidar_scan(T, planeworld.T_CAM_VELO, n_rings=32, n_azimuth=720, noise_seed=i)
+        pts, T_cv = planeworld.center_scan_on_columns(raw, planeworld.T_CAM_VELO, 0.5)
+        frames.append((img, pts))
+    T_cl = (T_cv[:3, :3].astype(np.float32), T_cv[:3, 3].astype(np.float32))
+    cfg = SystemConfig(orb=ORBConfig(max_features=1000), lidar=lcfg)
+    runs = []
+    for _ in range(2):
+        k1, k2 = hamming.launch_count, assembly.launch_count
+        s = SlamSystem(cam, cfg, device=cuda_device)
+        tracked = sum(s.track_fusion(img, pts, T_cam_lidar=T_cl) is not None
+                      for img, pts in frames)
+        assert tracked == len(frames) and s.tracker.last_lidar_matches > 20
+        assert hamming.launch_count > k1
+        runs.append((s.get_trajectory(), s.store.kf_R.copy(), s.store.kf_t.copy(),
+                     s.store.lm_pos.copy(), s.store.kf_flat_normal.copy()))
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)

@@ -131,6 +131,44 @@ def test_main_path_imports_no_jax():
         assert (s.store.kf_words[0] >= 0).any() and s.store.kf_bow[0].sum() > 0.99
         s.loop_closer.run_global_ba()  # the loop path's global BA (K2, K3 plain versions)
         s.shutdown()
+
+        # Camera+LiDAR fusion: track_fusion on a cloud made from the depth image.
+        import numpy as np
+        from sqrtlm_slam_tpu_torch.lidar.features import LidarConfig
+        from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackState
+        cam = synthetic.DEFAULT_CAM
+        R_cl = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]], np.float32)
+        lcfg = LidarConfig(num_rings=48, elev_min_deg=-30.0, elev_max_deg=30.0,
+                           horizon_res_deg=0.4, ground_z=-100.0, min_range=0.5, max_range=90.0)
+        cfg = SystemConfig(orb=ORBConfig(max_features=300), lidar=lcfg,
+                           tracking=TrackingConfig(init_min_depth_kp=50, kf_max_interval=1))
+        f = SlamSystem(cam, cfg, device="cpu")
+        vs, us = np.mgrid[0:240, 0:320]
+        frames = []
+        for T in synthetic.forward_trajectory(8):
+            img, depth = world.render(T, cam)
+            z = depth.reshape(-1)
+            p_c = np.stack([(us.reshape(-1) - cam.cx) * z / cam.fx,
+                            (vs.reshape(-1) - cam.cy) * z / cam.fy, z], -1).astype(np.float32)
+            frames.append((img, p_c @ R_cl))
+        for img, cloud in frames[:7]:
+            assert f.track_fusion(img, cloud, T_cam_lidar=(R_cl, np.zeros(3, np.float32))) \
+                is not None
+        assert f.tracker.last_lidar_matches > 0 and f.num_keyframes() == 7
+        assert f.local_mapper.num_lidar_stages >= 1
+
+        # Map resume: SlamSystem.load starts LOST and the next frame relocalises.
+        import os, tempfile
+        path = os.path.join(tempfile.mkdtemp(), "map.npz")
+        f.save(path)
+        g = SlamSystem.load(path, cam, cfg, device="cpu")
+        assert g.state == TrackState.LOST and g.num_keyframes() == 7
+        g.activate_localization_mode()
+        img, cloud = frames[7]
+        assert g.track_fusion(img, cloud, T_cam_lidar=(R_cl, np.zeros(3, np.float32))) \
+            is not None
+        assert g.state == TrackState.OK and g.tracker.reloc_candidates_tried >= 1
+        assert g.num_keyframes() == 7
         loaded = [m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
                   or m == "sqrtlm_slam_tpu" or m.startswith("sqrtlm_slam_tpu.")]
@@ -138,9 +176,34 @@ def test_main_path_imports_no_jax():
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=300, cwd=REPO)
+                         timeout=600, cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_identity_helpers_are_always_given_their_device():
+    """`se3.identity` and `sim3.identity` default to the CPU (they are
+    helpers, not entry points): every call in the port, its smoke script and
+    its scripts must pass `device=`, or it would silently compute on the host."""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(REPO, "sqrtlm_slam_tpu_torch", "**", "*.py"), recursive=True)
+    files += [os.path.join(REPO, "chip_smoke.py")]
+    files += glob.glob(os.path.join(REPO, "scripts", "*torch*.py"))
+    assert len(files) > 40
+    calls = 0
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "identity"
+                    and getattr(node.func.value, "id", "") in ("se3", "sim3")):
+                calls += 1
+                assert any(k.arg == "device" for k in node.keywords), \
+                    f"{path}:{node.lineno}: identity() without device="
+    assert calls >= 2
 
 
 def test_unported_backends_raise():

@@ -143,8 +143,10 @@ def test_match_and_optimize_widened_window_matches(tracking_state):
 
 
 def test_no_prior_fallback_raises_not_implemented(tracking_state):
-    """A frame the map cannot explain would need the PnP recovery, which is
-    not ported: the port says so instead of silently losing track."""
+    """A frame the map cannot explain goes through the no-prior recovery (it
+    raised `NotImplementedError` before PnP RANSAC was ported; the name is
+    kept): the banks find no consensus in an empty map, nothing raises, and
+    the tracker reports the frame as lost."""
     tr, lm, frame = tracking_state
     store = t_tracking.MapStore(max_keyframes=8, max_landmarks=64, feats_per_kf=600)
     tracker = t_tracking.Tracker(store, convert.camera(DEFAULT_CAM),
@@ -153,8 +155,9 @@ def test_no_prior_fallback_raises_not_implemented(tracking_state):
     tracker.ref_kf = 0
     store.kf_valid[0] = True
     store.num_kf = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tracker.track(convert.frame(frame))
+    assert tracker.track(convert.frame(frame)) is None
+    assert tracker.state == t_tracking.TrackState.LOST
+    assert float(tracker.velocity.abs().sum()) == 0.0 and not tracker.trajectory
 
 
 def test_huber_delta_default_matches():
