@@ -24,7 +24,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      Launch counters are zeroed just before and read just after; every
      frame must track, with >= 3 keyframes, >= 1 local BA, both kernels
      launched, ATE < 0.05 m;
-  5. the tracking shape of bench.py (240x320, 1000 features, 24 frames);
+  5. the tracking shape of bench.py (240x320, 1000 features, 16 frames);
   6. local-BA LM iterations/s at the bench.py shape (P=96, L=8192, 5
      observations per landmark, Huber 2.447, 15 iterations per call, 5
      chained calls, one synchronize, best of 3); chi2 must fall;
@@ -45,14 +45,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      must fall, K2 and K3 must launch, and a second GBA from the same store
      must give bitwise-equal poses and landmarks;
   9. the loop path end to end: `SlamSystem(..., loop_detection=True)` over
-     the ring scene of tests/test_e2e_loop.py (ring_world(7, 2500), 160
-     frames at frac 1.3, 240x320, 600 features, default LoopClosingConfig).
-     Counters zeroed just before and read just after; >= 158 frames tracked,
+     the ring scene of tests/test_e2e_loop.py (ring_world(7, 2500), the
+     first 148 of its 160 frames at frac 1.3, 240x320, 600 features, default
+     LoopClosingConfig). Counters zeroed just before and read just after;
+     all but 2 frames tracked,
      >= 1 loop closed, >= 20 landmarks fused, ATE < 0.3 m, K3 launched
      inside the loop's global BA.
  10. camera+LiDAR fusion at KITTI size: `SlamSystem.track_fusion` over 28
      frames of the street circuit of eval/planeworld.py
-     (street_circuit_world(seed=0), circuit_trajectory(step=0.8)) rendered
+     (street_circuit_world(seed=0), circuit_trajectory(step=0.8) from 54 m
+     along the first 60 m straight, so the window turns >= 30 degrees
+     through the first corner; the yaw it turns is printed) rendered
      at 1226x370 with the KITTI 00-02 intrinsics, 2000 ORB features, the
      default LidarConfig (64 rings x 1800 columns) and TrackingConfig, scans
      of 64 rings x 1800 rays (~114,000 points; the rays centred on the
@@ -72,6 +75,28 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      within 0.5 m of the ground truth and insert no keyframe); then, in the
      running system (> 5 keyframes), two frames with a blank image -> LOST
      -> recovery within two frames of vision returning.
+ 12. stereo at KITTI size: the first 16 frames of phase 10's street with
+     right images rendered from the camera moved by the baseline b = bf / fx
+     along x, through `SlamSystem.track_stereo` (phase 4's world of random
+     binary patches gives the stereo matcher too many mismatches at this
+     width: its first frame stalls, in the JAX package too; PERF.md section
+     6). Counters zeroed just before and read just
+     after; >= 13/16 tracked, median relative stereo depth error < 0.06 on
+     frame 0 against the rendered depth, ATE < 0.1 m, K1 launched > 16 times;
+     ms, kernel launches and host reads per frame;
+ 13. monocular at KITTI size: phase 4's left images through
+     `SlamSystem.track_monocular` (tests/test_e2e_mono.py's tracking config).
+     Counters zeroed just before and read just after; >= 2 keyframes, > 80
+     landmarks, >= 12/16 tracked, Sim3-aligned ATE < 0.4 m, K1 launched; the
+     initialization frame, `used_homography`, and `initialize_two_view` timed
+     cold (its first call, in the run) and warm (again on the same inputs);
+ 14. standalone LiDAR odometry: `LidarOdometry.process` over the 28 fusion
+     scans in the LiDAR frame (the corner included), run twice: ATE < 0.5 m
+     against the LiDAR-frame ground truth, > 100 associations per scan after
+     the first, the two runs' poses bitwise equal; ms per scan split into
+     feature extraction and alignment, launches per scan; then
+     `backend_for_loop` with the true first-to-last relative pose must cut
+     the end drift below 0.3 x.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count), its
@@ -105,6 +130,9 @@ K3_RTOL = 1e-4
 # as this flow gives them (first measured on the H100, float32 throughout).
 GBA_ATE_STAGES = (0.5363, 0.1349, 0.0951)
 GBA_ATE_TOL = 1e-3
+# The fusion window starts this far along the circuit's first 60 m straight,
+# so its 28 frames at 0.8 m (slowed to 0.36 m in the corner) turn ~35 degrees.
+FUSION_START_S = 54.0
 # The least time a kernel could take: NVIDIA H100 SXM peaks (data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12  # CUDA cores, no tensor cores
@@ -116,8 +144,12 @@ INT8_OP_PER_S = 1979e12  # tensor cores, dense
 K2_FLOP_SLOT, K2_FLOP_CAMERA, K3_FLOP_SLOT = 430, 180, 45
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, "card": CARD, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "card": CARD, **fields,
+                      "elapsed_s": time.perf_counter() - T_START}), flush=True)
 
 
 def card_line() -> str:
@@ -242,6 +274,46 @@ def camera_center(pose) -> np.ndarray:
     return -R.T @ t
 
 
+def yaw_deg(pose) -> float:
+    """Heading of a T_cw pose's optical axis in the world's x-z plane."""
+    f = np.asarray(pose.R, np.float64).T @ np.array([0.0, 0.0, 1.0])
+    return float(np.degrees(np.arctan2(f[0], f[2])))
+
+
+def staged_into(record: dict, name: str, fn):
+    """`fn` bracketed by synchronizes, its seconds appended to record[name]."""
+    import torch
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        record.setdefault(name, []).append(time.perf_counter() - t)
+        return out
+    return wrapper
+
+
+def profiled(fn):
+    """Run `fn` under torch.profiler: (its result, CUDA launches, device ms,
+    wall s)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    dev_us = sum(e.self_device_time_total for e in ev
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out, launches, dev_us / 1e3, wall
+
+
 def run_sequence(SlamSystem, cfg, cam, frames, device, time_from: int):
     """Track `frames`; returns (system, per-frame seconds, tracked count)."""
     import torch
@@ -275,6 +347,7 @@ def main() -> None:
     from sqrtlm_slam_tpu_torch.eval.scale import make_scale_store, store_ate
     from sqrtlm_slam_tpu_torch.factors.reprojection import Camera
     from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch.geometry import se3 as se3_mod
     from sqrtlm_slam_tpu_torch.geometry import sim3
     from sqrtlm_slam_tpu_torch.loop import LoopCloser, LoopClosingConfig, essential_graph
     from sqrtlm_slam_tpu_torch.loop.closing import gather_global_problem_bucketed
@@ -429,7 +502,7 @@ def main() -> None:
 
     # 5. bench.py tracking shape ------------------------------------------
     world_b = synthetic.SyntheticWorld(seed=1, n_points=1200)
-    poses_b = synthetic.forward_trajectory(24, step=0.3)
+    poses_b = synthetic.forward_trajectory(16, step=0.3)
     frames_b = [world_b.render(T, cam_bench) for T in poses_b]
     utils.host_reads = 0
     with warnings.catch_warnings(record=True) as caught:
@@ -616,7 +689,9 @@ def main() -> None:
 
     # 9. The loop path end to end -----------------------------------------
     ring = synthetic.ring_world(seed=7, n_points=2500)
-    ring_poses = synthetic.ring_trajectory(160, frac=1.3)
+    # The first 148 frames of the 160-frame ring: the loop closes near frame
+    # 132-136 (the smoke's time, PERF.md section 4).
+    ring_poses = synthetic.ring_trajectory(160, frac=1.3)[:148]
     ring_frames = [ring.render(T, cam_bench) for T in ring_poses]
     loop_sys = SlamSystem(cam_bench, SystemConfig(orb=ORBConfig(max_features=600),
                                                   loop_detection=True),
@@ -681,7 +756,9 @@ def main() -> None:
     t0 = time.perf_counter()
     street = planeworld.street_circuit_world(seed=0)
     world_s = time.perf_counter() - t0
-    f_poses, _ = planeworld.circuit_trajectory(n_fusion + n_extra, step=0.8)
+    f_poses, _ = planeworld.circuit_trajectory(n_fusion + n_extra, step=0.8,
+                                               start_s=FUSION_START_S)
+    yaw_turned = yaw_deg(f_poses[n_fusion - 1]) - yaw_deg(f_poses[0])
     t0 = time.perf_counter()
     f_frames = []
     for i, T in enumerate(f_poses):
@@ -745,16 +822,6 @@ def main() -> None:
     # The same frames again, every stage bracketed by synchronizes.
     stage_s = {}
 
-    def staged(name, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            stage_s.setdefault(name, []).append(time.perf_counter() - t)
-            return out
-        return wrapper
-
     patched = [
         (system_mod, "build_frame", "build_frame"),
         (frame_mod.orb, "extract", "orb_extract"),
@@ -772,7 +839,7 @@ def main() -> None:
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for obj, attr, name in patched:
-            setattr(obj, attr, staged(name, getattr(obj, attr)))
+            setattr(obj, attr, staged_into(stage_s, name, getattr(obj, attr)))
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fus2, _, f_tracked2, f_hits2, f_prof = fusion_run(profile_last=n_prof)
@@ -804,11 +871,14 @@ def main() -> None:
         host_reads_per_frame=f_reads / n_fusion,
         synchronizing_ops_per_frame=f_syncs / n_fusion,
         stage_ms_median=stage_ms, stage_calls=n_calls, **f_prof,
-        rerun_bitwise_equal=fusion_equal, world_s=world_s,
+        rerun_bitwise_equal=fusion_equal, start_s=FUSION_START_S,
+        yaw_turned_deg=yaw_turned, world_s=world_s,
         render_s_per_frame=render_s / len(f_frames), wall_s=fusion_wall,
         note="stage times and synchronizing operations from the second run "
              "(torch.cuda.set_sync_debug_mode('warn'), stages bracketed by synchronizes)")
     emit("fusion_kitti", **fusion)
+    if abs(yaw_turned) < 30.0:
+        raise AssertionError(f"the fusion window turns {yaw_turned} degrees, not >= 30")
     if f_tracked != n_fusion or f_tracked2 != n_fusion:
         raise AssertionError(f"fusion tracked {f_tracked} and {f_tracked2} of {n_fusion}")
     if fusion["keyframes"] < 2 or fusion["lidar_stages"] < 1:
@@ -892,6 +962,217 @@ def main() -> None:
         raise AssertionError("relocalisation never launched K1")
     reloc_launches = hamming.launch_count
 
+    # 12. Stereo at KITTI size ---------------------------------------------
+    # On the street of phase 10 (its first 16 frames): on phase 4's world of
+    # random binary patches a third of the nearest stereo points are
+    # mismatches at this width, and the first frame after initialization
+    # stalls in both packages (PERF.md section 6).
+    n_stereo = 16
+    baseline = kcam.bf / kcam.fx
+    lefts = [img for img, _ in f_frames[:n_stereo]]
+    rights = [street.render(synthetic.Pose(T.R, T.t - np.array([baseline, 0.0, 0.0], np.float32)),
+                            kcam, H=KITTI_H, W=KITTI_W, noise_seed=100 + i)[0]
+              for i, T in enumerate(f_poses[:n_stereo])]
+    depth0 = street.render(f_poses[0], kcam, H=KITTI_H, W=KITTI_W, noise_seed=0)[1]
+    # Frame 0's stereo depth against the rendered depth, at the keypoints.
+    fr0 = frame_mod.build_frame_stereo(torch.as_tensor(lefts[0], device=dev),
+                                       torch.as_tensor(rights[0], device=dev), kcam, cfg.orb)
+    d0, xy0 = utils.to_host(fr0.depth, fr0.kp.xy)
+    ok0 = d0 > 0
+    gt0 = depth0[np.clip(xy0[ok0, 1].astype(int), 0, KITTI_H - 1),
+                 np.clip(xy0[ok0, 0].astype(int), 0, KITTI_W - 1)]
+    sel0 = gt0 > 0
+    stereo_depth_err = float(np.median(np.abs(d0[ok0][sel0] - gt0[sel0]) / gt0[sel0]))
+    hamming.launch_count = assembly.launch_count = 0
+    utils.host_reads = 0
+    st = SlamSystem(kcam, cfg, device=dev)
+    st_secs, st_tracked = [], 0
+    for i, (img_l, img_r) in enumerate(zip(lefts, rights)):
+        t = time.perf_counter()
+        pose = st.track_stereo(img_l, img_r)
+        torch.cuda.synchronize()
+        st_secs.append(time.perf_counter() - t)
+        st_tracked += pose is not None
+    stereo_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count}
+    st_reads = utils.host_reads
+    st_est = st.get_trajectory()
+    st_ate, _ = ate_rmse(st_est, f_gt_rel[: len(st_est)], align_scale=False)
+    # All CUDA launches of two steady stereo frames.
+    _, st_all_launches, st_dev_ms, st_wall = profiled(
+        lambda: [st.track_stereo(lefts[k], rights[k]) for k in (14, 15)])
+    emit("stereo_kitti", scene="street_circuit_world(seed=0), fusion frames 0-15",
+         frames=len(lefts), tracked=st_tracked, keyframes=st.num_keyframes(),
+         landmarks=st.num_landmarks(), local_ba=st.local_mapper.num_local_ba,
+         stereo_matches_frame0=int(ok0.sum()), depth_median_rel_err_frame0=stereo_depth_err,
+         ate_m=st_ate, median_ms=1e3 * float(np.median(st_secs[5:])),
+         max_ms=1e3 * float(np.max(st_secs[5:])), launches=stereo_launches,
+         kernel_launches_per_frame={k: v / len(lefts) for k, v in stereo_launches.items()},
+         cuda_launches_per_frame=st_all_launches / 2, device_ms_per_frame=st_dev_ms / 2,
+         device_idle_share=1.0 - st_dev_ms / 1e3 / st_wall,
+         host_reads_per_frame=st_reads / len(lefts),
+         note="cuda launches, device ms and idle share from torch.profiler over frames "
+              "14-15 tracked again after the run")
+    if st_tracked < 13:
+        raise AssertionError(f"stereo tracked {st_tracked}/{len(lefts)}")
+    if not stereo_depth_err < 0.06:
+        raise AssertionError(f"stereo depth median relative error {stereo_depth_err}")
+    if not st_ate < 0.1:
+        raise AssertionError(f"stereo ATE {st_ate} m >= 0.1 m")
+    if stereo_launches["hamming"] <= len(lefts):
+        raise AssertionError(f"stereo: K1 launched {stereo_launches['hamming']} times")
+    del st, fr0
+
+    # 13. Monocular at KITTI size ------------------------------------------
+    from sqrtlm_slam_tpu_torch.pipeline import initializer
+    from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackingConfig
+
+    init_calls = []
+    two_view = initializer.initialize_two_view
+
+    def timed_two_view(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = two_view(*a, **k)
+        torch.cuda.synchronize()
+        init_calls.append(dict(ms=1e3 * (time.perf_counter() - t), args=a, kwargs=k,
+                               frame=len(mono_secs), success=bool(out.success),
+                               used_homography=bool(out.used_homography)))
+        return out
+
+    mono_cfg = SystemConfig(orb=ORBConfig(max_features=2000),
+                            tracking=TrackingConfig(min_inliers_local=15))
+    hamming.launch_count = assembly.launch_count = 0
+    utils.host_reads = 0
+    mono = SlamSystem(kcam, mono_cfg, device=dev)
+    mono_secs, mono_tracked = [], 0
+    tracking.initializer.initialize_two_view = timed_two_view
+    try:
+        for img, _ in frames:
+            t = time.perf_counter()
+            pose = mono.track_monocular(img)
+            torch.cuda.synchronize()
+            mono_secs.append(time.perf_counter() - t)
+            mono_tracked += pose is not None
+    finally:
+        tracking.initializer.initialize_two_view = two_view
+    mono_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count}
+    mono_reads = utils.host_reads
+    mono_est = mono.get_trajectory()
+    mono_ate, _ = ate_rmse(mono_est, gt_cam_to_world(poses[-len(mono_est):]), align_scale=True)
+    inits = [c for c in init_calls if c["success"]]
+    warm_ms = []
+    if inits:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            two_view(*inits[0]["args"], **dict(inits[0]["kwargs"], generator=gen))
+            torch.cuda.synchronize()
+            warm_ms.append(1e3 * (time.perf_counter() - t))
+    emit("mono_kitti", frames=len(frames), tracked=mono_tracked, keyframes=mono.num_keyframes(),
+         landmarks=mono.num_landmarks(), local_ba=mono.local_mapper.num_local_ba,
+         init_attempts=[{k: c[k] for k in ("frame", "success", "used_homography", "ms")}
+                        for c in init_calls],
+         init_frame=inits[0]["frame"] if inits else None,
+         used_homography=inits[0]["used_homography"] if inits else None,
+         initialize_two_view_ms_cold=init_calls[0]["ms"] if init_calls else None,
+         initialize_two_view_ms_warm=float(np.median(warm_ms)) if warm_ms else None,
+         ate_sim3_m=mono_ate, median_ms=1e3 * float(np.median(mono_secs[5:])),
+         max_ms=1e3 * float(np.max(mono_secs[5:])), launches=mono_launches,
+         kernel_launches_per_frame={k: v / len(frames) for k, v in mono_launches.items()},
+         host_reads_per_frame=mono_reads / len(frames))
+    if mono.num_keyframes() < 2 or mono.num_landmarks() <= 80:
+        raise AssertionError(f"mono: {mono.num_keyframes()} keyframes, "
+                             f"{mono.num_landmarks()} landmarks")
+    if mono_tracked < 12:
+        raise AssertionError(f"mono tracked {mono_tracked}/{len(frames)}")
+    if not mono_ate < 0.4:
+        raise AssertionError(f"mono Sim3-aligned ATE {mono_ate} m >= 0.4 m")
+    if mono_launches["hamming"] <= 0:
+        raise AssertionError("mono: K1 never launched")
+    del mono, init_calls
+
+    # 14. Standalone LiDAR odometry on the fusion scans --------------------
+    from sqrtlm_slam_tpu_torch.lidar import odometry as odometry_mod
+
+    scans = [pts for _, pts in f_frames[:n_fusion]]
+    # Ground truth: LiDAR -> world of each scan, relative to the first scan.
+    T_wl = [M @ T_cv for M in gt_cam_to_world(f_poses[:n_fusion])]
+    l_gt = np.stack([np.linalg.inv(T_wl[0]) @ M for M in T_wl])
+
+    def odometry_run():
+        odo = odometry_mod.LidarOdometry(feat_cfg=f_cfg.lidar, device=dev)
+        secs, stats = [], []
+        for pts in scans:
+            t = time.perf_counter()
+            odo.process(pts)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            odo.record_pose()
+            stats.append(odo.last_stats)
+        return odo, secs, stats
+
+    utils.host_reads = 0
+    t0 = time.perf_counter()
+    odo, l_secs, l_stats = odometry_run()
+    odo_wall = time.perf_counter() - t0
+    l_reads = utils.host_reads
+    l_matches = [int(s["matches"]) for s in l_stats[1:]]
+    def sensor_to_world(chain):  # T_lw poses -> (N, 4, 4) LiDAR -> world
+        return gt_cam_to_world([synthetic.Pose(*utils.to_host(p.R, p.t)) for p in chain])
+
+    l_est = sensor_to_world(odo._chain)
+    l_ate, _ = ate_rmse(l_est, l_gt, align_scale=False)
+    # Again, the feature extraction and the alignment bracketed by
+    # synchronizes, the last scans under the profiler.
+    stage_l = {}
+    l_patched = [(lidar_features, "extract_features", "features"),
+                 (odometry_mod, "align_scan", "align_scan")]
+    l_orig = [(o, a, getattr(o, a)) for o, a, _ in l_patched]
+    for o, a, name in l_patched:
+        setattr(o, a, staged_into(stage_l, name, getattr(o, a)))
+    try:
+        odo2, _, _ = odometry_run()
+        _, l_launch, l_dev_ms, l_wall = profiled(lambda: [odo2.process(p) for p in scans[-3:]])
+    finally:
+        for o, a, fn in l_orig:
+            setattr(o, a, fn)
+    l_equal = all(torch.equal(a.R, b.R) and torch.equal(a.t, b.t)
+                  for a, b in zip(odo._chain, odo2._chain))
+    # Backend: the true relative pose of the last scan w.r.t. the first.
+    K = len(odo._chain)
+    T_last_first = np.linalg.inv(l_gt[-1])  # world (first scan) -> last scan
+    drift_before = float(np.linalg.norm(l_est[-1][:3, 3] - l_gt[-1][:3, 3]))
+    T_ji = se3_mod.SE3(torch.as_tensor(T_last_first[:3, :3], dtype=torch.float32, device=dev),
+                       torch.as_tensor(T_last_first[:3, 3], dtype=torch.float32, device=dev))
+    t0 = time.perf_counter()
+    chain = odo.backend_for_loop(0, K - 1, T_ji)
+    torch.cuda.synchronize()
+    backend_ms = 1e3 * (time.perf_counter() - t0)
+    c_last = sensor_to_world(chain[-1:])[0]
+    drift_after = float(np.linalg.norm(c_last[:3, 3] - l_gt[-1][:3, 3]))
+    emit("lidar_odometry", scans=len(scans), points_per_scan=int(np.mean([len(p) for p in scans])),
+         keyframes=odo.num_keyframes, ate_m=l_ate, matches_min=int(min(l_matches)),
+         matches_median=float(np.median(l_matches)),
+         median_ms=1e3 * float(np.median(l_secs[1:])), max_ms=1e3 * float(np.max(l_secs[1:])),
+         stage_ms_median={k: 1e3 * float(np.median(v)) for k, v in stage_l.items()},
+         cuda_launches_per_scan=l_launch / 3, device_ms_per_scan=l_dev_ms / 3,
+         device_idle_share=1.0 - l_dev_ms / 1e3 / l_wall,
+         host_reads_per_scan=l_reads / len(scans), rerun_bitwise_equal=l_equal,
+         yaw_turned_deg=yaw_turned, end_drift_before_m=drift_before,
+         end_drift_after_backend_m=drift_after, backend_ms=backend_ms, wall_s=odo_wall,
+         note="stage times from the second run (stages bracketed by synchronizes); "
+              "launches, device ms and idle share from torch.profiler over its last 3 scans "
+              "processed again")
+    if not l_ate < 0.5:
+        raise AssertionError(f"LiDAR odometry ATE {l_ate} m >= 0.5 m")
+    if min(l_matches) <= 100:
+        raise AssertionError(f"LiDAR odometry associations per scan {l_matches}")
+    if not l_equal:
+        raise AssertionError("two LiDAR odometry runs on the card differ")
+    if not drift_after < 0.3 * drift_before:
+        raise AssertionError(f"backend_for_loop: end drift {drift_before} -> {drift_after} m")
+
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by") + keys}
@@ -903,7 +1184,9 @@ def main() -> None:
              launches_by_path=dict(kitti_rgbd=launches["hamming"],
                                    fusion=fusion_launches["hamming"],
                                    relocalisation=reloc_launches,
-                                   ring_loop=loop_launches["hamming"]),
+                                   ring_loop=loop_launches["hamming"],
+                                   stereo=stereo_launches["hamming"],
+                                   mono=mono_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
@@ -912,7 +1195,9 @@ def main() -> None:
              launches_by_path=dict(kitti_rgbd=launches["ba_assembly"],
                                    fusion=fusion_launches["ba_assembly"],
                                    gba_at_scale=gba_launches["ba_assembly"],
-                                   ring_loop=loop_launches["ba_assembly"]),
+                                   ring_loop=loop_launches["ba_assembly"],
+                                   stereo=stereo_launches["ba_assembly"],
+                                   mono=mono_launches["ba_assembly"]),
              max_abs_err=k2_err,
              **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",

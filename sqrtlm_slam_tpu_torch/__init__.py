@@ -14,8 +14,12 @@ matrix-free PCG global BA; the failure path: PnP RANSAC, the no-prior pose
 recovery, relocalisation, map checkpoint and resume, localisation mode; and
 camera+LiDAR fusion (`SlamSystem.track_fusion`): LiDAR feature extraction
 on the range image, voxel-hash association, the tightly coupled pose
-optimisation in tracking and the LiDAR stage of local BA. The LiDAR code is
-plain PyTorch (it is XLA, not Pallas, in the JAX package).
+optimisation in tracking and the LiDAR stage of local BA; stereo
+(`SlamSystem.track_stereo`) and monocular (`SlamSystem.track_monocular`, the
+two-view H/F initializer) tracking; and standalone LiDAR odometry
+(`lidar/odometry.py::LidarOdometry`) with its SE(3) pose-graph backend. The
+LiDAR code and the initializer are plain PyTorch (they are XLA, not Pallas,
+in the JAX package).
 
 Every TPU kernel on that path is a hand-written CUDA kernel under `csrc/`,
 built with nvcc at first use (`ops/build.py`) and bound through ctypes:
@@ -31,16 +35,18 @@ a CUDA tensor launches the kernel or raises.
 Package layout
 --------------
   geometry/   SO3 / SE3 / Sim3 Lie ops, Umeyama alignment
-  factors/    reprojection and LiDAR residuals + Jacobians, the Sim3
-              pose-graph factor
+  factors/    reprojection and LiDAR residuals + Jacobians, the SE3 and
+              Sim3 pose-graph factors
   algorithm/  PnP RANSAC banks (2D-3D DLT, 3D-3D Horn)
-  lidar/      range-image features, voxel-hash NN + downsampling, local map
+  lidar/      range-image features, voxel-hash NN + downsampling, local map,
+              scan-to-map odometry, SE3 pose-graph backend
   optim/      robust losses, LM, pose-only optimisation, BA assembly (K2) and
               chi2 (K3), bucketed sqrt-Schur local BA, matrix-free PCG global
               BA, fixed-order keyed sums, optimizer facade
   ops/        Hamming kernel wrapper (K1), nvcc + ctypes kernel build
   frontend/   ORB extraction, descriptor matching, vocabulary + BoW
-  pipeline/   frame build, tracking, triangulation, local mapping, system
+  pipeline/   frame build (RGB-D, stereo, fusion), tracking, the monocular
+              initializer, triangulation, local mapping, system
   loop/       keyframe database, Sim3 RANSAC, essential graph, loop closer
   mapstore/   the JAX package's numpy MapStore, carried over unchanged;
               the map checkpoint (same npz layout as the JAX package's)

@@ -1,1 +1,1 @@
-"""LiDAR front end of the fusion path: features, voxel-hash maps, local map."""
+"""LiDAR: range-image features, voxel-hash maps, local map, odometry, SE3 backend."""

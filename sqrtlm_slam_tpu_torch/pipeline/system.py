@@ -1,7 +1,8 @@
 """SLAM system facade: tracking + local mapping (+ loop closing) on one device.
 
-Counterpart of `sqrtlm_slam_tpu/pipeline/system.py` for the RGB-D entry
-point `track_depth` and the camera+LiDAR entry point `track_fusion`:
+Counterpart of `sqrtlm_slam_tpu/pipeline/system.py` with every sensor mode of
+the reference: `track_depth` (RGB-D), `track_stereo`, `track_monocular`,
+`track_fusion` (camera+LiDAR) and `track_frame` (a frame built by the caller):
 `SlamSystem(cam, cfg, device)` (the CUDA device unless the caller passes
 another, e.g. `device="cpu"`) builds the shared numpy `MapStore`, the
 tracker, the local mapper and, with `cfg.loop_detection`, the loop closer
@@ -32,7 +33,7 @@ from ..loop import LoopCloser, LoopClosingConfig
 from ..loop.database import KeyFrameDatabase
 from ..mapstore import MapStore, checkpoint
 from ..utils import desc_to_numpy, to_host
-from .frame import build_frame
+from .frame import Frame, build_frame, build_frame_stereo
 from .local_mapping import LocalMapper, LocalMappingConfig
 from .tracking import Tracker, TrackingConfig, TrackState
 
@@ -135,6 +136,27 @@ class SlamSystem:
         cloud = torch.as_tensor(cloud_lidar, dtype=torch.float32).to(self.device)
         frame = build_frame(img, self.cam, self.cfg.orb, cloud_lidar=cloud[:, :3],
                             T_cam_lidar=T_cam_lidar, lidar_cfg=self.cfg.lidar)
+        return self.tracker.track(frame)
+
+    def track_stereo(self, img_left, img_right):
+        """Stereo entry: a rectified (H, W) image pair (numpy arrays or
+        tensors); left-right ORB matching inside a row band gives each left
+        keypoint its u_right and depth. Returns the frame's T_cw or None
+        while uninitialized or lost."""
+        left = torch.as_tensor(img_left, dtype=torch.float32).to(self.device)
+        right = torch.as_tensor(img_right, dtype=torch.float32).to(self.device)
+        return self.tracker.track(build_frame_stereo(left, right, self.cam, self.cfg.orb))
+
+    def track_monocular(self, image):
+        """Monocular entry: an (H, W) image. The map starts with the two-view
+        H/F initialization (up to scale, median depth 1); landmarks then come
+        from local mapping's triangulation. Returns the frame's T_cw or None
+        while uninitialized or lost."""
+        img = torch.as_tensor(image, dtype=torch.float32).to(self.device)
+        return self.tracker.track(build_frame(img, self.cam, self.cfg.orb))
+
+    def track_frame(self, frame: Frame):
+        """Entry for a frame built by the caller (tests, custom front ends)."""
         return self.tracker.track(frame)
 
     @property

@@ -1,8 +1,8 @@
 """Tracking: per-frame state machine driving the matching + pose stages.
 
-Counterpart of `sqrtlm_slam_tpu/pipeline/tracking.py` in sync mode, RGB-D:
+Counterpart of `sqrtlm_slam_tpu/pipeline/tracking.py` in sync mode:
   * depth initialization (the first frame with enough depth-carrying
-    keypoints seeds the map);
+    keypoints seeds the map; RGB-D, stereo, fusion);
   * `track_frame_step`: constant-velocity prediction, stage A window match
     + pose LM at `r_motion` (widened x2 when it finds too few inliers),
     stages B and C at `r_local`, the next velocity, the close-point
@@ -24,14 +24,16 @@ Counterpart of `sqrtlm_slam_tpu/pipeline/tracking.py` in sync mode, RGB-D:
 Device work stays on the frame's device; the host reads results twice per
 frame (the stage-A inlier count that decides the widened retry, and one
 packed fetch of the step's results), once more per inserted keyframe (twice
-with LiDAR features: their downsampled clouds), once per fallback and once
-per relocalisation candidate tried.
+with LiDAR features: their downsampled clouds), once per fallback, once
+per relocalisation candidate tried, and, until a monocular map starts,
+twice per frame (the match count, one packed read of the initializer).
 
 At every keyframe insertion the system's `vocab_hook` supplies the
 keyframe's word ids and BoW vector (place recognition reads them).
 
-Not ported yet: monocular initialization (raises `NotImplementedError`;
-ROADMAP queue 1: stereo and monocular) and the pipelined mode.
+A frame without any depth (monocular) initializes the map by the two-view
+H/F initializer (`_initialize_mono`): a reference frame, a match, two
+keyframes at median scene depth 1. Not ported: the pipelined mode.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..lidar import voxel_map
 from ..mapstore import MapStore
 from ..optim import pose_opt
 from ..utils import desc_to_numpy, desc_to_torch, to_host
+from . import initializer
 from .frame import Frame
 
 
@@ -324,6 +327,7 @@ class Tracker:
         # (None, None) while no vocabulary exists.
         self.vocab_hook = None
         self.reloc_db = None  # KeyFrameDatabase set by the system
+        self._init_ref: Optional[Frame] = None  # monocular initialization reference
         # Device-resident local map, cached until the map mutates.
         self._lm_cache_key = None
         self._lm_cache: Optional[LocalMapBuffer] = None
@@ -409,21 +413,83 @@ class Tracker:
         store.set_kf_lidar(kf, c_ds, c_ok, f6[:, :3], f6[:, 3:], f_ok)
 
     def _initialize(self, frame: Frame) -> bool:
-        """Depth initialization: enough depth-carrying keypoints seed the map."""
+        """Depth initialization: enough depth-carrying keypoints seed the map.
+        A frame without any depth goes to the monocular two-view
+        initialization; one with some depth but too little waits."""
         depth_ok, kp_ok = to_host(frame.depth > 0, frame.kp.valid)
         usable = depth_ok & kp_ok
         if usable.sum() < self.cfg.init_min_depth_kp:
             if depth_ok.sum() == 0:
-                raise NotImplementedError(
-                    "monocular initialization is not ported yet "
-                    "(ROADMAP queue 1, item 8: stereo and monocular)"
-                )
+                return self._initialize_mono(frame, int(kp_ok.sum()))
             return False
         self.pose = se3.identity(device=self.device)
         self._insert_keyframe(frame)
         self.state = TrackState.OK
         self.last_inliers = int(usable.sum())
         self._record_trajectory()
+        return True
+
+    def _initialize_mono(self, frame: Frame, n_valid: Optional[int] = None) -> bool:
+        """Monocular two-view initialization: hold a reference frame (>= 100
+        valid keypoints), match it (100 px window, TH_LOW, ratio 0.9, mutual,
+        rotation consistency; the reference resets below 100 matches), run
+        the H/F initializer, scale the map to median depth 1, and seed it
+        with two keyframes and the triangulated landmarks. `n_valid` is the
+        frame's valid keypoint count when the caller has read it. One host
+        read for the matches, one packed read of the initializer's result."""
+        if self._init_ref is None:
+            if n_valid is None:
+                n_valid = int(to_host(frame.kp.valid.sum()))
+            if n_valid >= 100:
+                self._init_ref = frame
+            return False
+        ref = self._init_ref
+        window = matching.projection_window_mask(ref.kp.xy, frame.kp.xy, 100.0)
+        res = matching.match_descriptors(
+            ref.kp.desc, frame.kp.desc, ref.kp.valid, frame.kp.valid, window_mask=window,
+            max_dist=matching.TH_LOW, ratio=0.9, mutual=True,
+            angles=(ref.kp.angle, frame.kp.angle))
+        if int(to_host(res.valid.sum())) < 100:
+            self._init_ref = frame  # the reference resets when matching fails
+            return False
+        init = initializer.initialize_two_view(ref.kp.xy, frame.kp.xy[res.idx.long()],
+                                               res.valid, self.cam, generator=self._generator)
+        ok, good, pts, R, t, idx2 = to_host(init.success, init.good, init.points_w,
+                                             init.T_21.R, init.T_21.t, res.idx)
+        if not bool(ok):
+            return False
+        # Scale normalization: median scene depth -> 1.
+        med = float(np.median(pts[good][:, 2]))
+        if med <= 0:
+            return False
+        pts = pts / med
+        t = t / med
+
+        # Keyframe 1 at the identity, keyframe 2 at T21.
+        self.last_lm_ids = None
+        self.pose = se3.identity(device=self.device)
+        kf1 = self._insert_keyframe(ref, pose_R_h=np.eye(3, dtype=np.float32),
+                                    pose_t_h=np.zeros(3, np.float32))
+        self.pose = se3.SE3(torch.as_tensor(R, device=self.device),
+                            torch.as_tensor(t, device=self.device))
+        kf2 = self._insert_keyframe(frame, pose_R_h=R, pose_t_h=t)
+        store = self.store
+        for i in np.where(good)[0]:
+            if store.num_lm >= store.max_landmarks:
+                break
+            lm = store.add_landmark(pts[i], store.kf_desc[kf1][i], kf1)
+            store.add_observation(lm, kf1, int(i))
+            store.add_observation(lm, kf2, int(idx2[i]))
+        store.update_connections(kf1)
+        store.update_connections(kf2)
+        new_lms = store.kf_obs_lm[kf2]
+        store.update_landmark_stats(new_lms[new_lms >= 0])
+
+        self.state = TrackState.OK
+        self.last_inliers = int(good.sum())
+        self.velocity = torch.zeros(6, device=self.device)
+        self._init_ref = None
+        self._record_trajectory(R, t)
         return True
 
     def _insert_keyframe(self, frame: Frame, pose_R_h=None, pose_t_h=None,

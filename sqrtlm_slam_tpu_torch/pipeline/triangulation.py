@@ -40,12 +40,14 @@ def fundamental_matrix(T1w: se3.SE3, T2w: se3.SE3, cam: Camera) -> torch.Tensor:
 
 
 def _dlt_triangulate(uv1, uv2, P1, P2):
-    """Batched DLT: (N, 2) x 2 views -> (N, 3)."""
+    """Batched DLT: (N, 2) x 2 views -> (N, 3). Projection matrices (..., 3, 4)
+    with leading dims (candidate motions) give (..., N, 3)."""
     def rows(uv, P):
-        return torch.stack([uv[..., 0, None] * P[2] - P[0],
-                            uv[..., 1, None] * P[2] - P[1]], dim=-2)
+        P = P[..., None, :, :]  # one matrix for every point
+        return torch.stack([uv[..., 0, None] * P[..., 2, :] - P[..., 0, :],
+                            uv[..., 1, None] * P[..., 2, :] - P[..., 1, :]], dim=-2)
 
-    A = torch.cat([rows(uv1, P1), rows(uv2, P2)], dim=-2)  # (N, 4, 4)
+    A = torch.cat(torch.broadcast_tensors(rows(uv1, P1), rows(uv2, P2)), dim=-2)  # (..., N, 4, 4)
     Vh = torch.linalg.svd(A).Vh
     X = Vh[..., -1, :]
     w = X[..., 3]

@@ -738,3 +738,49 @@ def test_fusion_tight_coupling_tracks_in_both_packages():
     est_j = js.get_trajectory()
     ate_j, _ = ate_rmse(est_j, _gt(poses, len(est_j)))
     assert ate_j < 0.2, ate_j
+
+
+# KITTI 00-02 intrinsics at 1226x370 (cfg/KITTI00-02.yaml), as chip_smoke.py.
+KITTI_CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448)
+
+
+@pytest.mark.slow
+def test_fusion_through_a_street_corner_in_both_packages():
+    """Both packages over 14 frames of the street circuit through its first
+    corner at KITTI size (1226x370, 2000 features, 64 x 1800-ray scans at
+    the column centres, the default LidarConfig): the window turns ~22
+    degrees. Every frame tracked in each, keyframe counts within one, each
+    ATE < 0.5 m (tests/test_planeworld_fusion.py's bar), the camera centres
+    of the two packages within 0.1 m at every frame."""
+    from sqrtlm_slam_tpu.factors.reprojection import Camera as JCamera
+
+    world = t_planeworld.street_circuit_world(seed=0)
+    poses, _ = t_planeworld.circuit_trajectory(14, step=0.8, start_s=59.0)
+    yaw = [math.degrees(math.atan2(*(T.R.T @ np.array([0.0, 0.0, 1.0]))[[0, 2]])) for T in poses]
+    assert abs(yaw[-1] - yaw[0]) > 20.0
+    jcam = JCamera(**KITTI_CAM)
+    tcam = convert.camera(jcam)
+    frames = []
+    for i, T in enumerate(poses):
+        img, _ = world.render(T, tcam, H=370, W=1226, noise_seed=i)
+        raw = world.lidar_scan(T, t_planeworld.T_CAM_VELO, n_azimuth=1800, noise_seed=i)
+        pts, T_cv = t_planeworld.center_scan_on_columns(raw, t_planeworld.T_CAM_VELO)
+        frames.append((img, pts))
+    T_cl = (T_cv[:3, :3].astype(np.float32), T_cv[:3, 3].astype(np.float32))
+    j_cfg = SystemConfig(orb=j_orb.ORBConfig(max_features=2000), lidar=j_feat.LidarConfig())
+    js = SlamSystem(jcam, j_cfg)
+    ts = t_system.SlamSystem(tcam, convert.system_config(j_cfg), device="cpu")
+    tracked_j = tracked_t = 0
+    for img, pts in frames:
+        tracked_j += js.track_fusion(jnp.asarray(img), jnp.asarray(pts),
+                                     T_cam_lidar=tuple(jnp.asarray(a) for a in T_cl)) is not None
+        tracked_t += ts.track_fusion(img, pts, T_cam_lidar=T_cl) is not None
+    assert tracked_j == tracked_t == len(frames)
+    assert abs(js.num_keyframes() - ts.num_keyframes()) <= 1
+    gt = _gt(poses, len(poses))
+    gt = np.linalg.inv(gt[0]) @ gt  # the map's frame is the first camera's
+    est_j, est_t = js.get_trajectory(), ts.get_trajectory()
+    for est in (est_j, est_t):
+        ate, _ = ate_rmse(est, gt, align_scale=False)
+        assert ate < 0.5, ate
+    assert np.abs(est_j[:, :3, 3] - est_t[:, :3, 3]).max() < 0.1

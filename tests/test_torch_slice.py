@@ -169,6 +169,23 @@ def test_main_path_imports_no_jax():
             is not None
         assert g.state == TrackState.OK and g.tracker.reloc_candidates_tried >= 1
         assert g.num_keyframes() == 7
+
+        # Stereo and monocular entries, and standalone LiDAR odometry.
+        from sqrtlm_slam_tpu_torch.lidar.odometry import LidarOdometry
+        st = SlamSystem(cam, SystemConfig(orb=ORBConfig(max_features=300),
+                                          tracking=TrackingConfig(init_min_depth_kp=50)),
+                        device="cpu")
+        mono = SlamSystem(cam, SystemConfig(orb=ORBConfig(max_features=300)), device="cpu")
+        for T in synthetic.forward_trajectory(2, step=0.35):
+            img, _ = world.render(T, cam)
+            T_r = synthetic.Pose(T.R, T.t - np.array([cam.bf / cam.fx, 0, 0], np.float32))
+            st.track_stereo(img, world.render(T_r, cam)[0])
+            mono.track_monocular(img)
+        assert st.num_keyframes() >= 1 and mono.num_keyframes() == 2
+        odo = LidarOdometry(feat_cfg=lcfg, device="cpu")
+        for _, cloud in frames[:2]:
+            odo.process(cloud)
+        assert odo.num_keyframes >= 1 and odo.last_stats is not None
         loaded = [m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
                   or m == "sqrtlm_slam_tpu" or m.startswith("sqrtlm_slam_tpu.")]

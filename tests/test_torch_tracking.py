@@ -142,11 +142,10 @@ def test_match_and_optimize_widened_window_matches(tracking_state):
     assert abs(int(n_t) - int(n_j)) <= max(2, 0.01 * int(n_j))
 
 
-def test_no_prior_fallback_raises_not_implemented(tracking_state):
-    """A frame the map cannot explain goes through the no-prior recovery (it
-    raised `NotImplementedError` before PnP RANSAC was ported; the name is
-    kept): the banks find no consensus in an empty map, nothing raises, and
-    the tracker reports the frame as lost."""
+def test_no_prior_fallback_marks_frame_lost(tracking_state):
+    """A frame the map cannot explain goes through the no-prior recovery: the
+    banks find no consensus in an empty map, nothing raises, and the tracker
+    reports the frame as lost."""
     tr, lm, frame = tracking_state
     store = t_tracking.MapStore(max_keyframes=8, max_landmarks=64, feats_per_kf=600)
     tracker = t_tracking.Tracker(store, convert.camera(DEFAULT_CAM),
