@@ -97,9 +97,25 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      feature extraction and alignment, launches per scan; then
      `backend_for_loop` with the true first-to-last relative pose must cut
      the end drift below 0.3 x.
+ 15. the KITTI runner (`python -m sqrtlm_slam_tpu_torch.run_kitti`): 20
+     frames of `eval/kitti_synth.generate` (1226x370, the street circuit
+     from its start) in a directory under build/, the velodyne scans
+     rewritten as 64 x 1800-ray scans centred on the columns (and Tr with
+     them; the generator's 1440-ray scans give no LiDAR feature). The zlib
+     PNG decoder is held equal to PIL there, and the native loader must
+     build where libpng's header is installed. Then `run_kitti.main` in
+     process, counters zeroed before and read after each run: (a) `--mode
+     fusion --checkpoint` (every frame tracked, ATE < 0.5 m, >= 2
+     keyframes, > 20 LiDAR associations on steady frames, K1 and K2
+     launched); (b) `--async-mapping --pipelined`, then each alone, then
+     sync again (every frame tracked, ATE < 0.5 m, the worker's queue
+     drained and the worker joined); (c) `--resume` from (a)'s map over 4 frames (relocalised or
+     re-initialised by the > 5-keyframe rule, reported); (d) `--mode lidar
+     --json` as a subprocess (ATE < 0.5 m). Each run prints ms per frame,
+     `wall_s`, host reads per frame, the loader and its ms per frame.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
-path's count), its
+path's count, the runner's from run (a)), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
 and the final status line.
@@ -327,6 +343,165 @@ def run_sequence(SlamSystem, cfg, cam, frames, device, time_from: int):
         seconds.append(time.perf_counter() - t0)
         tracked += pose is not None
     return system, seconds[time_from:], tracked
+
+
+def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") -> dict:
+    """15. The KITTI runner (`sqrtlm_slam_tpu_torch/run_kitti.py`) on a
+    KITTI-layout sequence written by `eval/kitti_synth.generate`, in process
+    through `run_kitti.main` (counters zeroed before and read after each run)
+    and once as `python -m` in a subprocess. Returns the runs' records.
+    `device="cpu"` rehearses it without a card."""
+    import shutil
+
+    import torch
+    from sqrtlm_slam_tpu_torch import run_kitti, utils
+    from sqrtlm_slam_tpu_torch.eval import kitti_synth, planeworld
+    from sqrtlm_slam_tpu_torch.io import kitti as kitti_io
+    from sqrtlm_slam_tpu_torch.io import native_loader, png
+    from sqrtlm_slam_tpu_torch.ops import hamming
+    from sqrtlm_slam_tpu_torch.optim import assembly
+    from sqrtlm_slam_tpu_torch.pipeline import system as system_mod
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "build", "chip_smoke_kitti")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "kitti")
+    seq_dir = os.path.join(root, "sequences", "00")
+    t0 = time.perf_counter()
+    kitti_synth.generate(root, seq="00", n_frames=n_frames, seed=0, step=0.8,
+                         log=lambda *a: None)
+    generate_s = time.perf_counter() - t0
+    # The generator's 1440-ray scans give no LiDAR feature under the default
+    # LidarConfig (a fault of the reference): rescan with 64 x 1800 rays
+    # centred on the range image's columns, and write the extrinsics that
+    # the half-column yaw implies into calib.txt.
+    t0 = time.perf_counter()
+    street = street if street is not None else planeworld.street_circuit_world(seed=0)
+    poses, _ = planeworld.circuit_trajectory(n_frames, step=0.8)
+    for i, T in enumerate(poses):
+        scan = street.lidar_scan(T, planeworld.T_CAM_VELO, n_azimuth=1800, noise_seed=i)
+        pts, T_cv = planeworld.center_scan_on_columns(scan, planeworld.T_CAM_VELO)
+        np.concatenate([pts, scan[:, 3:4]], axis=1).astype(np.float32).tofile(
+            os.path.join(seq_dir, "velodyne", f"{i:06d}.bin"))
+    calib = os.path.join(seq_dir, "calib.txt")
+    with open(calib) as f:
+        rows = [ln for ln in f.read().splitlines() if not ln.startswith("Tr:")]
+    with open(calib, "w") as f:
+        f.write("\n".join(rows + ["Tr: " + " ".join(repr(float(x)) for x in T_cv[:3].ravel())])
+                + "\n")
+    rescan_s = time.perf_counter() - t0
+
+    # The PNG readers: the zlib decoder against PIL where PIL is installed.
+    first = os.path.join(seq_dir, "image_0", "000000.png")
+    t0 = time.perf_counter()
+    z = png.read_gray(first)
+    zlib_ms = 1e3 * (time.perf_counter() - t0)
+    backend = kitti_io.image_backend()
+    zlib_equals_pil = None
+    if backend == "PIL":
+        from PIL import Image
+
+        zlib_equals_pil = bool(np.array_equal(z, np.asarray(Image.open(first).convert("L"))))
+        if not zlib_equals_pil:
+            raise AssertionError("the zlib PNG decoder differs from PIL on the card")
+    gxx = shutil.which(os.environ.get("CXX", "g++"))
+    png_h = gxx is not None and subprocess.run(
+        [gxx, "-E", "-x", "c++", "-"], input="#include <png.h>\n", capture_output=True,
+        text=True, timeout=60).returncode == 0
+    native_ok = native_loader.NativeKittiLoader.available()
+    emit("kitti_runner_setup", frames=n_frames, generate_s=generate_s, rescan_s=rescan_s,
+         image_backend=backend, zlib_decode_ms=zlib_ms, zlib_equals_pil=zlib_equals_pil,
+         png_h=png_h, native_loader=native_ok, native_build_error=native_loader.build_error())
+    if png_h and not native_ok:
+        raise AssertionError(f"png.h is here but the native loader failed: "
+                             f"{native_loader.build_error()}")
+
+    base = ["--root", root, "--seq", "00", "--mode", "fusion", "--device", device]
+    ckpt = os.path.join(work, "map.npz")
+
+    def run(name, extra, frames=n_frames):
+        """One in-process runner call: its summary, launches, host reads per
+        frame, LiDAR associations per frame and the system it drove."""
+        seen = {"matches": [], "system": None}
+        track_fusion, shutdown = system_mod.SlamSystem.track_fusion, system_mod.SlamSystem.shutdown
+
+        def counted_track_fusion(self, *a, **k):
+            pose = track_fusion(self, *a, **k)
+            seen["matches"].append(self.tracker.last_lidar_matches)
+            return pose
+
+        def kept_shutdown(self):
+            seen["system"] = self
+            return shutdown(self)
+        system_mod.SlamSystem.track_fusion = counted_track_fusion
+        system_mod.SlamSystem.shutdown = kept_shutdown
+        hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
+        utils.host_reads = 0
+        out = os.path.join(work, f"traj_{name}.txt")
+        try:
+            res = run_kitti.main(base + ["--frames", str(frames), "--out", out] + extra)
+        finally:
+            system_mod.SlamSystem.track_fusion = track_fusion
+            system_mod.SlamSystem.shutdown = shutdown
+        if device == "cuda":
+            torch.cuda.synchronize()
+        rec = dict(res, launches={"hamming": hamming.launch_count,
+                                  "ba_assembly": assembly.launch_count,
+                                  "ba_chi2": assembly.chi2_launch_count},
+                   host_reads_per_frame=utils.host_reads / frames,
+                   trajectory_rows=int(np.loadtxt(out, ndmin=2).shape[0]),
+                   lidar_matches=seen["matches"])
+        emit("kitti_runner", run=name, args=extra, **rec)
+        return rec, seen["system"]
+
+    def check(name, rec, frames=n_frames):
+        if rec["tracked"] != frames or not rec["ate_rmse_m"] < 0.5:
+            raise AssertionError(f"runner {name}: tracked {rec['tracked']}/{frames}, "
+                                 f"ATE {rec.get('ate_rmse_m')} m")
+        if png_h and rec["loader"] != "native":
+            raise AssertionError(f"runner {name}: the native loader was not used")
+
+    runs = {}
+    # (a) sync, with a checkpoint of the map.
+    runs["sync"], _ = run("sync", ["--checkpoint", ckpt])
+    a = runs["sync"]
+    check("sync", a)
+    steady = a["lidar_matches"][2:]
+    if a["keyframes"] < 2 or min(steady) <= 20:
+        raise AssertionError(f"runner sync: {a['keyframes']} keyframes, LiDAR associations "
+                             f"{a['lidar_matches']}")
+    if device == "cuda" and (a["launches"]["hamming"] <= 0 or a["launches"]["ba_assembly"] <= 0):
+        raise AssertionError(f"runner sync: a kernel never launched: {a['launches']}")
+    # (b) the asynchronous mapping worker with pipelined tracking, then each
+    # alone and sync again for the timing (in turns, on one card).
+    for name, extra in (("async_pipelined", ["--async-mapping", "--pipelined"]),
+                        ("async", ["--async-mapping"]), ("pipelined", ["--pipelined"]),
+                        ("sync_again", [])):
+        runs[name], system = run(name, extra)
+        check(name, runs[name])
+        if system._worker is not None and (system._worker.is_alive()
+                                           or system._kf_queue.unfinished_tasks):
+            raise AssertionError(f"runner {name}: the mapping worker was not drained and joined")
+        runs[name]["worker_joined"] = system._worker is not None
+    # (c) resume from (a)'s map.
+    runs["resume"], _ = run("resume", ["--resume", ckpt], frames=4)
+    emit("kitti_runner_resume", **runs["resume"]["resume"])
+    # (d) standalone LiDAR odometry through `python -m`, in a subprocess.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sqrtlm_slam_tpu_torch.run_kitti", "--root", root, "--seq",
+         "00", "--mode", "lidar", "--frames", str(n_frames), "--device", device, "--json",
+         "--out", os.path.join(work, "traj_lidar.txt")],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"runner lidar (subprocess) failed:\n{proc.stderr[-3000:]}")
+    d = json.loads(proc.stdout.strip().splitlines()[-1])
+    runs["lidar"] = dict(d, process_s=time.perf_counter() - t0)
+    emit("kitti_runner", run="lidar", args=["--mode", "lidar", "(python -m)"], **runs["lidar"])
+    if not d["ate_rmse_m"] < 0.5:
+        raise AssertionError(f"runner lidar: ATE {d['ate_rmse_m']} m")
+    shutil.rmtree(work, ignore_errors=True)
+    return runs
 
 
 def main() -> None:
@@ -1172,6 +1347,11 @@ def main() -> None:
         raise AssertionError("two LiDAR odometry runs on the card differ")
     if not drift_after < 0.3 * drift_before:
         raise AssertionError(f"backend_for_loop: end drift {drift_before} -> {drift_after} m")
+    del odo, odo2
+
+    # 15. The KITTI runner ------------------------------------------------
+    runner = kitti_runner_phase(street=street)
+    runner_launches = runner["sync"]["launches"]
 
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line
@@ -1186,7 +1366,8 @@ def main() -> None:
                                    relocalisation=reloc_launches,
                                    ring_loop=loop_launches["hamming"],
                                    stereo=stereo_launches["hamming"],
-                                   mono=mono_launches["hamming"]),
+                                   mono=mono_launches["hamming"],
+                                   kitti_runner=runner_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
@@ -1197,7 +1378,8 @@ def main() -> None:
                                    gba_at_scale=gba_launches["ba_assembly"],
                                    ring_loop=loop_launches["ba_assembly"],
                                    stereo=stereo_launches["ba_assembly"],
-                                   mono=mono_launches["ba_assembly"]),
+                                   mono=mono_launches["ba_assembly"],
+                                   kitti_runner=runner_launches["ba_assembly"]),
              max_abs_err=k2_err,
              **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",
@@ -1205,7 +1387,8 @@ def main() -> None:
              replaces="sqrtlm_slam_tpu/optim/assembly_pallas.py:508",
              launches=loop_launches["ba_chi2"],
              launches_by_path=dict(gba_at_scale=gba_launches["ba_chi2"],
-                                   ring_loop=loop_launches["ba_chi2"]),
+                                   ring_loop=loop_launches["ba_chi2"],
+                                   kitti_runner=runner_launches["ba_chi2"]),
              max_abs_err=k3_err,
              **timed(k3[(600, 120000, 7, 2.447)]), library_ms=None),
     ]

@@ -17,7 +17,10 @@ on the range image, voxel-hash association, the tightly coupled pose
 optimisation in tracking and the LiDAR stage of local BA; stereo
 (`SlamSystem.track_stereo`) and monocular (`SlamSystem.track_monocular`, the
 two-view H/F initializer) tracking; and standalone LiDAR odometry
-(`lidar/odometry.py::LidarOdometry`) with its SE(3) pose-graph backend. The
+(`lidar/odometry.py::LidarOdometry`) with its SE(3) pose-graph backend;
+and the KITTI runner (`python -m sqrtlm_slam_tpu_torch.run_kitti`) with
+what it drives: KITTI IO, the native prefetching loader, the KITTI-layout
+generator, the asynchronous mapping worker and pipelined tracking. The
 LiDAR code and the initializer are plain PyTorch (they are XLA, not Pallas,
 in the JAX package).
 
@@ -36,7 +39,7 @@ Package layout
 --------------
   geometry/   SO3 / SE3 / Sim3 Lie ops, Umeyama alignment
   factors/    reprojection and LiDAR residuals + Jacobians, the SE3 and
-              Sim3 pose-graph factors
+              Sim3 pose-graph factors, LiDAR-camera extrinsic calibration
   algorithm/  PnP RANSAC banks (2D-3D DLT, 3D-3D Horn)
   lidar/      range-image features, voxel-hash NN + downsampling, local map,
               scan-to-map odometry, SE3 pose-graph backend
@@ -51,7 +54,12 @@ Package layout
   mapstore/   the JAX package's numpy MapStore, carried over unchanged;
               the map checkpoint (same npz layout as the JAX package's)
   eval/       numpy synthetic worlds (points, textured planes + LiDAR
-              scanner), BA problems, the scale store, ATE
+              scanner), BA problems, the scale store, ATE / RPE, the
+              KITTI-layout generator, long runs, plots
+  io/         KITTI reader and trajectory writer, zlib PNG codec, the
+              native prefetching loader (ctypes, built with g++)
+  utils/      host reads (`to_host`), sequence config, stage timer, Kalman
+  run_kitti.py  the KITTI runner (four modes)
   convert.py  JAX-package objects -> port objects (parity tests)
 """
 

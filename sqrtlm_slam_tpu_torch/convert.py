@@ -50,8 +50,6 @@ def orb_config(cfg) -> ORBConfig:
 
 
 def tracking_config(cfg) -> TrackingConfig:
-    if getattr(cfg, "pipelined", False):
-        raise NotImplementedError("pipelined tracking is not ported yet")
     return _fields(TrackingConfig, cfg)
 
 
@@ -64,8 +62,6 @@ def lidar_config(cfg) -> LidarConfig:
 
 
 def system_config(cfg) -> SystemConfig:
-    if getattr(cfg, "async_mapping", False):
-        raise NotImplementedError("async mapping is not ported yet")
     lidar = getattr(cfg, "lidar", None)
     return SystemConfig(
         lidar=lidar_config(lidar) if lidar is not None else None,
@@ -73,6 +69,7 @@ def system_config(cfg) -> SystemConfig:
         local_mapping=local_mapping_config(cfg.local_mapping),
         max_keyframes=cfg.max_keyframes, max_landmarks=cfg.max_landmarks,
         loop_detection=cfg.loop_detection, use_shipped_vocab=cfg.use_shipped_vocab,
+        async_mapping=cfg.async_mapping,
     )
 
 

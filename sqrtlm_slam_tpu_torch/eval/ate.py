@@ -1,8 +1,9 @@
-"""Absolute trajectory error (evo `-as` protocol) in numpy.
+"""Trajectory error (evo `-as` protocol) in numpy.
 
 Counterpart of `sqrtlm_slam_tpu/eval/ate.py`: Umeyama alignment (with or
 without scale) of the estimated camera centres onto ground truth, then the
-RMSE of the translation residuals.
+RMSE of the translation residuals (ATE); and the relative pose error over
+fixed frame steps (RPE), a drift measure beside it.
 """
 
 from __future__ import annotations
@@ -35,3 +36,16 @@ def ate_rmse(est_poses: np.ndarray, gt_poses: np.ndarray,
     s, R, t = umeyama(est, gt, with_scale=align_scale)
     aligned = s * est @ R.T + t
     return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=-1)))), aligned
+
+
+def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1) -> Tuple[float, float]:
+    """Relative pose error over `delta`-frame steps of (F, 4, 4)
+    camera-to-world poses: (translation RMSE, rotation RMSE in degrees)."""
+    def rel(poses):
+        return np.linalg.inv(poses[:-delta]) @ poses[delta:]
+
+    E = np.linalg.inv(rel(gt_poses)) @ rel(est_poses)
+    t_err = np.linalg.norm(E[:, :3, 3], axis=-1)
+    cos_r = np.clip((np.trace(E[:, :3, :3], axis1=1, axis2=2) - 1) / 2, -1, 1)
+    r_err = np.degrees(np.arccos(cos_r))
+    return float(np.sqrt((t_err**2).mean())), float(np.sqrt((r_err**2).mean()))

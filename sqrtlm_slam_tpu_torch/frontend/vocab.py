@@ -10,7 +10,7 @@ uint32 bits (`utils.desc_to_torch`); popcount is the port's byte table.
 `load_default` reads the vocabulary the JAX package ships
 (`sqrtlm_slam_tpu/assets/orbvoc_synth_k10_d4.npz`) by file path with numpy;
 `train` is the same host-side numpy k-medians, for systems built without a
-vocabulary.
+vocabulary; `save` writes the JAX package's npz layout.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.hamming import popcount_words
-from ..utils import desc_to_torch
+from ..utils import desc_to_numpy, desc_to_torch
 
 DEFAULT_ASSET = (Path(__file__).resolve().parents[2] / "sqrtlm_slam_tpu" / "assets"
                  / "orbvoc_synth_k10_d4.npz")
@@ -154,7 +154,20 @@ def bow_window_mask(words_q: torch.Tensor, words_t: torch.Tensor, levels_up: int
     return (words_q[:, None] == words_t[None, :]) & (words_q[:, None] >= 0)
 
 
+def save(voc: Vocabulary, path) -> None:
+    """Write `voc` as the JAX package writes one (npz keys `k`, `depth`,
+    `idf`, `level<i>` of uint32 words): each package loads the other's."""
+    np.savez_compressed(
+        path,
+        k=np.int64(voc.k),
+        depth=np.int64(voc.depth),
+        idf=voc.idf.detach().cpu().numpy(),
+        **{f"level{i}": desc_to_numpy(c) for i, c in enumerate(voc.centroids)},
+    )
+
+
 def load(path, device="cuda") -> Vocabulary:
+    """Read a vocabulary written by `save` (of either package)."""
     z = np.load(path)
     depth = int(z["depth"])
     return Vocabulary(

@@ -5,8 +5,8 @@ the reference: `track_depth` (RGB-D), `track_stereo`, `track_monocular`,
 `track_fusion` (camera+LiDAR) and `track_frame` (a frame built by the caller):
 `SlamSystem(cam, cfg, device)` (the CUDA device unless the caller passes
 another, e.g. `device="cpu"`) builds the shared numpy `MapStore`, the
-tracker, the local mapper and, with `cfg.loop_detection`, the loop closer
-(all run synchronously per keyframe), and recovers the per-frame trajectory
+tracker, the local mapper and, with `cfg.loop_detection`, the loop closer,
+and recovers the per-frame trajectory
 from poses stored relative to reference keyframes, so BA and loop
 corrections propagate at save time. `save` / `load` checkpoint and resume
 the map (a resumed system starts LOST and relocalises); localisation mode
@@ -15,11 +15,27 @@ tracks the frozen map without inserting keyframes.
 A vocabulary is attached as in the JAX package: the one given, else the
 shipped asset (`cfg.use_shipped_vocab`), else one trained lazily from the
 first keyframe with enough descriptors. Every keyframe gets its word ids
-and BoW vector. The asynchronous mapping worker is not ported.
+and BoW vector.
+
+Local mapping and loop closing run synchronously per keyframe, or, with
+`cfg.async_mapping`, on a worker thread fed by a keyframe queue (the
+reference's LocalMapping / LoopClosing threads). One RLock, `map_lock`,
+then orders host access to the numpy store: the worker holds it while it
+maps a keyframe, the tracker for its store-touching sections, the loop
+closer (whose global BA then runs on its own thread) for its corrections.
+Both threads launch on the default CUDA stream. An exception on the worker
+is stored and raised in the tracking thread at the next `track_*`, `flush`
+or `shutdown` (the JAX package's worker would stop and leave `flush`
+waiting). `flush` drains the queue and waits for global BA; `shutdown`
+also stops the worker. With pipelined tracking, `get_trajectory`,
+`get_slam_result`, `trajectory_frame_ids` and `shutdown` finalize the
+deferred frame first (`Tracker.flush`).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -47,6 +63,9 @@ class SystemConfig(NamedTuple):
     loop_detection: bool = False  # attach the loop closer
     lidar: Optional[LidarConfig] = None  # LiDAR feature extraction for fusion
     use_shipped_vocab: bool = True  # load the shipped vocabulary when none is given
+    # Local mapping + loop closing on a worker thread, overlapping tracking.
+    # Off by default: the sequential driver is deterministic.
+    async_mapping: bool = False
 
 
 class SlamSystem:
@@ -65,12 +84,27 @@ class SlamSystem:
             feats_per_kf=cfg.orb.max_features,
             num_words=vocabulary.num_words if vocabulary is not None else 1000,
         )
+        self.map_lock = threading.RLock() if cfg.async_mapping else None
         self._wire_tracker_and_mapper()
         self.loop_closer = None
         if cfg.loop_detection:
             self.loop_closer = LoopCloser(self.store, cam, voc=vocabulary,
                                           cfg=loop_cfg or LoopClosingConfig(),
                                           device=self.device)
+            if cfg.async_mapping:
+                # Global BA on its own thread under the shared lock,
+                # abandoned when a newer loop closes.
+                self.loop_closer.map_lock = self.map_lock
+                self.loop_closer.async_gba = True
+        self._kf_queue: Optional[queue.Queue] = None
+        self._worker: Optional[threading.Thread] = None
+        self._worker_error: Optional[Exception] = None
+        self._shutdown = False
+        if cfg.async_mapping:
+            self._kf_queue = queue.Queue()
+            self._worker = threading.Thread(target=self._mapping_worker, daemon=True,
+                                            name="mapping-worker")
+            self._worker.start()
 
     def _wire_tracker_and_mapper(self):
         cfg = self.cfg
@@ -84,6 +118,8 @@ class SlamSystem:
         self.tracker.new_kf_callback = self._on_new_keyframe
         self.tracker.vocab_hook = self._assign_words
         self.tracker.reloc_db = KeyFrameDatabase(self.store)
+        if self.map_lock is not None:
+            self.tracker.map_lock = self.map_lock
 
     def _assign_words(self, desc: torch.Tensor, valid: torch.Tensor):
         """Word ids (N,) and BoW vector (W,) of a new keyframe, on the
@@ -100,20 +136,65 @@ class SlamSystem:
         words = vocab_mod.assign_words(self.vocabulary, desc, valid)
         return words, vocab_mod.bow_vector(self.vocabulary, words)
 
-    def _on_new_keyframe(self, kf: int):
+    def _map_keyframe(self, kf: int):
         self.local_mapper.process_keyframe(kf)
         if self.loop_closer is not None:
             self.loop_closer.insert_keyframe(kf)
 
+    def _on_new_keyframe(self, kf: int):
+        if self._kf_queue is not None:
+            self._kf_queue.put(kf)
+        else:
+            self._map_keyframe(kf)
+
+    def _mapping_worker(self):
+        """Map queued keyframes until the None sentinel. After a failure the
+        worker keeps draining the queue without mapping, so `flush` returns
+        and the tracking thread raises the stored exception."""
+        while True:
+            kf = self._kf_queue.get()
+            try:
+                if kf is None:
+                    return
+                if self._worker_error is None:
+                    with self.map_lock:
+                        self._map_keyframe(kf)
+            except Exception as e:  # re-raised in the tracking thread
+                self._worker_error = e
+            finally:
+                self._kf_queue.task_done()
+
+    def _raise_worker_error(self):
+        if self._worker_error is not None:
+            raise RuntimeError("the asynchronous mapping worker failed") from self._worker_error
+
     def flush(self):
-        """Wait for an asynchronous global BA of the loop closer (the
-        mapping itself runs synchronously)."""
+        """Block until every queued keyframe is mapped (asynchronous mapping)
+        and any global BA of the loop closer has finished."""
+        if self._kf_queue is not None:
+            self._kf_queue.join()
         if self.loop_closer is not None:
             self.loop_closer.wait_gba()
+        self._raise_worker_error()
 
     def shutdown(self):
-        """Drain pending work (System::Shutdown)."""
-        self.flush()
+        """Finalize the deferred frame, drain and stop the worker, wait for
+        global BA (System::Shutdown). Idempotent."""
+        self.tracker.flush()
+        if self._kf_queue is not None and not self._shutdown:
+            self._kf_queue.join()
+            self._kf_queue.put(None)
+            self._worker.join()
+            self._shutdown = True
+        if self.loop_closer is not None:
+            self.loop_closer.wait_gba()
+        self._raise_worker_error()
+
+    def _track(self, frame: Frame):
+        self._raise_worker_error()
+        if self._shutdown:
+            raise RuntimeError("the mapping worker was shut down")
+        return self.tracker.track(frame)
 
     def track_depth(self, image, depth_img):
         """RGB-D entry: (H, W) intensity image and (H, W) depth in metres
@@ -122,7 +203,7 @@ class SlamSystem:
         img = torch.as_tensor(image, dtype=torch.float32).to(self.device)
         depth = torch.as_tensor(depth_img, dtype=torch.float32).to(self.device)
         frame = build_frame(img, self.cam, self.cfg.orb, depth_img=depth)
-        return self.tracker.track(frame)
+        return self._track(frame)
 
     def track_fusion(self, image, cloud_lidar, T_cam_lidar=None):
         """Camera + LiDAR entry: (H, W) intensity image and the (N, 3) scan
@@ -136,7 +217,7 @@ class SlamSystem:
         cloud = torch.as_tensor(cloud_lidar, dtype=torch.float32).to(self.device)
         frame = build_frame(img, self.cam, self.cfg.orb, cloud_lidar=cloud[:, :3],
                             T_cam_lidar=T_cam_lidar, lidar_cfg=self.cfg.lidar)
-        return self.tracker.track(frame)
+        return self._track(frame)
 
     def track_stereo(self, img_left, img_right):
         """Stereo entry: a rectified (H, W) image pair (numpy arrays or
@@ -145,7 +226,7 @@ class SlamSystem:
         while uninitialized or lost."""
         left = torch.as_tensor(img_left, dtype=torch.float32).to(self.device)
         right = torch.as_tensor(img_right, dtype=torch.float32).to(self.device)
-        return self.tracker.track(build_frame_stereo(left, right, self.cam, self.cfg.orb))
+        return self._track(build_frame_stereo(left, right, self.cam, self.cfg.orb))
 
     def track_monocular(self, image):
         """Monocular entry: an (H, W) image. The map starts with the two-view
@@ -153,11 +234,11 @@ class SlamSystem:
         from local mapping's triangulation. Returns the frame's T_cw or None
         while uninitialized or lost."""
         img = torch.as_tensor(image, dtype=torch.float32).to(self.device)
-        return self.tracker.track(build_frame(img, self.cam, self.cfg.orb))
+        return self._track(build_frame(img, self.cam, self.cfg.orb))
 
     def track_frame(self, frame: Frame):
         """Entry for a frame built by the caller (tests, custom front ends)."""
-        return self.tracker.track(frame)
+        return self._track(frame)
 
     @property
     def state(self) -> int:
@@ -202,7 +283,9 @@ class SlamSystem:
 
     def reset(self):
         """Clear the map and the tracking state (the store's version moves
-        on, so no device cache of the old map is served)."""
+        on, so no device cache of the old map is served). Queued keyframes
+        are mapped first: they belong to the old map."""
+        self.flush()
         self.store.reset()
         self._wire_tracker_and_mapper()
 
@@ -211,6 +294,7 @@ class SlamSystem:
         state, the landmarks seen last frame, the global map cloud, the
         local-map cloud around the reference keyframe, the trajectory and,
         when it has them, the reference keyframe's LiDAR feature clouds."""
+        self.tracker.flush()
         store, tracker = self.store, self.tracker
         kfs = np.where(store.kf_valid[: store.num_kf])[0]
         lms = np.where(store.lm_valid[: store.num_lm])[0]
@@ -244,6 +328,7 @@ class SlamSystem:
     def get_trajectory(self) -> np.ndarray:
         """Per-frame camera-to-world 4x4 poses, T_wc = (T_rel · T_ref_w)^{-1}
         with the current (BA-corrected) reference keyframe poses."""
+        self.tracker.flush()  # the deferred frame of pipelined tracking
         out = []
         for _, ref_kf, R_rel, t_rel in self.tracker.trajectory:
             R_ref = self.store.kf_R[ref_kf]
@@ -258,6 +343,7 @@ class SlamSystem:
 
     def trajectory_frame_ids(self) -> np.ndarray:
         """Frame ids matching get_trajectory() rows (lost frames record none)."""
+        self.tracker.flush()
         return np.asarray([fid for fid, _, _, _ in self.tracker.trajectory], np.int64)
 
     def save_trajectory_kitti(self, path: str):

@@ -1,6 +1,6 @@
 """Tracking: per-frame state machine driving the matching + pose stages.
 
-Counterpart of `sqrtlm_slam_tpu/pipeline/tracking.py` in sync mode:
+Counterpart of `sqrtlm_slam_tpu/pipeline/tracking.py`:
   * depth initialization (the first frame with enough depth-carrying
     keypoints seeds the map; RGB-D, stereo, fusion);
   * `track_frame_step`: constant-velocity prediction, stage A window match
@@ -33,11 +33,27 @@ keyframe's word ids and BoW vector (place recognition reads them).
 
 A frame without any depth (monocular) initializes the map by the two-view
 H/F initializer (`_initialize_mono`): a reference frame, a match, two
-keyframes at median scene depth 1. Not ported: the pipelined mode.
+keyframes at median scene depth 1.
+
+Pipelined mode (`TrackingConfig.pipelined`): in the steady state frame t's
+results are read only after frame t+1's step has been dispatched
+(`_track_pipelined`); pose and velocity chain on the device. LOST detection,
+the no-prior fallback and keyframe insertion for frame t happen while t+1
+is in flight; on a correction t+1 is dispatched again from the corrected
+state. `flush` finalizes the deferred frame (the system calls it before any
+read of the trajectory or the map). The stage-A retry inside the step still
+reads the host, so dispatching t+1 waits for its stage A: pipelining defers
+only `_consume_step`'s reads.
+
+With the system's asynchronous mapping worker, `map_lock` (a shared RLock,
+a no-op context otherwise) guards the tracker's store-touching sections:
+the local-map gathers, keyframe insertion, the trajectory record and the
+visible / found counters.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -79,6 +95,10 @@ class TrackingConfig(NamedTuple):
     # extractor's ORBConfig (SlamSystem syncs them).
     num_levels: int = 8
     scale_factor: float = 1.2
+    # Deferred-read steady-state tracking (see Tracker.track). Off by
+    # default: the sync driver is deterministic and decides each frame
+    # before the next.
+    pipelined: bool = False
 
 
 class TrackState:
@@ -333,6 +353,11 @@ class Tracker:
         self._lm_cache: Optional[LocalMapBuffer] = None
         self._lidar_cache_key = None
         self._lidar_cache: Optional[lidar_odometry.LocalMap] = None
+        # The map lock: the system's RLock under asynchronous mapping.
+        self.map_lock = contextlib.nullcontext()
+        # Pipelined mode: the newest dispatched step, consumed at the next
+        # track() or flush().
+        self._pending = None
 
     # ------------------------------------------------------------------
 
@@ -343,13 +368,15 @@ class Tracker:
         if self._lm_cache_key == key:
             return self._lm_cache
         cap = self.cfg.local_map_capacity
-        kfs = [self.ref_kf] + list(self.store.best_covisible(self.ref_kf, self.cfg.local_kf_cap))
-        lm_ids = np.unique(self.store.kf_obs_lm[kfs])
-        lm_ids = lm_ids[(lm_ids >= 0)]
-        lm_ids = lm_ids[self.store.lm_valid[lm_ids]]
-        if len(lm_ids) > cap:
-            lm_ids = lm_ids[-cap:]  # newest landmarks: freshest descriptors
-        buf = self._buffer_from_ids(lm_ids)
+        with self.map_lock:
+            kfs = [self.ref_kf] + list(self.store.best_covisible(self.ref_kf,
+                                                                 self.cfg.local_kf_cap))
+            lm_ids = np.unique(self.store.kf_obs_lm[kfs])
+            lm_ids = lm_ids[(lm_ids >= 0)]
+            lm_ids = lm_ids[self.store.lm_valid[lm_ids]]
+            if len(lm_ids) > cap:
+                lm_ids = lm_ids[-cap:]  # newest landmarks: freshest descriptors
+            buf = self._buffer_from_ids(lm_ids)
         self._lm_cache_key = key
         self._lm_cache = buf
         return buf
@@ -387,12 +414,13 @@ class Tracker:
         if self._lidar_cache_key == key:
             return self._lidar_cache
         store, cfg = self.store, self.cfg
-        kfs = [self.ref_kf] + [int(x) for x in store.best_covisible(self.ref_kf,
-                                                                    cfg.lidar_map_kfs)]
-        kfs = [k for k in kfs if k >= 0 and store.kf_corner_valid[k].any()]
+        with self.map_lock:
+            kfs = [self.ref_kf] + [int(x) for x in store.best_covisible(self.ref_kf,
+                                                                        cfg.lidar_map_kfs)]
+            kfs = [k for k in kfs if k >= 0 and store.kf_corner_valid[k].any()]
+            clouds = aggregate_kf_lidar(store, kfs, cfg.lidar_map_kfs + 1) if kfs else None
         out = None
-        if kfs:
-            clouds = aggregate_kf_lidar(store, kfs, cfg.lidar_map_kfs + 1)
+        if clouds is not None:
             if int(clouds[1].sum()) + int(clouds[4].sum()) >= cfg.lidar_min_map_pts:
                 out = local_map_from_clouds(clouds, self.device)
         self._lidar_cache_key = key
@@ -497,7 +525,12 @@ class Tracker:
         """Create a keyframe + landmarks from depth (CreateNewKeyFrame): new
         landmarks come from depth-carrying keypoints not already matched to
         the map, nearest-first, capped. One packed read of the frame and its
-        words and BoW vector."""
+        words and BoW vector. Holds the map lock."""
+        with self.map_lock:
+            return self._insert_keyframe_locked(frame, pose_R_h, pose_t_h, frame_id)
+
+    def _insert_keyframe_locked(self, frame: Frame, pose_R_h=None, pose_t_h=None,
+                                frame_id=None) -> int:
         store = self.store
         kp = frame.kp
         words = bow = None
@@ -625,8 +658,9 @@ class Tracker:
             pose_R_h, pose_t_h = to_host(self.pose.R, self.pose.t)
         pose_R_h = np.asarray(pose_R_h)
         pose_t_h = np.asarray(pose_t_h)
-        R_ref = self.store.kf_R[self.ref_kf].copy()
-        t_ref = self.store.kf_t[self.ref_kf].copy()
+        with self.map_lock:
+            R_ref = self.store.kf_R[self.ref_kf].copy()
+            t_ref = self.store.kf_t[self.ref_kf].copy()
         R_rel = pose_R_h @ R_ref.T
         t_rel = pose_t_h - R_rel @ t_ref
         self.trajectory.append((frame_idx, self.ref_kf, R_rel, t_rel))
@@ -635,15 +669,28 @@ class Tracker:
 
     def track(self, frame: Frame) -> Optional[se3.SE3]:
         """Track one frame; returns the frame pose T_cw (None while
-        uninitialized or lost)."""
+        uninitialized or lost).
+
+        With `cfg.pipelined` the steady state reads frame t's results only
+        after frame t+1's step is dispatched, so the returned pose is the
+        dispatched one, not yet checked: LOST, the fallback and keyframe
+        insertion for a frame come one call later (see the module
+        docstring)."""
         self.frame_idx += 1
         self.frames_since_kf += 1
+        if self.cfg.pipelined and self.state == TrackState.OK:
+            return self._track_pipelined(frame)
+        self.flush()
+        return self._track_sync(frame)
+
+    def _track_sync(self, frame: Frame) -> Optional[se3.SE3]:
         if self.state == TrackState.NOT_INITIALIZED:
             return self.pose if self._initialize(frame) else None
         if self.state == TrackState.LOST:
             if self.store.num_kf <= 5:
                 # Lost soon after init with a tiny map: reset and re-init.
-                self.store.reset()
+                with self.map_lock:
+                    self.store.reset()
                 self.state = TrackState.NOT_INITIALIZED
                 self.ref_kf = -1
                 self.trajectory.clear()
@@ -665,21 +712,56 @@ class Tracker:
             num_levels=cfg.num_levels, scale_factor=cfg.scale_factor,
         )
 
-    def _track_steady(self, frame: Frame) -> Optional[se3.SE3]:
+    def _dispatch_step(self, frame: Frame) -> tuple:
+        """Launch the frame's step from the current pose and velocity; returns
+        what `_consume_step` needs: (frame, frame index, local map, LiDAR map,
+        pose, velocity, packed_i, packed_f, previous pose)."""
         lm_buffer = self._gather_local_map()
         lidar_map = self._gather_lidar_local_map() if frame.lidar is not None else None
-        prev_pose = self.pose
         pose, velocity, packed_i, packed_f = self._step(self.pose, self.velocity, lm_buffer,
                                                         lidar_map, frame)
-        ok = self._consume_step(frame, self.frame_idx, lm_buffer, lidar_map, pose, velocity,
-                                packed_i, packed_f, prev_pose)
+        return (frame, self.frame_idx, lm_buffer, lidar_map, pose, velocity, packed_i,
+                packed_f, self.pose)
+
+    def _track_steady(self, frame: Frame) -> Optional[se3.SE3]:
+        """Synchronous steady-state frame: dispatch, then consume at once."""
+        ok, _ = self._consume_step(self._dispatch_step(frame), commit_pose=True)
         return self.pose if ok else None
 
-    def _consume_step(self, frame, frame_idx, lm_buffer, lidar_map, pose, velocity,
-                      packed_i, packed_f, prev_pose) -> bool:
-        """Fetch + host bookkeeping for one step. Returns False when tracking
-        was lost at this frame."""
+    def _track_pipelined(self, frame: Frame) -> Optional[se3.SE3]:
+        """Deferred-read steady state: dispatch frame t+1 first, then
+        finalize frame t's step."""
+        cur = self._dispatch_step(frame)
+        prev, self._pending = self._pending, cur
+        self.pose, self.velocity = cur[4], cur[5]  # chained on the device
+        if prev is not None:
+            ok, corrected = self._consume_step(prev, commit_pose=False)
+            if not ok or corrected:
+                # The in-flight step chained off a lost or replaced pose.
+                self._pending = None
+                if self.state == TrackState.OK:
+                    return self._track_steady(frame)  # again, from the corrected pose
+                return None  # lost at frame t; t+1 relocalises at the next call
+        return self.pose
+
+    def flush(self) -> None:
+        """Finalize the deferred frame of pipelined mode (no-op otherwise, and
+        when called again). Run it before reading the trajectory or state."""
+        prev, self._pending = self._pending, None
+        if prev is not None:
+            self._consume_step(prev, commit_pose=False)
+
+    def _consume_step(self, pending: tuple, commit_pose: bool):
+        """Read + host bookkeeping of one dispatched step. Returns (ok,
+        corrected): ok is False when tracking was lost at this frame;
+        corrected is True when the no-prior fallback replaced the pose (a
+        step chained off the original dispatch must be dispatched again).
+        `commit_pose` makes the step's pose and velocity the tracker's
+        (sync mode; pipelined mode has chained them already)."""
+        (frame, frame_idx, lm_buffer, lidar_map, pose, velocity, packed_i, packed_f,
+         prev_pose) = pending
         packed_i, packed_f = to_host(packed_i, packed_f)
+        corrected = False
         if int(packed_f[13]) < self.cfg.min_inliers_track:  # nA
             # No-prior fallback: descriptor-only match + RANSAC seed, then the
             # whole step again from the seed with zero velocity.
@@ -694,6 +776,7 @@ class Tracker:
                 # the whole motion and the fallback fires again.
                 velocity = se3.local_delta(pose, prev_pose)
                 packed_i, packed_f = to_host(packed_i, packed_f)
+                corrected = True
 
         pose_R_h = packed_f[:9].reshape(3, 3)
         pose_t_h = packed_f[9:12]
@@ -706,18 +789,20 @@ class Tracker:
         if n < self.cfg.min_inliers_local:
             self.state = TrackState.LOST
             self.velocity = torch.zeros(6, device=self.device)
-            return False
+            return False, True
 
         ids = lm_buffer.ids
         mi, mv = packed_i[0], packed_i[1].astype(bool)
         sel = mv & (ids >= 0)
         self.last_lm_ids = np.stack([ids[sel], mi[sel]], axis=-1)
         vis = packed_i[2].astype(bool) & (ids >= 0)
-        self.store.lm_visible[ids[vis]] += 1
-        self.store.lm_found[ids[sel]] += 1
+        with self.map_lock:
+            self.store.lm_visible[ids[vis]] += 1
+            self.store.lm_found[ids[sel]] += 1
 
-        self.velocity = velocity
-        self.pose = pose
+        if commit_pose or corrected:
+            self.velocity = velocity
+            self.pose = pose
         self.state = TrackState.OK
         self.last_inliers = n
         if not self.localization_only and self._need_keyframe(n, tracked_close,
@@ -725,4 +810,4 @@ class Tracker:
             self._insert_keyframe(frame, pose_R_h=pose_R_h, pose_t_h=pose_t_h,
                                   frame_id=frame_idx)
         self._record_trajectory(pose_R_h, pose_t_h, frame_idx=frame_idx)
-        return True
+        return True, corrected

@@ -1,17 +1,40 @@
-"""Host <-> device helpers.
+"""Host <-> device helpers, and the timing and configuration utilities.
 
 Every read of device results by the host goes through `to_host`, which
 counts the reads that wait for the device (`host_reads`): the pipeline's
-host syncs per tracked frame are read off this counter.
+host syncs per tracked frame are read off this counter (from every thread:
+the asynchronous mapping worker's reads count too).
+
+`StageTimer` / `TicToc` (`utils/timing.py`) and `SequenceConfig` /
+`kitti_sequence_config` (`utils/config.py`) are exported lazily, as in the
+JAX package: `config.py` imports the pipeline, which imports this module.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 # Reads that copied device tensors to the host (reset by callers that count).
 host_reads = 0
+_reads_lock = threading.Lock()
+
+_LAZY = {
+    "StageTimer": ".timing",
+    "TicToc": ".timing",
+    "SequenceConfig": ".config",
+    "kitti_sequence_config": ".config",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    raise AttributeError(name)
 
 
 def to_host(*xs):
@@ -19,7 +42,8 @@ def to_host(*xs):
     any of them lies on an accelerator. Returns one array or a tuple."""
     global host_reads
     if any(isinstance(x, torch.Tensor) and x.device.type != "cpu" for x in xs):
-        host_reads += 1
+        with _reads_lock:
+            host_reads += 1
     out = tuple(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
                 for x in xs)
     return out[0] if len(out) == 1 else out

@@ -712,10 +712,11 @@ def test_system_config_converts_with_lidar():
     assert cfg.tracking.lidar_match_dist == J_CFG.tracking.lidar_match_dist
     assert cfg.tracking.lidar_min_map_pts == 100 and cfg.tracking.lidar_map_kfs == 10
     assert convert.system_config(J_CFG._replace(lidar=None)).lidar is None
-    with pytest.raises(NotImplementedError):
-        convert.system_config(J_CFG._replace(async_mapping=True))
-    with pytest.raises(NotImplementedError):
-        convert.system_config(J_CFG._replace(tracking=TrackingConfig(pipelined=True)))
+    # The asynchronous mapping worker and pipelined tracking carry across.
+    assert convert.system_config(J_CFG._replace(async_mapping=True)).async_mapping
+    assert not cfg.async_mapping and not cfg.tracking.pipelined
+    assert convert.system_config(
+        J_CFG._replace(tracking=TrackingConfig(pipelined=True))).tracking.pipelined
 
 
 @pytest.mark.slow

@@ -186,6 +186,14 @@ def test_main_path_imports_no_jax():
         for _, cloud in frames[:2]:
             odo.process(cloud)
         assert odo.num_keyframes >= 1 and odo.last_stats is not None
+
+        # The runner's path: KITTI IO, the native loader, the generator,
+        # long runs, plots, config, timing, the Kalman filter, calibration.
+        import importlib
+        for name in ("run_kitti", "io.kitti", "io.native_loader", "io.png",
+                     "eval.kitti_synth", "eval.longrun", "eval.plot", "utils.config",
+                     "utils.timing", "utils.kalman", "factors.calibration"):
+            importlib.import_module("sqrtlm_slam_tpu_torch." + name)
         loaded = [m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
                   or m == "sqrtlm_slam_tpu" or m.startswith("sqrtlm_slam_tpu.")]
