@@ -113,9 +113,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      re-initialised by the > 5-keyframe rule, reported); (d) `--mode lidar
      --json` as a subprocess (ATE < 0.5 m). Each run prints ms per frame,
      `wall_s`, host reads per frame, the loader and its ms per frame.
+ 16. the flat engine and distributed BA (`flat_and_distributed_phase`, also
+     callable alone): (a) `Optimizer("flat").local_bundle_adjustment` against
+     "bucketed" on the bench problem (96, 8192, 5): chi2 rtol 1e-3,
+     survivors within 0.5%; both against the float64 optimum (the flat
+     engine in float64 on the card; the engines agree to 1e-10 in float64,
+     tests/test_torch_flat.py): bucketed pose_t 5e-3 and landmarks seen from
+     >= 2 cameras 2e-2, flat 0.1 / 0.5 m (it forms W Hll^-1 W^T explicitly
+     in float32); ms per call of each; and the
+     first 10 frames of phase 4 with `LocalMappingConfig(backend="flat")`
+     (every frame tracked, >= 1 local BA, ATE < 0.05 m); (b) the
+     distributed Nielsen LM in process on the bench problem, 15 iterations,
+     Huber 2.447, over 1, 2 and 4 shards on cuda:0, each run twice (bitwise
+     equal), chi2 falling, 2 and 4 shards against 1 within
+     tests/test_dist_ba.py's gates (accepted within 1, chi2 rtol 0.05,
+     pose_t 5e-3, landmarks 2e-2), K2 launched D times per iteration and K3
+     D times per chi2 evaluation, ms per LM iteration; one flat distributed
+     step over 4 shards against the single-device flat step (mu 1e-3;
+     pose_t 5e-4, landmarks 5e-3); (c) `python -m
+     sqrtlm_slam_tpu_torch.parallel.mp_worker` at the JAX dryrun's shape
+     (64, 16384, 4), 6 iterations: 2 processes x 2 shards with gloo on
+     cuda:0, and 1 process x 4 shards with nccl, each against the
+     in-process 4-shard run (the same gates; the one-process run also
+     bitwise), every rank's result bitwise equal, wall seconds and the
+     all-reduce ms per iteration; (d) phase 7's (600, 120000, 7) problem,
+     3 iterations over 4 shards and over 1: chi2 falls, the two within the
+     gates of (b), ms per iteration and peak device memory.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
-path's count, the runner's from run (a)), its
+path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
+first 4-shard run), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
 and the final status line.
@@ -339,7 +366,8 @@ def run_sequence(SlamSystem, cfg, cam, frames, device, time_from: int):
     for img, depth in frames:
         t0 = time.perf_counter()
         pose = system.track_depth(img, depth)
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         tracked += pose is not None
     return system, seconds[time_from:], tracked
@@ -502,6 +530,316 @@ def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") ->
         raise AssertionError(f"runner lidar: ATE {d['ate_rmse_m']} m")
     shutil.rmtree(work, ignore_errors=True)
     return runs
+
+
+def wall_ms(fn, n: int = 3, warm: int = 1) -> float:
+    """Median host time of one call of `fn` in ms, each call ended by a
+    synchronize (for calls of many kernels and host work)."""
+    import torch
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(n):
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        times.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(times))
+
+
+def multi_camera(prob) -> np.ndarray:
+    """(L,) True where a landmark's valid slots hold two or more distinct
+    cameras. A landmark seen from one camera only has no determined depth
+    (the generators give some at a chain's end): its position is compared
+    by chi2 and the survivor gate, not coordinate by coordinate."""
+    cams = np.sort(np.where(prob.obs_valid.cpu().numpy(), prob.obs_cam.cpu().numpy(), -1), 1)
+    distinct = (cams[:, 0] >= 0).astype(int) + (
+        (np.diff(cams, axis=1) != 0) & (cams[:, 1:] >= 0)).sum(1)
+    return distinct >= 2
+
+
+def compare_ba(a, b, multi: np.ndarray) -> dict:
+    """Largest differences of two BA results (poses, landmarks seen from
+    two or more cameras)."""
+    import torch
+
+    sel = torch.as_tensor(multi, device=a.points.device)
+    return dict(
+        pose_t_max_abs=float((a.pose_t - b.pose_t).abs().max()),
+        pose_R_max_abs=float((a.pose_R - b.pose_R).abs().max()),
+        points_max_abs=float((a.points - b.points).abs()[sel].max()),
+    )
+
+
+# Gates of distributed BA against one shard (or against one process):
+# tests/test_dist_ba.py's (accepted within 1, chi2 rtol 0.05, pose_t atol
+# 5e-3, landmarks atol 2e-2); the measured differences are printed beside
+# them.
+DIST_GATES = dict(acc=1, chi2_rtol=5e-2, pose_t=5e-3, points=2e-2)
+
+
+def check_dist(name, got, ref, multi) -> dict:
+    (out, chi2, acc), (out_r, chi2_r, acc_r) = got, ref
+    d = compare_ba(out, out_r, multi)
+    d.update(chi2_rel=abs(float(chi2) - float(chi2_r)) / abs(float(chi2_r)),
+             accepted=[int(acc), int(acc_r)])
+    g = DIST_GATES
+    if (abs(int(acc) - int(acc_r)) > g["acc"] or d["chi2_rel"] > g["chi2_rtol"]
+            or d["pose_t_max_abs"] > g["pose_t"] or d["points_max_abs"] > g["points"]):
+        raise AssertionError(f"{name}: outside the gates {g}: {d}")
+    return d
+
+
+def flat_and_distributed_phase(kitti_frames=None, scale_problem=None,
+                               device: str = "cuda") -> dict:
+    """16. The flat engine and distributed BA on one card: (a) the facade's
+    flat backend against the bucketed one at the bench problem, and the
+    flat backend under the main path (`LocalMappingConfig(backend="flat")`)
+    on the first 10 KITTI-size RGB-D frames of phase 4; (b) the distributed
+    Nielsen LM in process at the bench problem over 1, 2 and 4 shards on
+    one card (each run twice, bitwise), K2 / K3 launches per shard, and
+    one flat distributed step over 4 shards against the single-device flat
+    step; (c) `python -m sqrtlm_slam_tpu_torch.parallel.mp_worker` at the
+    JAX dryrun's shape (P=64, L=16384, K=4): 2 processes x 2 shards with
+    gloo on one card and 1 process x 4 shards with nccl, against (b)'s
+    in-process 4 shards; (d) map scale (phase 7's 600 x 120000 problem),
+    4 shards against 1, 3 iterations. Returns the launches of (b)'s first
+    4-shard run. `device="cpu"` rehearses it without a card (gloo only)."""
+    import socket
+
+    import torch
+    from sqrtlm_slam_tpu_torch.eval import synthetic
+    from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse
+    from sqrtlm_slam_tpu_torch.factors.reprojection import Camera
+    from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch.optim import assembly, facade, schur, schur_bucketed
+    from sqrtlm_slam_tpu_torch.parallel import dist_ba, mp_worker
+    from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMappingConfig
+    from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
+    from sqrtlm_slam_tpu_torch.utils import to_host
+
+    on_card = device == "cuda"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    cam = synthetic.DEFAULT_CAM
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a) The flat engine ---------------------------------------------------
+    flat, _ = synthetic.make_ba_problem(seed=0, P=96, L=8192, stereo_frac=0.6,
+                                        obs_per_landmark=5)
+    prob = schur_bucketed.from_flat(flat, 5, device=dev)
+    multi = multi_camera(prob)
+    chi2_0 = float(schur_bucketed.chi2_only(prob, cam, prob.obs_valid, 2.447))
+    local = {}
+    for backend in ("bucketed", "flat"):
+        opt = facade.Optimizer(backend)
+        out, surv, chi2 = opt.local_bundle_adjustment(prob, cam)
+        sync()
+        ms = wall_ms(lambda: opt.local_bundle_adjustment(prob, cam), n=3)
+        local[backend] = (out, surv, float(chi2), ms)
+    # The float64 optimum: the flat engine (plain PyTorch, no kernel) in
+    # float64 on the same device.
+    f64 = {k: v.double() for k, v in prob._asdict().items() if v.is_floating_point()}
+    ref64 = facade.Optimizer("flat").local_bundle_adjustment(prob._replace(**f64), cam)[0]
+    (ob, sb_, cb, msb), (of, sf, cf, msf) = local["bucketed"], local["flat"]
+    vs64 = {k: compare_ba(o, ref64, multi) for k, o in (("bucketed", ob), ("flat", of))}
+    d = compare_ba(of, ob, multi)
+    d.update(chi2_rel=abs(cf - cb) / cb, survivors_differ=int((sf != sb_).sum()))
+    gates = dict(chi2_rtol=1e-3, survivors_differ=0.005,
+                 bucketed_vs_f64=dict(pose_t=5e-3, points=2e-2),
+                 flat_vs_f64=dict(pose_t=0.1, points=0.5))
+    emit("flat_vs_bucketed_local_ba", shape=[96, 8192, 5], chi2_start_huber=chi2_0,
+         chi2=dict(bucketed=cb, flat=cf), ms_per_call=dict(bucketed=msb, flat=msf),
+         survivors=int(sf.sum()), multi_camera_landmarks=int(multi.sum()),
+         flat_vs_bucketed=d, vs_float64_optimum=vs64, gates=gates,
+         note="float32 engines against the flat engine run in float64 on the card; the "
+              "flat engine forms W Hll^-1 W^T explicitly in float32 and lands cm from "
+              "the float64 optimum on this 96-pose chain, the square-root bucketed one "
+              "does not; ms = host time of one call to a synchronize")
+    g64b, g64f = gates["bucketed_vs_f64"], gates["flat_vs_f64"]
+    if (d["chi2_rel"] > gates["chi2_rtol"]
+            or d["survivors_differ"] > gates["survivors_differ"] * sf.numel()
+            or vs64["bucketed"]["pose_t_max_abs"] > g64b["pose_t"]
+            or vs64["bucketed"]["points_max_abs"] > g64b["points"]
+            or vs64["flat"]["pose_t_max_abs"] > g64f["pose_t"]
+            or vs64["flat"]["points_max_abs"] > g64f["points"]):
+        raise AssertionError(f"flat / bucketed local BA outside the gates {gates}: {d}, "
+                             f"{vs64}")
+    del ref64
+
+    kcam = Camera(**KITTI_INTRINSICS)
+    if kitti_frames is None:
+        world = synthetic.SyntheticWorld(seed=1, n_points=3000)
+        poses = synthetic.forward_trajectory(16, step=0.3)[:10]
+        kitti_frames = [(world.render(T, kcam, H=KITTI_H, W=KITTI_W), T) for T in poses]
+    cfg = SystemConfig(orb=ORBConfig(max_features=2000),
+                       local_mapping=LocalMappingConfig(backend="flat"))
+    system, secs, tracked = run_sequence(SlamSystem, cfg, kcam, [f for f, _ in kitti_frames],
+                                         dev, time_from=3)
+    ate, _ = ate_rmse(system.get_trajectory(), gt_cam_to_world([T for _, T in kitti_frames]),
+                      align_scale=False)
+    rec = dict(frames=len(kitti_frames), tracked=tracked, keyframes=system.num_keyframes(),
+               local_ba=system.local_mapper.num_local_ba, ate_m=ate,
+               median_ms=1e3 * float(np.median(secs)))
+    emit("flat_backend_kitti_rgbd", **rec)
+    if tracked != len(kitti_frames) or rec["local_ba"] < 1 or not ate < 0.05:
+        raise AssertionError(f"flat backend on the KITTI-size frames: {rec}")
+    del system
+
+    # (b) Distributed LM in one process ---------------------------------------
+    iters = 15
+    runs, launches = {}, None
+    for D in (1, 2, 4):
+        mesh = dist_ba.make_mesh(D, dev)
+        reps = []
+        for _ in range(2):
+            assembly.launch_count = assembly.chi2_launch_count = 0
+            sync()
+            t0 = time.perf_counter()
+            res = dist_ba.distributed_ba_lm(prob, cam, mesh, num_iters=iters, robust_delta=2.447)
+            sync()
+            reps.append((res, time.perf_counter() - t0, assembly.launch_count,
+                         assembly.chi2_launch_count))
+        (r1, s1, k2, k3), (r2, s2, _, _) = reps
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            (r1[0].pose_R, r1[0].pose_t, r1[0].points, r1[1], r1[2]),
+            (r2[0].pose_R, r2[0].pose_t, r2[0].points, r2[1], r2[2])))
+        runs[D] = r1
+        rec = dict(shards=D, iters=iters, chi2_start=chi2_0, chi2=float(r1[1]),
+                   accepted=int(r1[2]), rerun_bitwise_equal=bitwise,
+                   ms_per_iter=1e3 * min(s1, s2) / iters, launches=dict(ba_assembly=k2,
+                                                                         ba_chi2=k3))
+        if D > 1:
+            rec["vs_one_shard"] = check_dist(f"distributed LM, {D} shards", r1, runs[1], multi)
+        emit("dist_ba_lm_in_process", shape=[96, 8192, 5], **rec)
+        if not (float(r1[1]) < chi2_0 and bitwise):
+            raise AssertionError(f"distributed LM over {D} shards: {rec}")
+        if on_card and (k2 != D * iters or k3 != D * (iters + 1)):
+            raise AssertionError(f"distributed LM over {D} shards launched K2 {k2} / K3 {k3} "
+                                 f"times, expected {D * iters} / {D * (iters + 1)}")
+        if D == 4:
+            launches = dict(ba_assembly=k2, ba_chi2=k3)
+    # One flat step (tests/test_dist_ba.py's mu and gates), beside the float32
+    # error of the single-device step itself (against it in float64).
+    tf = facade.bucketed_to_flat(prob)
+    mu = 1e-3
+    out4, _ = dist_ba.distributed_ba(tf, cam, dist_ba.make_mesh(4, dev), num_iters=1, mu=mu)
+    ne = schur.build_normal_equations(tf, cam, tf.obs_valid, None)
+    dxp, dxl = schur.reduce_and_solve(*ne[:5], tf.pose_fixed, tf.point_valid,
+                                      torch.tensor(mu, device=dev))
+    dxp64, _ = schur.reduce_and_solve(*[x.double() for x in ne[:5]], tf.pose_fixed,
+                                      tf.point_valid, torch.tensor(mu, device=dev,
+                                                                   dtype=torch.float64))
+    ref = schur_bucketed._apply_update(tf, dxp, dxl)
+    d = compare_ba(out4, ref, multi)
+    emit("dist_ba_flat_step", shape=[96, 8192, 5], shards=4, mu=mu, **d,
+         single_device_f32_vs_f64_pose_step_max_abs=float((dxp.double() - dxp64).abs().max()),
+         gates=dict(pose_t=5e-4, points=5e-3))
+    if d["pose_t_max_abs"] > 5e-4 or d["points_max_abs"] > 5e-3:
+        raise AssertionError(f"flat distributed step off the single-device step: {d}")
+    del prob, tf, ne, runs
+
+    # (c) Across processes (mp_worker) ----------------------------------------
+    P, L, K, mp_iters = 64, 16384, 4, 6
+    flat64, _ = synthetic.make_ba_problem(seed=0, P=P, L=L, obs_per_landmark=K)
+    b64 = schur_bucketed.from_flat(flat64, K, device=dev)
+    multi64 = multi_camera(b64)
+    ref = dist_ba.distributed_ba_lm(b64, cam, dist_ba.make_mesh(4, dev), num_iters=mp_iters)
+    ref_digest = mp_worker.result_digest(*to_host(ref[0].pose_R, ref[0].pose_t, ref[0].points,
+                                                  ref[1]))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    configs = (("2 processes x 2 shards", 2, 2, "gloo"),
+               ("1 process x 4 shards", 1, 4, "nccl" if on_card else "gloo"))
+    for name, nproc, spp, backend in configs:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        os.makedirs(os.path.join(here, "build"), exist_ok=True)
+        out_path = os.path.join(here, "build", f"mp_{nproc}x{spp}.npz")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "sqrtlm_slam_tpu_torch.parallel.mp_worker",
+             "--coordinator", f"localhost:{port}", "--nproc", str(nproc), "--pid", str(pid),
+             "--shards-per-proc", str(spp), "--device", device, "--backend", backend,
+             "--poses", str(P), "--landmarks", str(L), "--obs-per-lm", str(K),
+             "--iters", str(mp_iters), "--seed", "0", "--out", out_path],
+            cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(nproc)]
+        results = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    raise AssertionError(f"mp_worker ({name}) failed:\n{err[-3000:]}")
+                results.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        process_s = time.perf_counter() - t0
+        got = np.load(out_path)
+        os.remove(out_path)
+        mp_out = schur_bucketed.BucketedBAProblem(*ref[0])._replace(
+            pose_R=torch.as_tensor(got["pose_R"], device=dev),
+            pose_t=torch.as_tensor(got["pose_t"], device=dev),
+            points=torch.as_tensor(got["points"], device=dev))
+        d = check_dist(f"mp_worker {name}", (mp_out, float(got["chi2"]), int(got["n_acc"])),
+                       ref, multi64)
+        digests = {r["digest"] for r in results}
+        rec = dict(config=name, backend=backend, shape=[P, L, K], iters=mp_iters,
+                   ranks_bitwise_equal=len(digests) == 1,
+                   bitwise_equal_to_in_process=digests == {ref_digest},
+                   wall_s=[r["wall_s"] for r in results],
+                   allreduce_ms_per_iter=[r["allreduce_ms_per_iter"] for r in results],
+                   devices=[r["device"] for r in results], processes_s=process_s,
+                   vs_in_process_4_shards=d)
+        emit("dist_ba_multiprocess", **rec)
+        if len(digests) != 1:
+            raise AssertionError(f"mp_worker {name}: ranks differ: {results}")
+    del b64, ref
+
+    # (d) Map scale -----------------------------------------------------------
+    if scale_problem is None:
+        from sqrtlm_slam_tpu_torch.eval.scale import make_scale_store
+        from sqrtlm_slam_tpu_torch.loop.closing import gather_global_problem_bucketed
+
+        store, _, _ = make_scale_store(n_kf=600, n_lm=120_000, obs_per_lm=5, drift=4e-4)
+        scale_problem = gather_global_problem_bucketed(store, "cpu")[0]
+        del store
+    big = schur_bucketed.BucketedBAProblem(*[t.to(dev) for t in scale_problem])
+    multi_s = multi_camera(big)
+    chi2_s0 = float(schur_bucketed.chi2_only(big, cam, big.obs_valid, 2.447))
+    scale = {}
+    for D in (4, 1):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        res = dist_ba.distributed_ba_lm(big, cam, dist_ba.make_mesh(D, dev), num_iters=3,
+                                        robust_delta=2.447)
+        sync()
+        scale[D] = res
+        rec = dict(shards=D, shape=[big.num_poses, *big.obs_cam.shape], iters=3,
+                   chi2_start=chi2_s0, chi2=float(res[1]), accepted=int(res[2]),
+                   ms_per_iter=1e3 * (time.perf_counter() - t0) / 3,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None)
+        if D == 1:
+            rec["four_vs_one_shard"] = check_dist("map scale, 4 shards", scale[4], res, multi_s)
+        emit("dist_ba_map_scale", **rec)
+        if not float(res[1]) < chi2_s0:
+            raise AssertionError(f"map scale over {D} shards: chi2 did not fall: {rec}")
+    del big, scale
+    return launches
 
 
 def main() -> None:
@@ -734,6 +1072,8 @@ def main() -> None:
     store, true_R, true_t = make_scale_store(n_kf=600, n_lm=120_000, obs_per_lm=5,
                                              drift=4e-4)
     build_store_s = time.perf_counter() - t0
+    # Phase 16's map-scale problem: the drifted store, kept on the host.
+    scale_problem = gather_global_problem_bucketed(store, "cpu")[0]
     k3 = {}
     k3_err = 0.0
     for P, L, K in ((96, 8192, 5), (600, 120000, 7), (1400, 60000, 7), (6000, 60000, 7)):
@@ -1353,6 +1693,11 @@ def main() -> None:
     runner = kitti_runner_phase(street=street)
     runner_launches = runner["sync"]["launches"]
 
+    # 16. The flat engine and distributed BA --------------------------------
+    dist_launches = flat_and_distributed_phase(
+        kitti_frames=list(zip(frames[:10], poses[:10])), scale_problem=scale_problem)
+    del scale_problem
+
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by") + keys}
@@ -1379,7 +1724,8 @@ def main() -> None:
                                    ring_loop=loop_launches["ba_assembly"],
                                    stereo=stereo_launches["ba_assembly"],
                                    mono=mono_launches["ba_assembly"],
-                                   kitti_runner=runner_launches["ba_assembly"]),
+                                   kitti_runner=runner_launches["ba_assembly"],
+                                   dist_ba=dist_launches["ba_assembly"]),
              max_abs_err=k2_err,
              **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",
@@ -1388,7 +1734,8 @@ def main() -> None:
              launches=loop_launches["ba_chi2"],
              launches_by_path=dict(gba_at_scale=gba_launches["ba_chi2"],
                                    ring_loop=loop_launches["ba_chi2"],
-                                   kitti_runner=runner_launches["ba_chi2"]),
+                                   kitti_runner=runner_launches["ba_chi2"],
+                                   dist_ba=dist_launches["ba_chi2"]),
              max_abs_err=k3_err,
              **timed(k3[(600, 120000, 7, 2.447)]), library_ms=None),
     ]

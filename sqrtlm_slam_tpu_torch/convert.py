@@ -22,7 +22,9 @@ from .lidar.odometry import LocalMap
 from .lidar.voxel_map import VoxelMap
 from .loop.closing import LoopClosingConfig
 from .loop.essential_graph import PoseGraphProblem
+from .optim.schur import BAProblem
 from .optim.schur_bucketed import BucketedBAProblem, bucketed_from_numpy
+from .parallel.dist_ba import ShardedBAProblem, ShardedBucketedBA
 from .pipeline.frame import Frame
 from .pipeline.local_mapping import LocalMappingConfig
 from .pipeline.system import SystemConfig
@@ -114,6 +116,27 @@ def frame(fr, device="cpu") -> Frame:
 
 def ba_problem(prob, device="cpu") -> BucketedBAProblem:
     return bucketed_from_numpy({k: np.asarray(v) for k, v in prob._asdict().items()}, device)
+
+
+_BA_DTYPES = {"pose_fixed": torch.bool, "pose_valid": torch.bool, "point_valid": torch.bool,
+              "obs_cam": torch.int32, "obs_pt": torch.int32, "obs_valid": torch.bool}
+
+
+def flat_ba_problem(prob, device="cpu") -> BAProblem:
+    """The flat (E,) problem of `optim/schur.py`, as tensors."""
+    src = prob._asdict()
+    return BAProblem(**{k: _t(src[k], device, _BA_DTYPES.get(k)) for k in BAProblem._fields})
+
+
+def sharded_ba_problem(sp) -> ShardedBAProblem:
+    """A JAX sharded flat problem as the port's partitioner lays it out
+    (host numpy, leading shard axis)."""
+    return ShardedBAProblem(**{k: np.asarray(v) for k, v in sp._asdict().items()})
+
+
+def sharded_bucketed(sp) -> ShardedBucketedBA:
+    """A JAX sharded bucketed problem in the port's host layout."""
+    return ShardedBucketedBA(**{k: np.asarray(v) for k, v in sp._asdict().items()})
 
 
 def vocabulary(voc, device="cpu") -> Vocabulary:

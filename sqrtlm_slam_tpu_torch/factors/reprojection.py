@@ -34,6 +34,10 @@ class Camera(NamedTuple):
         return torch.stack([u, v], dim=-1)
 
 
+def transform_points(T_cw: se3.SE3, X_w: torch.Tensor) -> torch.Tensor:
+    return se3.act(T_cw, X_w)
+
+
 def _pose_chain(x_c: torch.Tensor) -> torch.Tensor:
     """d x_c / d delta for the left-mult update: (..., 3, 6) = [I | -hat(x_c)]."""
     eye = torch.eye(3, dtype=x_c.dtype, device=x_c.device).expand(x_c.shape[:-1] + (3, 3))
@@ -77,3 +81,18 @@ def stereo_residual_jac(
     row_r = torch.stack([cam.fx * iz, zero, -cam.fx * x * iz2 + cam.bf * iz2], dim=-1)
     dproj = torch.stack([row_u, row_v, row_r], dim=-2)
     return r, dproj @ _pose_chain(x_c), dproj @ T_cw.R
+
+
+def depth_residual_jac(
+    T_cw: se3.SE3, X_w: torch.Tensor, inv_uvd_obs: torch.Tensor, cam: Camera
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(u, v, depth) observation variant (RGB-D direct depth):
+    (r (...,3), J_pose (...,3,6), J_point (...,3,3)), the depth row
+    ``z - d_obs``."""
+    x_c = se3.act(T_cw, X_w)
+    r = torch.cat([cam.project(x_c) - inv_uvd_obs[..., :2],
+                   x_c[..., 2:] - inv_uvd_obs[..., 2:]], dim=-1)
+    _, _, _, _, zero, row_u, row_v = _proj_rows(cam, x_c)
+    row_z = torch.stack([zero, zero, torch.ones_like(zero)], dim=-1)
+    dfull = torch.stack([row_u, row_v, row_z], dim=-2)
+    return r, dfull @ _pose_chain(x_c), dfull @ T_cw.R

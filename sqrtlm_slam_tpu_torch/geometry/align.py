@@ -53,3 +53,12 @@ def se3_horn(src: torch.Tensor, dst: torch.Tensor, weights=None) -> SE3:
     """Rigid (scale = 1) Horn alignment, returned as SE3."""
     S = umeyama(src, dst, weights=weights, with_scale=False)
     return SE3(S.R, S.t)
+
+
+def ate_rmse(est_xyz: torch.Tensor, gt_xyz: torch.Tensor, align_scale: bool = True):
+    """Absolute trajectory error RMSE of (N, 3) positions after Sim3 (or SE3)
+    alignment (`evo_ape ... -as`). Returns (rmse, aligned estimate)."""
+    S = umeyama(est_xyz, gt_xyz, with_scale=align_scale)
+    aligned = S.s * est_xyz @ S.R.T + S.t
+    err = aligned - gt_xyz
+    return torch.sqrt(torch.mean(torch.sum(err * err, dim=-1))), aligned

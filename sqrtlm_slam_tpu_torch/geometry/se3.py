@@ -30,6 +30,20 @@ def identity(
     return SE3(R, t)
 
 
+def from_matrix(T: torch.Tensor) -> SE3:
+    return SE3(T[..., :3, :3], T[..., :3, 3])
+
+
+def rt_to_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R (..., 3, 3), t (..., 3)) -> homogeneous (..., 4, 4)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
 def exp(xi: torch.Tensor) -> SE3:
     """Exponential map se(3) -> SE(3). ``xi = [rho, phi]`` of shape (..., 6)."""
     rho, phi = xi[..., :3], xi[..., 3:]
@@ -73,3 +87,25 @@ def retract(T: SE3, delta: torch.Tensor) -> SE3:
 def local_delta(T_new: SE3, T_ref: SE3) -> torch.Tensor:
     """Inverse of `retract`: log(T_new ∘ T_ref^{-1})."""
     return log(compose(T_new, inverse(T_ref)))
+
+
+def adjoint(T: SE3) -> torch.Tensor:
+    """SE(3) adjoint: (..., 6, 6) mapping tangent vectors between frames."""
+    A = torch.zeros(T.t.shape[:-1] + (6, 6), dtype=T.R.dtype, device=T.R.device)
+    A[..., :3, :3] = T.R
+    A[..., 3:, 3:] = T.R
+    A[..., :3, 3:] = so3.hat(T.t) @ T.R
+    return A
+
+
+def normalize(T: SE3) -> SE3:
+    return SE3(so3.normalize(T.R), T.t)
+
+
+def to_quat_trans(T: SE3) -> torch.Tensor:
+    """Pack to 7-vector [tx, ty, tz, qw, qx, qy, qz] (compact storage)."""
+    return torch.cat([T.t, so3.mat_to_quat(T.R)], dim=-1)
+
+
+def from_quat_trans(v: torch.Tensor) -> SE3:
+    return SE3(so3.quat_to_mat(v[..., 3:]), v[..., :3])

@@ -26,6 +26,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of `hat`: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _eye_like(W: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
 
@@ -90,6 +95,28 @@ def left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     W2 = W @ W
     return _eye_like(W) - 0.5 * W + k[..., None, None] * W2
+
+
+def normalize(R: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalize a rotation matrix by Gram-Schmidt on its first two
+    columns (drift correction after long chains of composes)."""
+    x = R[..., :, 0]
+    y = R[..., :, 1]
+    x = x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=_EPS)
+    y = y - torch.sum(x * y, dim=-1, keepdim=True) * x
+    y = y / torch.clamp(torch.linalg.norm(y, dim=-1, keepdim=True), min=_EPS)
+    return torch.stack([x, y, torch.linalg.cross(x, y, dim=-1)], dim=-1)
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) [w, x, y, z] -> rotation matrix (..., 3, 3)."""
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
 
 
 def mat_to_quat(R: torch.Tensor) -> torch.Tensor:

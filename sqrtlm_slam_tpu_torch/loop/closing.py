@@ -36,7 +36,7 @@ from ..factors.reprojection import Camera
 from ..frontend import matching, vocab
 from ..geometry import se3, sim3
 from ..mapstore import MapStore
-from ..optim import schur_bucketed
+from ..optim import schur, schur_bucketed
 from ..utils import desc_to_torch, to_host
 from . import essential_graph, sim3_solver
 from .database import KeyFrameDatabase
@@ -804,6 +804,63 @@ class LoopCloser:
 # ----------------------------------------------------------------------
 # Whole-map problem gather / write-back
 # ----------------------------------------------------------------------
+
+
+def gather_global_problem(store: MapStore, device="cuda"):
+    """All valid KFs + landmarks -> flat `schur.BAProblem` on `device` (the
+    edge list of the store's per-landmark observation table). Returns
+    (problem, meta) with meta = (kf_ids, lm_ids, edge keyframe, edge
+    landmark slot, edge keypoint)."""
+    K = store.num_kf
+    Lc = store.num_lm
+    kf_ids = np.where(store.kf_valid[:K])[0]
+    lm_ids = np.where(store.lm_valid[:Lc] & (store.lm_n_obs[:Lc] > 0))[0]
+    kf_slot = np.full(K, -1, np.int32)
+    kf_slot[kf_ids] = np.arange(len(kf_ids), dtype=np.int32)
+
+    li = np.repeat(np.arange(len(lm_ids), dtype=np.int32), store.obs_per_landmark)
+    kfs = store.lm_obs_kf[lm_ids].reshape(-1)
+    kps = store.lm_obs_idx[lm_ids].reshape(-1)
+    ok = (kfs >= 0) & (kfs < K)
+    ok[ok] &= kf_slot[kfs[ok]] >= 0
+    li, kfs, kps = li[ok], kfs[ok], kps[ok]
+    P = len(kf_ids)
+    has_lm, has_e = len(lm_ids) > 0, len(li) > 0
+    arrays = dict(
+        pose_R=store.kf_R[kf_ids], pose_t=store.kf_t[kf_ids],
+        pose_fixed=np.arange(P) == 0,  # gauge: first KF
+        pose_valid=np.ones(P, bool),
+        points=store.lm_pos[lm_ids] if has_lm else np.zeros((1, 3), np.float32),
+        point_valid=np.ones(len(lm_ids), bool) if has_lm else np.zeros(1, bool),
+        obs_cam=kf_slot[kfs] if has_e else np.zeros(1, np.int32),
+        obs_pt=li if has_e else np.zeros(1, np.int32),
+        obs_uvr=store.kf_uvr[kfs, kps] if has_e else np.full((1, 3), -1.0, np.float32),
+        obs_inv_sigma2=(1.0 / 1.2 ** (2 * store.kf_octave[kfs, kps])) if has_e
+        else np.ones(1, np.float32),
+        obs_valid=np.ones(len(li), bool) if has_e else np.zeros(1, bool),
+    )
+    dtypes = dict(pose_fixed=torch.bool, pose_valid=torch.bool, point_valid=torch.bool,
+                  obs_cam=torch.int32, obs_pt=torch.int32, obs_valid=torch.bool)
+    problem = schur.BAProblem(**{
+        k: torch.as_tensor(np.array(v), device=device).to(dtypes.get(k, torch.float32))
+        for k, v in arrays.items()})
+    return problem, (kf_ids, lm_ids, kfs, li, kps)
+
+
+def write_back_global(store: MapStore, out: schur.BAProblem, survivors, meta):
+    """Flat GBA result -> store: free poses, landmark positions, and the
+    observations that failed the survivor gate are erased."""
+    kf_ids, lm_ids, e_kf, e_lm_slot, _ = meta
+    new_R, new_t, fixed, points, surv = to_host(out.pose_R, out.pose_t, out.pose_fixed,
+                                                out.points, survivors)
+    for i, k in enumerate(kf_ids):
+        if not fixed[i]:
+            store.set_kf_pose(int(k), new_R[i], new_t[i])
+    if len(lm_ids):
+        store.lm_pos[lm_ids] = points[: len(lm_ids)]
+        store.version += 1
+    for j in np.where(~surv[: len(e_kf)])[0]:
+        store.erase_observation(int(lm_ids[e_lm_slot[j]]), int(e_kf[j]))
 
 
 def gather_global_problem_bucketed(store: MapStore, device="cuda"):

@@ -1,11 +1,16 @@
 """Optimizer facade — counterpart of `sqrtlm_slam_tpu/optim/facade.py`.
 
-Two backends are ported: ``"bucketed"`` (the sqrt-Schur engine with kernel
-K2) and ``"cg"`` (matrix-free Schur + block-Jacobi PCG, kernels K2 and K3).
-``"flat"`` raises `NotImplementedError`: the flat engine's role as an
-independent cross-check is taken by the JAX reference. Global BA runs on
-the matrix-free engine for every backend, as in the JAX package; the
-essential graph and the Sim3 refinement are backend-independent.
+Three backends, selected per instance:
+  * ``"bucketed"`` (default): the landmark-bucketed sqrt-Schur engine with
+    kernel K2 (`optim/schur_bucketed.py`);
+  * ``"flat"``: the flat-edge dense-W Schur engine (`optim/schur.py`, plain
+    PyTorch), the independently written engine the bucketed one is held
+    against; it takes the bucketed problem flattened (`bucketed_to_flat`)
+    and returns the bucketed layout;
+  * ``"cg"``: matrix-free Schur + block-Jacobi PCG (kernels K2 and K3).
+Global BA runs on the matrix-free engine for "bucketed" and "cg" and on the
+flat engine for "flat", as in the JAX package; the essential graph and the
+Sim3 refinement are backend-independent.
 """
 
 from __future__ import annotations
@@ -15,9 +20,31 @@ import math
 import torch
 
 from . import loss as losses
-from . import pose_opt, schur_bucketed
+from . import pose_opt, schur, schur_bucketed
 
 BACKENDS = ("bucketed", "flat", "cg")
+
+
+def bucketed_to_flat(problem: schur_bucketed.BucketedBAProblem) -> schur.BAProblem:
+    """Flatten a (L, K)-bucketed problem to the flat (E,) edge layout: edge
+    l * K + k is slot (l, k)."""
+    L, K = problem.obs_cam.shape
+    obs_pt = torch.arange(L, dtype=torch.int32, device=problem.obs_cam.device)
+    return schur.BAProblem(
+        pose_R=problem.pose_R, pose_t=problem.pose_t, pose_fixed=problem.pose_fixed,
+        pose_valid=problem.pose_valid, points=problem.points,
+        point_valid=problem.point_valid, obs_cam=problem.obs_cam.reshape(-1),
+        obs_pt=obs_pt.repeat_interleave(K), obs_uvr=problem.obs_uvr.reshape(L * K, 3),
+        obs_inv_sigma2=problem.obs_inv_sigma2.reshape(-1),
+        obs_valid=problem.obs_valid.reshape(-1),
+    )
+
+
+def _writeback_bucketed(problem: schur_bucketed.BucketedBAProblem, flat: schur.BAProblem,
+                        survivors):
+    """Fold flat-engine results back into the bucketed layout."""
+    out = problem._replace(pose_R=flat.pose_R, pose_t=flat.pose_t, points=flat.points)
+    return out, survivors.reshape(problem.obs_cam.shape)
 
 
 class Optimizer:
@@ -26,11 +53,6 @@ class Optimizer:
     def __init__(self, backend: str = "bucketed"):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")
-        if backend == "flat":
-            raise NotImplementedError(
-                "backend 'flat' is not ported (ROADMAP queue 1: the flat-edge dense-W "
-                "engine; the JAX package is the independent cross-check)"
-            )
         self.backend = backend
 
     def pose_optimization(self, pose0, obs: pose_opt.VisualObs, cam, **kwargs):
@@ -39,6 +61,11 @@ class Optimizer:
     def local_bundle_adjustment(self, problem: schur_bucketed.BucketedBAProblem, cam,
                                 first_iters: int = 5, second_iters: int = 10):
         """Two-phase local BA. Returns (problem, survivors (L, K) bool, chi2)."""
+        if self.backend == "flat":
+            out, survivors, stats = schur.local_ba(bucketed_to_flat(problem), cam,
+                                                   first_iters=first_iters,
+                                                   second_iters=second_iters)
+            return (*_writeback_bucketed(problem, out, survivors), stats.chi2)
         if self.backend == "cg":
             return _local_ba_cg(problem, cam, first_iters, second_iters)
         return schur_bucketed.local_ba(problem, cam, first_iters=first_iters,
@@ -46,8 +73,13 @@ class Optimizer:
 
     def global_bundle_adjustment(self, problem: schur_bucketed.BucketedBAProblem, cam,
                                  num_iters: int = 20):
-        """Whole-map BA, `num_iters` robust iterations on the matrix-free
-        engine. Returns (problem, survivors, chi2)."""
+        """Whole-map BA, `num_iters` robust iterations (the flat engine for
+        "flat", the matrix-free one otherwise). Returns (problem, survivors,
+        chi2)."""
+        if self.backend == "flat":
+            out, survivors, stats = schur.global_ba(bucketed_to_flat(problem), cam,
+                                                    num_iters=num_iters)
+            return (*_writeback_bucketed(problem, out, survivors), stats.chi2)
         return schur_bucketed.global_ba_cg(problem, cam, num_iters=num_iters)
 
     def optimize_essential_graph(self, problem, num_iters: int = 20, **kwargs):

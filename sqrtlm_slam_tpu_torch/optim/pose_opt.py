@@ -113,7 +113,7 @@ def optimize_pose(pose0: se3.SE3, obs: VisualObs, cam: reproj.Camera,
             H, b, chi2, _ = _visual_system(p, obs, cam, _active, _delta)
             return H, b, chi2
 
-        pose = lm_optimize(pose, system_fn, num_iters=iters_per_round)
+        pose = lm_optimize(pose, system_fn, num_iters=iters_per_round).params
         _, _, _, e2 = _visual_system(pose, obs, cam, obs.valid, None)
         active = obs.valid & (e2 <= gate)
 
@@ -123,7 +123,7 @@ def optimize_pose(pose0: se3.SE3, obs: VisualObs, cam: reproj.Camera,
             Hl, bl, c2l = _lidar_system(p, lidar_obs)
             return Hv + Hl, bv + bl, c2v + c2l
 
-        pose = lm_optimize(pose, fused_system, num_iters=lidar_iters)
+        pose = lm_optimize(pose, fused_system, num_iters=lidar_iters).params
 
     # Final classification over the full valid mask (see the JAX package).
     _, _, chi2, e2 = _visual_system(pose, obs, cam, obs.valid, None)

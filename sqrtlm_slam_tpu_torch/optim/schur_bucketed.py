@@ -41,8 +41,9 @@ from . import segment
 
 
 class BAProblem(NamedTuple):
-    """Flat (E,) edge-list BA problem: the container `from_flat` consumes
-    (numpy or tensor fields)."""
+    """Flat (E,) edge-list BA problem (numpy or tensor fields): the flat
+    engine's container (`schur.BAProblem` is this class) and what
+    `from_flat` consumes."""
 
     pose_R: object  # (P, 3, 3)
     pose_t: object  # (P, 3)
@@ -55,6 +56,17 @@ class BAProblem(NamedTuple):
     obs_uvr: object  # (E, 3)
     obs_inv_sigma2: object  # (E,)
     obs_valid: object  # (E,) bool
+
+    @property
+    def num_poses(self):
+        return self.pose_R.shape[0]
+
+    @property
+    def num_points(self):
+        return self.points.shape[0]
+
+    def poses(self) -> se3.SE3:
+        return se3.SE3(self.pose_R, self.pose_t)
 
 
 class BucketedBAProblem(NamedTuple):
@@ -264,6 +276,20 @@ def _pieces_tail(problem: BucketedBAProblem, Hll, bl, U, Hpp, bp, chi2, mu) -> L
                        Minv=Minv, bl=bl)
 
 
+def build_local_pieces(problem: BucketedBAProblem, cam: reproj.Camera, active, robust_delta,
+                       mu, groups: Optional[segment.KeyGroups] = None) -> LocalPieces:
+    """Everything of one damped step up to the pose solve: K2's reductions
+    (its plain version on the CPU) and the sqrt-Schur tail. This is what
+    each shard of distributed BA computes. `groups` as in `assemble`."""
+    red = assemble(problem, cam, active, robust_delta, groups)
+    return _pieces_tail(problem, *red, mu)
+
+
+def pieces_from_terms(problem: BucketedBAProblem, terms, mu) -> LocalPieces:
+    """The same pieces from precomputed edge terms (r, Jp, Jl, w, chi2)."""
+    return _pieces_tail(problem, *reductions_from_terms(problem, terms), mu)
+
+
 def solve_pose_system(S: torch.Tensor, rhs: torch.Tensor, pose_fixed: torch.Tensor):
     """Gauge-fix + dense Cholesky solve of the reduced camera system.
     `cholesky_ex` does not read its info flag back: no host sync."""
@@ -321,6 +347,14 @@ def _step(prob: BucketedBAProblem, red: assembly.AssemblyOut, mu):
     dxp = torch.where(prob.pose_fixed[:, None], torch.zeros_like(dxp), dxp)
     dxl = back_substitute(pieces, prob, dxp)
     return dxp, dxl, red.bp, red.bl
+
+
+def reduce_and_solve(problem: BucketedBAProblem, cam: reproj.Camera, active, robust_delta,
+                     mu):
+    """One damped-GN step. Returns (dxp (P,6), dxl (L,3), chi2, bp, bl)."""
+    red = assemble(problem, cam, active, robust_delta)
+    dxp, dxl, bp, bl = _step(problem, red, mu)
+    return dxp, dxl, red.chi2, bp, bl
 
 
 def _ba_iterate_core(problem: BucketedBAProblem, reduce_fn, num_iters: int):

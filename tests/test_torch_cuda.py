@@ -23,7 +23,8 @@ from sqrtlm_slam_tpu_torch.lidar import voxel_map
 from sqrtlm_slam_tpu_torch.loop import closing
 from sqrtlm_slam_tpu_torch.loop.sim3_solver import minimal_sets
 from sqrtlm_slam_tpu_torch.ops import hamming
-from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
+from sqrtlm_slam_tpu_torch.optim import assembly, facade, schur_bucketed
+from sqrtlm_slam_tpu_torch.parallel import dist_ba
 from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
 from sqrtlm_slam_tpu_torch.utils import desc_to_torch
 
@@ -116,6 +117,51 @@ def test_ba_iterate_on_card_tracks_cpu(cuda_device):
     assert abs(a0 - a1) <= 1
     np.testing.assert_allclose(c1, c0, rtol=5e-2)
     np.testing.assert_allclose(t1, t0, rtol=5e-2, atol=5e-2)
+
+
+def test_flat_local_ba_on_card_tracks_cpu(cuda_device):
+    """The flat backend (plain PyTorch, fixed-order keyed sums) through the
+    facade on the card against the CPU: chi2 within 5e-2 relative, poses
+    within 5e-2, survivors within 0.5%; two runs on the card bitwise equal."""
+    flat, _ = make_ba_problem(seed=2, P=16, L=1024, stereo_frac=0.6, obs_per_landmark=4)
+    results = []
+    for dev in ("cpu", cuda_device, cuda_device):
+        prob = schur_bucketed.from_flat(flat, 4, device=dev)
+        out, surv, chi2 = facade.Optimizer("flat").local_bundle_adjustment(prob, DEFAULT_CAM)
+        results.append((float(chi2), out.pose_t.cpu().numpy(), out.points.cpu().numpy(),
+                        surv.cpu().numpy()))
+    (c0, t0, p0, s0), (c1, t1, p1, s1), (c2, t2, p2, s2) = results
+    assert c1 == c2 and np.array_equal(t1, t2) and np.array_equal(p1, p2)
+    np.testing.assert_allclose(c1, c0, rtol=5e-2)
+    np.testing.assert_allclose(t1, t0, rtol=5e-2, atol=5e-2)
+    assert (s0 != s1).sum() <= 0.005 * s0.size
+
+
+def test_distributed_lm_on_card_four_shards_track_one(cuda_device):
+    """Distributed LM with 1 and 4 shards on one card: K2 launches once per
+    shard per iteration and K3 once per shard per chi2 evaluation; 4 shards
+    against 1 within tests/test_dist_ba.py's LM gates (accepted within 1,
+    chi2 rtol 5e-2, pose_t atol 5e-3, points 2e-2: the card's float32 sums
+    in another order move far landmarks by ~2e-3); a rerun bitwise equal."""
+    flat, _ = make_ba_problem(seed=0, P=24, L=2048, stereo_frac=0.6, obs_per_landmark=5)
+    prob = schur_bucketed.from_flat(flat, 5, device=cuda_device)
+    iters, res = 6, {}
+    for D in (1, 4, 4):
+        k2, k3 = assembly.launch_count, assembly.chi2_launch_count
+        mesh = dist_ba.make_mesh(D, cuda_device)
+        out, chi2, acc = dist_ba.distributed_ba_lm(prob, DEFAULT_CAM, mesh, num_iters=iters,
+                                                   robust_delta=2.447)
+        torch.cuda.synchronize()
+        assert assembly.launch_count - k2 == D * iters
+        assert assembly.chi2_launch_count - k3 == D * (iters + 1)
+        res.setdefault(D, []).append((out, chi2, acc))
+    (o1, c1, a1), = res[1]
+    (o4, c4, a4), (o4b, c4b, a4b) = res[4]
+    assert torch.equal(o4.points, o4b.points) and torch.equal(c4, c4b)
+    assert abs(int(a4) - int(a1)) <= 1
+    np.testing.assert_allclose(float(c4), float(c1), rtol=5e-2)
+    np.testing.assert_allclose(o4.pose_t.cpu().numpy(), o1.pose_t.cpu().numpy(), atol=5e-3)
+    np.testing.assert_allclose(o4.points.cpu().numpy(), o1.points.cpu().numpy(), atol=2e-2)
 
 
 def _k3_problem(shape, device):

@@ -192,8 +192,18 @@ def test_main_path_imports_no_jax():
         import importlib
         for name in ("run_kitti", "io.kitti", "io.native_loader", "io.png",
                      "eval.kitti_synth", "eval.longrun", "eval.plot", "utils.config",
-                     "utils.timing", "utils.kalman", "factors.calibration"):
+                     "utils.timing", "utils.kalman", "factors.calibration", "parallel",
+                     "parallel.multiprocess", "parallel.mp_worker", "optim.schur",
+                     "optim.edge_kernels"):
             importlib.import_module("sqrtlm_slam_tpu_torch." + name)
+
+        # The flat backend and distributed BA over two shards.
+        from sqrtlm_slam_tpu_torch.optim import facade, schur_bucketed
+        from sqrtlm_slam_tpu_torch.parallel import dist_ba
+        flat, _ = synthetic.make_ba_problem(seed=0, P=5, L=48, obs_per_landmark=4)
+        b = schur_bucketed.from_flat(flat, 4, device="cpu")
+        assert facade.Optimizer("flat").local_bundle_adjustment(b, cam)[1].shape == (48, 4)
+        dist_ba.distributed_ba_lm(b, cam, dist_ba.make_mesh(2, "cpu"), num_iters=2)
         loaded = [m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
                   or m == "sqrtlm_slam_tpu" or m.startswith("sqrtlm_slam_tpu.")]
@@ -231,10 +241,11 @@ def test_identity_helpers_are_always_given_their_device():
     assert calls >= 2
 
 
-def test_unported_backends_raise():
+def test_all_backends_construct_and_unknown_raises():
     from sqrtlm_slam_tpu_torch.optim import facade
 
-    facade.Optimizer("bucketed")
-    facade.Optimizer("cg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        facade.Optimizer("flat")
+    assert facade.BACKENDS == ("bucketed", "flat", "cg")
+    for backend in facade.BACKENDS:
+        assert facade.Optimizer(backend).backend == backend
+    with pytest.raises(ValueError, match="unknown backend"):
+        facade.Optimizer("g2o")
