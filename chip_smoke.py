@@ -15,9 +15,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      unpack timed apart; the port never calls it);
   3. K2 against its plain version at (P, L, K) = (32, 4096, 8),
      (96, 8192, 5) and (1400, 60000, 7) (past the ~954 poses of K2's first
-     design), with and without the Huber kernel, at rtol 5e-3 / atol 5e-4,
-     bitwise repeatable, with both times and the largest camera group of
-     the camera pass;
+     design), and past 16 slots per landmark at (32, 4096, 24),
+     (96, 8192, 32), (96, 4096, 64) and the dense (64, 4096, 64) and
+     (96, 2048, 96) (with the number of U chunks per block), with and
+     without the Huber kernel, at rtol 5e-3 / atol 5e-4, bitwise
+     repeatable, with both times and the largest camera group of the
+     camera pass;
   4. the main path at KITTI size: `SlamSystem.track_depth` over 16 frames of
      a synthetic world rendered at 1226x370 with the KITTI 00-02
      intrinsics, 2000 ORB features, default tracking and mapping configs.
@@ -31,11 +34,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
   7. K3 against its plain version at (P, L, K) = (96, 8192, 5) (the bench
      problem), (600, 120000, 7) (phase 8's global-BA problem), and
      (1400, 60000, 7) and (6000, 60000, 7) (phase 3's generator: KITTI 00's
-     keyframe count, and past the ~4,460 poses of K3's first design), with
-     and without the Huber kernel: rtol 1e-4 against the plain version
-     evaluated in float64, bitwise repeatable, bitwise equal to K2's chi2
-     on the same inputs, with both times, and with Huber K2's time at the
-     same shape split by kernel (its landmark pass beside K3);
+     keyframe count, and past the ~4,460 poses of K3's first design), and
+     at phase 3's shapes past 16 slots per landmark, with and without the
+     Huber kernel: rtol 1e-4 against the plain version evaluated in
+     float64, bitwise repeatable, bitwise equal to K2's chi2 on the same
+     inputs (past 16 slots also at L = 1, 127, 129), with both times, and
+     with Huber K2's time at the same shape split by kernel (its landmark
+     pass beside K3);
   8. global BA at scale (benchmarks/bench_scale.py's flow): 600 keyframes,
      1.2e5 landmarks, 5 observations each, drift 4e-4; the true loop edge
      through the essential graph (edge_cap 16384, 30 iterations), then 10 LM
@@ -139,6 +144,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      all-reduce ms per iteration; (d) phase 7's (600, 120000, 7) problem,
      3 iterations over 4 shards and over 1: chi2 falls, the two within the
      gates of (b), ms per iteration and peak device memory.
+ 17. more than 16 slots per landmark on the callers (`wide_k_phase`, also
+     callable alone): (a) phase 4's first 10 frames with
+     `LocalMappingConfig(obs_cap=24)` (every frame tracked, >= 1 local BA,
+     K2 called with 24 slots only, ATE < 0.05 m); (b) global BA (10 LM
+     iterations) from a scale store with `obs_per_landmark=32` (800
+     keyframes, 8,000 landmarks seen by 30 each) saved and loaded through
+     `mapstore/checkpoint`: chi2 falls, K2 and K3 launch,
+     a second GBA from a second load bitwise equal.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
@@ -185,6 +198,14 @@ INT8_OP_PER_S = 1979e12  # tensor cores, dense
 # U ~160; per active slot the camera sums Jp^T w Jp (upper triangle) and
 # Jp^T w r ~180. K3 is the first ~45 alone.
 K2_FLOP_SLOT, K2_FLOP_CAMERA, K3_FLOP_SLOT = 430, 180, 45
+# More than 16 slots per landmark (phases 3 and 7): the local-BA shape of
+# LocalMappingConfig(obs_cap=24), a global-BA-like problem at MapStore's
+# obs_per_landmark=32, 64 slots, and dense problems (K = P: every pose sees
+# every landmark, eval/synthetic.make_ba_problem(obs_per_landmark=0)). The
+# sparse ones clip a landmark's slots at the chain's last pose, which then
+# holds tens of thousands of slots; the dense ones hold L slots a camera.
+WIDE_K_SHAPES = ((32, 4096, 24), (96, 8192, 32), (96, 4096, 64), (64, 4096, 64),
+                 (96, 2048, 96))
 
 
 T_START = time.perf_counter()
@@ -288,6 +309,16 @@ def k2_bound(P: int, L: int, K: int, n_active: int) -> dict:
 
 def k3_bound(P: int, L: int, K: int) -> dict:
     return bound(48 * P + 12 * L + 20 * L * K + 4, K3_FLOP_SLOT * L * K, F32_FLOP_PER_S)
+
+
+def lm_chunks(K: int) -> int:
+    # K2's landmark pass goes through a landmark's slots in chunks of at most
+    # 16 (csrc/ba_assembly.cu, kLmChunk); K3 in chunks of at most 64.
+    return -(-K // 16)
+
+
+def chi2_chunks(K: int) -> int:
+    return -(-K // 64)
 
 
 def pm1_half(desc):
@@ -842,6 +873,120 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None,
     return launches
 
 
+def wide_k_phase(kitti_frames=None, device: str = "cuda") -> dict:
+    """17. More than 16 slots per landmark on the main path's callers: (a)
+    the first 10 KITTI-size RGB-D frames of phase 4 with
+    `LocalMappingConfig(obs_cap=24)` (every frame tracked, >= 1 local BA
+    with 24 slots per landmark, ATE < 0.05 m); (b) global BA from a scale
+    store with `obs_per_landmark=32` (800 keyframes on a ring of 16 m
+    radius, 8,000 landmarks seen by 30 keyframes each: 0.13 m apart, so
+    every landmark stays in front of its cameras) after a
+    `mapstore/checkpoint` save and load:
+    10 LM iterations of `LoopCloser.run_global_ba`, chi2 falling, K2 and K3
+    launched, and a second GBA from the same loaded store bitwise equal.
+    Counters zeroed just before each run and read just after. Returns the
+    launches of (a) and (b). `device="cpu"` rehearses it without a card."""
+    import torch
+    from sqrtlm_slam_tpu_torch.eval import synthetic
+    from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse
+    from sqrtlm_slam_tpu_torch.eval.scale import make_scale_store
+    from sqrtlm_slam_tpu_torch.factors.reprojection import Camera
+    from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch.loop import LoopCloser, LoopClosingConfig
+    from sqrtlm_slam_tpu_torch.loop.closing import gather_global_problem_bucketed
+    from sqrtlm_slam_tpu_torch.mapstore import checkpoint
+    from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
+    from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMappingConfig
+    from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
+
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # (a) Local BA with 24 slots per landmark --------------------------------
+    kcam = Camera(**KITTI_INTRINSICS)
+    if kitti_frames is None:
+        world = synthetic.SyntheticWorld(seed=1, n_points=3000)
+        poses = synthetic.forward_trajectory(16, step=0.3)[:10]
+        kitti_frames = [(world.render(T, kcam, H=KITTI_H, W=KITTI_W), T) for T in poses]
+    cfg = SystemConfig(orb=ORBConfig(max_features=2000),
+                       local_mapping=LocalMappingConfig(obs_cap=24))
+    widths = []
+    assemble = assembly.assemble
+
+    def spy(*args, **kw):  # the slots per landmark of every K2 call
+        widths.append(int(args[4].shape[1]))
+        return assemble(*args, **kw)
+
+    assembly.launch_count = assembly.chi2_launch_count = 0
+    assembly.assemble = spy
+    try:
+        system, secs, tracked = run_sequence(SlamSystem, cfg, kcam,
+                                             [f for f, _ in kitti_frames], dev, time_from=3)
+    finally:
+        assembly.assemble = assemble
+    local_launches = {"ba_assembly": assembly.launch_count, "ba_chi2": assembly.chi2_launch_count}
+    ate, _ = ate_rmse(system.get_trajectory(), gt_cam_to_world([T for _, T in kitti_frames]),
+                      align_scale=False)
+    rec = dict(frames=len(kitti_frames), tracked=tracked, keyframes=system.num_keyframes(),
+               local_ba=system.local_mapper.num_local_ba,
+               k2_slots_per_landmark=sorted(set(widths)), ate_m=ate,
+               median_ms=1e3 * float(np.median(secs)), launches=local_launches)
+    emit("local_ba_obs_cap_24_kitti_rgbd", **rec)
+    if (tracked != len(kitti_frames) or rec["local_ba"] < 1 or not ate < 0.05
+            or rec["k2_slots_per_landmark"] != [24]):
+        raise AssertionError(f"local BA with obs_cap=24 on the KITTI-size frames: {rec}")
+    if dev.type == "cuda" and local_launches["ba_assembly"] <= 0:
+        raise AssertionError(f"K2 never launched in local BA with obs_cap=24: {rec}")
+    del system
+
+    # (b) Global BA at 32 slots per landmark, from a checkpoint -------------
+    cam = synthetic.DEFAULT_CAM
+    store, _, _ = make_scale_store(n_kf=800, n_lm=8000, obs_per_lm=30, drift=4e-4,
+                                   radius=16.0)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_wide_k.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    checkpoint.save_map(store, path)
+    loaded = [checkpoint.load_map(path, device=dev)[0] for _ in range(2)]
+    checkpoint_s = time.perf_counter() - t0
+    os.remove(path)
+    p0, _ = gather_global_problem_bucketed(loaded[0], dev)
+    chi2_before = float(schur_bucketed.chi2_only(p0, cam, p0.obs_valid, None))
+    shape = [p0.num_poses, *p0.obs_cam.shape]
+    del p0
+    gba_cfg = LoopClosingConfig(gba_iters=10, gba_chunk=10)
+    runs = []
+    for st in loaded:
+        assembly.launch_count = assembly.chi2_launch_count = 0
+        sync()
+        t0 = time.perf_counter()
+        ok = LoopCloser(st, cam, cfg=gba_cfg, device=dev).run_global_ba()
+        sync()
+        runs.append(dict(ok=bool(ok), s=time.perf_counter() - t0,
+                         launches={"ba_assembly": assembly.launch_count,
+                                   "ba_chi2": assembly.chi2_launch_count}))
+    p1, _ = gather_global_problem_bucketed(loaded[0], dev)
+    chi2_after = float(schur_bucketed.chi2_only(p1, cam, p1.obs_valid, None))
+    del p1
+    equal = all(np.array_equal(getattr(loaded[0], f), getattr(loaded[1], f))
+                for f in ("kf_R", "kf_t", "lm_pos", "lm_obs_kf"))
+    gba = dict(problem_shape=shape, obs_per_landmark=loaded[0].obs_per_landmark,
+               checkpoint_save_load_s=checkpoint_s, gba_s=[r["s"] for r in runs],
+               chi2_before=chi2_before, chi2_after=chi2_after, repeat_bitwise_equal=equal,
+               launches=runs[0]["launches"])
+    emit("gba_obs_per_landmark_32", **gba)
+    if not (all(r["ok"] for r in runs) and chi2_after < chi2_before and equal
+            and shape[2] == 32):
+        raise AssertionError(f"global BA at obs_per_landmark=32: {gba}")
+    if dev.type == "cuda" and min(runs[0]["launches"].values()) <= 0:
+        raise AssertionError(f"a kernel of global BA at 32 slots never launched: {gba}")
+    return dict(local_ba=local_launches, gba=runs[0]["launches"])
+
+
 def main() -> None:
     global CARD
     import torch
@@ -923,12 +1068,12 @@ def main() -> None:
     cam_bench = synthetic.DEFAULT_CAM
     k2 = {}
     k2_err = 0.0
-    for P, L, K in ((32, 4096, 8), (96, 8192, 5), (1400, 60000, 7)):
+    for P, L, K in ((32, 4096, 8), (96, 8192, 5), (1400, 60000, 7)) + WIDE_K_SHAPES:
         # (1400, 60000, 7): KITTI 00's keyframe count on the bench problem's
         # 14.4 m track, observations nearer than 1 m to a camera dropped.
         big = dict(spacing=96 * 0.15 / P, min_depth=1.0) if P > 96 else {}
         flat, _ = synthetic.make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6,
-                                            obs_per_landmark=K, **big)
+                                            obs_per_landmark=0 if K == P else K, **big)
         prob = schur_bucketed.from_flat(flat, K, device=dev)
         w = prob.obs_inv_sigma2 * prob.obs_valid.float()
         # The camera pass's slot table, as the LM loops build it once.
@@ -949,8 +1094,9 @@ def main() -> None:
             # (see assembly.excess_over_plain for the rule). With hundreds of
             # slots per camera the rule admits the float32 summation bound for
             # Hpp and bp too; the strict rule's excess of K2 and of the
-            # float32 plain version is printed beside it.
-            big_sums = P > 96
+            # float32 plain version is printed beside it. Past 16 slots per
+            # landmark a camera holds thousands of slots.
+            big_sums = P > 96 or K > 16
             excess = assembly.excess_over_plain(got, *args, rtol=K2_RTOL, atol=K2_ATOL,
                                                 camera_sums=big_sums)
             bad = {n: e for n, (e, _) in excess.items() if e > 0}
@@ -979,7 +1125,7 @@ def main() -> None:
                  max_abs_diff_vs_plain_f32=vs32, repeatable=True,
                  camera_sum_bound=big_sums, **strict,
                  active_slots=n_active, max_slots_per_camera=max_group,
-                 **k2[(P, L, K, delta)])
+                 u_chunks_per_block=lm_chunks(K), **k2[(P, L, K, delta)])
         del prob, groups, got, again, plain32
 
     # 4. Main path at KITTI size ------------------------------------------
@@ -1076,13 +1222,14 @@ def main() -> None:
     scale_problem = gather_global_problem_bucketed(store, "cpu")[0]
     k3 = {}
     k3_err = 0.0
-    for P, L, K in ((96, 8192, 5), (600, 120000, 7), (1400, 60000, 7), (6000, 60000, 7)):
+    for P, L, K in ((96, 8192, 5), (600, 120000, 7), (1400, 60000, 7),
+                    (6000, 60000, 7)) + WIDE_K_SHAPES:
         if P == 600:
             prob = gather_global_problem_bucketed(store, dev)[0]
         else:
             big = dict(spacing=96 * 0.15 / P, min_depth=1.0) if P > 96 else {}
             flat, _ = synthetic.make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6,
-                                                obs_per_landmark=K, **big)
+                                                obs_per_landmark=0 if K == P else K, **big)
             prob = schur_bucketed.from_flat(flat, K, device=dev)
         if tuple(prob.obs_cam.shape) != (L, K) or prob.num_poses != P:
             raise AssertionError(f"K3 problem shape {prob.num_poses, *prob.obs_cam.shape}")
@@ -1131,7 +1278,25 @@ def main() -> None:
                         lambda: assembly.assemble_plain(*k2_args), n=3)
             emit("k3_vs_plain", shape=[P, L, K], robust_delta=delta, rtol=K3_RTOL,
                  chi2=float(got), plain_f64=want, rel_err=rel, repeatable=True,
-                 equal_to_k2_chi2=equal_k2, **k3[(P, L, K, delta)], **k2_here)
+                 equal_to_k2_chi2=equal_k2, k3_chunks_per_block=chi2_chunks(K),
+                 **k3[(P, L, K, delta)], **k2_here)
+        if K > 16:
+            # Ragged tiles at this K: K3's chi2 bitwise equal to K2's.
+            for Lr in (1, 127, 129):
+                sub = {f: getattr(prob, f)[:Lr] for f in (
+                    "points", "obs_cam", "obs_uvr", "obs_inv_sigma2", "obs_valid")}
+                w_r = sub["obs_inv_sigma2"] * sub["obs_valid"].float()
+                for delta in (None, 2.447):
+                    c3 = assembly.chi2_sum(prob.pose_R, prob.pose_t, sub["points"],
+                                           sub["obs_cam"], sub["obs_uvr"], w_r, cam_bench,
+                                           delta)
+                    c2 = assembly.assemble(prob.pose_R, prob.pose_t,
+                                           (~prob.pose_fixed).float(), sub["points"],
+                                           sub["obs_cam"], sub["obs_uvr"], w_r, cam_bench,
+                                           delta).chi2
+                    if not torch.equal(c3, c2):
+                        raise AssertionError(f"K3 differs from K2's chi2 at {(P, Lr, K, delta)}")
+            emit("k3_equals_k2_ragged", shape=[P, K], landmarks=[1, 127, 129], equal=True)
         del prob
 
     # 8. Global BA at scale ----------------------------------------------
@@ -1698,6 +1863,9 @@ def main() -> None:
         kitti_frames=list(zip(frames[:10], poses[:10])), scale_problem=scale_problem)
     del scale_problem
 
+    # 17. More than 16 slots per landmark: local BA and global BA ----------
+    wide_launches = wide_k_phase(kitti_frames=list(zip(frames[:10], poses[:10])))
+
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by") + keys}
@@ -1725,7 +1893,9 @@ def main() -> None:
                                    stereo=stereo_launches["ba_assembly"],
                                    mono=mono_launches["ba_assembly"],
                                    kitti_runner=runner_launches["ba_assembly"],
-                                   dist_ba=dist_launches["ba_assembly"]),
+                                   dist_ba=dist_launches["ba_assembly"],
+                                   local_ba_obs_cap_24=wide_launches["local_ba"]["ba_assembly"],
+                                   gba_obs_per_landmark_32=wide_launches["gba"]["ba_assembly"]),
              max_abs_err=k2_err,
              **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",
@@ -1735,7 +1905,8 @@ def main() -> None:
              launches_by_path=dict(gba_at_scale=gba_launches["ba_chi2"],
                                    ring_loop=loop_launches["ba_chi2"],
                                    kitti_runner=runner_launches["ba_chi2"],
-                                   dist_ba=dist_launches["ba_chi2"]),
+                                   dist_ba=dist_launches["ba_chi2"],
+                                   gba_obs_per_landmark_32=wide_launches["gba"]["ba_chi2"]),
              max_abs_err=k3_err,
              **timed(k3[(600, 120000, 7, 2.447)]), library_ms=None),
     ]

@@ -15,7 +15,11 @@ its kernels, then measures
     (96, 8192, 5), (600, 120000, 7), (1400, 60000, 7) and (6000, 60000, 7)
     (the last two on the bench problem's 14.4 m track, observations nearer
     than 1 m dropped; "pose cap" where the tree's K3 refuses P), with K2
-    beside it at each K3 shape, Huber 2.447; each also split by kernel
+    beside it at each K3 shape, and both past 16 slots per landmark at
+    (32, 4096, 24), (96, 8192, 32), (96, 4096, 64) and the dense
+    (64, 4096, 64) and (96, 2048, 96) ("K cap" where the tree refuses K),
+    Huber 2.447; each
+    also split by kernel
     (`<name>_by_kernel`); and `ticket_zero_ms`, the device time of zeroing
     one int32 on the card (what a per-call zeroed K3 ticket would add);
   * local_ba_lm_iters_per_s: the bench.py protocol (P=96, L=8192, 5
@@ -85,10 +89,12 @@ def _kernel_ms(dev, cam) -> dict:
                                     .astype(np.uint32), dev) for n in (Q, T))
         out[f"k1_{Q}x{T}"] = sum(_device_rows(lambda: hamming.hamming_matrix(q, t)).values())
     problems = {}
-    for P, L, K in ((32, 4096, 8), (96, 8192, 5), (1400, 60000, 7), (6000, 60000, 7)):
+    for P, L, K in ((32, 4096, 8), (96, 8192, 5), (1400, 60000, 7), (6000, 60000, 7),
+                    (32, 4096, 24), (96, 8192, 32), (96, 4096, 64), (64, 4096, 64),
+                    (96, 2048, 96)):
         big = dict(spacing=96 * 0.15 / P, min_depth=1.0) if P > 96 else {}
         flat, _ = synthetic.make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6,
-                                            obs_per_landmark=K, **big)
+                                            obs_per_landmark=0 if K == P else K, **big)
         problems[(P, L, K)] = schur_bucketed.from_flat(flat, K, device=dev)
     store, _, _ = make_scale_store(n_kf=600, n_lm=120_000, obs_per_lm=5, drift=4e-4)
     problems[(600, 120000, 7)] = gather_global_problem_bucketed(store, dev)[0]
@@ -97,9 +103,15 @@ def _kernel_ms(dev, cam) -> dict:
         args = (p.pose_R, p.pose_t, (~p.pose_fixed).float(), p.points, p.obs_cam, p.obs_uvr,
                 w, cam, 2.447)
         key = f"{P}_{L}_{K}"
+        try:
+            assembly.assemble(*args)
+        except ValueError as err:  # an older tree's cap of 16 slots per landmark
+            out[f"k2_{key}"] = out[f"k3_{key}"] = "K cap"
+            out[f"k2_{key}_refused"] = str(err)
+            continue
         rows = _device_rows(lambda: assembly.assemble(*args))
         out[f"k2_{key}"], out[f"k2_{key}_by_kernel"] = sum(rows.values()), rows
-        if P == 32:
+        if (P, K) == (32, 8):
             continue
         k3_args = (p.pose_R, p.pose_t, p.points, p.obs_cam, p.obs_uvr, w, cam, 2.447)
         try:

@@ -23,11 +23,19 @@
 // accept test at gain ratio ~0 flips on float32 reassociation).
 //  1. Landmark pass (landmark-major): one thread per landmark loops over its
 //     K slots, reading poses through the read-only cache (they stay in L2),
-//     keeping Hll, bl and its chi2 in registers. The block stages its U rows
-//     in shared memory (one padding float every 32, so the per-slot writes
-//     spread over the banks) and writes its contiguous U span, then Hll and
-//     bl, with 16-byte stores. Its shared memory depends on K only, not on P.
-//     The block is one chi2 tile (below) and writes its tile partial.
+//     keeping Hll, bl and its chi2 in registers. The slots go in chunks of
+//     C = ceil(K / ceil(K / 16)) (one chunk up to K = 16): the block stages
+//     a chunk's U rows of its 128 landmarks in shared memory (one padding
+//     float every 32, so the per-slot writes spread over the banks) and
+//     writes them out before the next chunk; then Hll and bl. With one chunk
+//     the block's U rows are one contiguous span, written with 16-byte
+//     stores; with more, each landmark's chunk is a contiguous span of C * 72
+//     bytes, written with 8-byte stores. Shared memory depends on C only
+//     (at most 152 KB), not on K or P, so any K runs. Hll, bl and chi2 are
+//     summed in slot order across the chunks. The block is one chi2 tile
+//     (below) and writes its tile partial. One chunk and several are two
+//     instances of the kernel (and of K3): one shared chunk loop cost the
+//     one-chunk case up to 6 % of its device time (PERF.md, section 6).
 //  2. Camera pass (camera-major): one block per camera walks that camera's
 //     slots from the compressed slot table of optim/segment.py (members in
 //     their order in the data), recomputes each slot's Jp, r and w, and
@@ -52,7 +60,9 @@
 // (body `_chi2_kernel`), the residual-only robust chi2 of the LM candidate
 // test. Bound: bytes, ~20 read per slot (18 MB at (L, K) = (120000, 7)),
 // ~45 FLOP per slot. One launch, one block per tile: the block's threads
-// evaluate the tile's slots in flat order (coalesced observation reads) and
+// evaluate the tile's slots in flat order (coalesced observation reads;
+// in chunks of at most 64 slots per landmark, so the staged costs take at
+// most 32 KB of shared memory at any K) and
 // read the poses through the read-only cache and L2 (nothing staged, so no
 // pose cap: only the poses a tile hits are read); the block that finishes
 // last (an integer ticket, after a fence) sums the tile partials by tile
@@ -75,7 +85,8 @@ constexpr int kCamWarps = kCamThreads / 32;
 constexpr int kSym = 21;          // independent entries of the symmetric Hpp
 constexpr int kCamVals = kSym + 6;  // + bp
 constexpr int kUFloats = 18;      // U per slot (6 x 3)
-constexpr int kMaxK = 16;         // slots per landmark (the wrappers check K)
+constexpr int kLmChunk = 16;      // most slots per landmark in a landmark-pass chunk
+constexpr int kChi2Chunk = 64;    // most slots per landmark in a K3 chunk
 constexpr float kZeps = 1e-6f;
 
 struct Cam {
@@ -196,8 +207,15 @@ __device__ __forceinline__ float total_sum(const float* partial, int n, float* s
 // Position of U float f of the block in the padded staging buffer.
 __device__ __forceinline__ int u_pos(int f) { return f + (f >> 5); }
 
-size_t landmark_smem_bytes(int K) {
-  const size_t n = (size_t)kLmThreads * K * kUFloats;
+// Slots per landmark in a chunk: the fewest chunks of at most `most` slots,
+// as equal as they can be.
+int chunk_slots(int K, int most) {
+  const int n = (K + most - 1) / most;
+  return (K + n - 1) / n;
+}
+
+size_t landmark_smem_bytes(int C) {
+  const size_t n = (size_t)kLmThreads * C * kUFloats;
   return sizeof(float) * (n + n / 32 + 1);
 }
 
@@ -210,11 +228,52 @@ __device__ __forceinline__ void store_span(float* __restrict__ dst, const float*
   for (int f = (n / 4) * 4 + threadIdx.x; f < n; f += kLmThreads) dst[f] = src[f];
 }
 
+// Slots [k0, k0 + ck) of landmark l (thread tid of its block): Hll, bl and
+// chi2 summed into the thread's registers, each slot's U row staged at
+// (tid * ck + k - k0) * 18 in the padded buffer.
+__device__ __forceinline__ void landmark_slots(
+    const float* __restrict__ pose_R, const float* __restrict__ pose_t,
+    const float* __restrict__ pose_free, const int32_t* __restrict__ obs_cam,
+    const float* __restrict__ obs_uvr, const float* __restrict__ w_active, int P, int K,
+    const Cam& cam, int l, int tid, int k0, int ck, float X0, float X1, float X2,
+    float (&hll)[9], float (&blv)[3], float& chi, float* s_u) {
+  for (int k = k0; k < k0 + ck; ++k) {
+    const size_t e = (size_t)l * K + k;
+    const int c = clamp_cam(obs_cam[e], P);
+    const Pose ps = load_pose(pose_R, pose_t, c);
+    Slot s;
+    slot_terms<true>(ps, __ldg(pose_free + c), X0, X1, X2, obs_uvr[e * 3 + 0],
+                     obs_uvr[e * 3 + 1], obs_uvr[e * 3 + 2], w_active[e], cam, s);
+    chi = __fadd_rn(chi, s.rho);
+    const float w = s.w;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      blv[i] += s.Jl[0][i] * w * s.r[0] + s.Jl[1][i] * w * s.r[1] + s.Jl[2][i] * w * s.r[2];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        hll[3 * i + j] += s.Jl[0][i] * w * s.Jl[0][j] + s.Jl[1][i] * w * s.Jl[1][j] +
+                          s.Jl[2][i] * w * s.Jl[2][j];
+    }
+    const int f0 = (tid * ck + k - k0) * kUFloats;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        s_u[u_pos(f0 + 3 * i + j)] = s.Jp[0][i] * w * s.Jl[0][j] +
+                                     s.Jp[1][i] * w * s.Jl[1][j] +
+                                     s.Jp[2][i] * w * s.Jl[2][j];
+    }
+  }
+}
+
+// kChunked = false is the one-chunk instance (C = K, up to K = 16): its U
+// rows are one contiguous span of the block.
+template <bool kChunked>
 __global__ void __launch_bounds__(kLmThreads)
 ba_landmark_kernel(const float* __restrict__ pose_R, const float* __restrict__ pose_t,
                    const float* __restrict__ pose_free, const float* __restrict__ points,
                    const int32_t* __restrict__ obs_cam, const float* __restrict__ obs_uvr,
-                   const float* __restrict__ w_active, int P, int L, int K, Cam cam,
+                   const float* __restrict__ w_active, int P, int L, int K, int C, Cam cam,
                    float* __restrict__ Hll, float* __restrict__ bl, float* __restrict__ U,
                    float* __restrict__ chi_partial) {
   extern __shared__ float4 smem4[];
@@ -238,51 +297,48 @@ ba_landmark_kernel(const float* __restrict__ pose_R, const float* __restrict__ p
   for (int i = 0; i < 9; ++i) hll[i] = 0.f;
   float chi = 0.f;
 
-  if (live) {
-    for (int k = 0; k < K; ++k) {
-      const size_t e = (size_t)l * K + k;
-      const int c = clamp_cam(obs_cam[e], P);
-      const Pose ps = load_pose(pose_R, pose_t, c);
-      Slot s;
-      slot_terms<true>(ps, __ldg(pose_free + c), X0, X1, X2, obs_uvr[e * 3 + 0],
-                       obs_uvr[e * 3 + 1], obs_uvr[e * 3 + 2], w_active[e], cam, s);
-      chi = __fadd_rn(chi, s.rho);
-      const float w = s.w;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        blv[i] += s.Jl[0][i] * w * s.r[0] + s.Jl[1][i] * w * s.r[1] + s.Jl[2][i] * w * s.r[2];
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          hll[3 * i + j] += s.Jl[0][i] * w * s.Jl[0][j] + s.Jl[1][i] * w * s.Jl[1][j] +
-                            s.Jl[2][i] * w * s.Jl[2][j];
+  if constexpr (kChunked) {
+    for (int k0 = 0; k0 < K; k0 += C) {
+      const int ck = min(C, K - k0);  // slots of this chunk
+      if (live)
+        landmark_slots(pose_R, pose_t, pose_free, obs_cam, obs_uvr, w_active, P, K, cam, l,
+                       tid, k0, ck, X0, X1, X2, hll, blv, chi, s_u);
+      __syncthreads();  // the chunk is staged
+      // Landmark i's chunk is the span of ck * 18 floats at (l0 + i) * K + k0
+      // slots into U: 8-byte aligned (a slot is 72 bytes), and a pair of
+      // floats at an even position shares one padding offset.
+      const int span = ck * kUFloats;
+      for (int q = tid; q < nl * span / 2; q += kLmThreads) {
+        const int f = 2 * q;
+        const int i = f / span;
+        const int b = u_pos(f);
+        *reinterpret_cast<float2*>(U + ((size_t)(l0 + i) * K + k0) * kUFloats + (f - i * span)) =
+            make_float2(s_u[b], s_u[b + 1]);
       }
-      const int f0 = (tid * K + k) * kUFloats;
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          s_u[u_pos(f0 + 3 * i + j)] = s.Jp[0][i] * w * s.Jl[0][j] +
-                                       s.Jp[1][i] * w * s.Jl[1][j] +
-                                       s.Jp[2][i] * w * s.Jl[2][j];
-      }
+      __syncthreads();  // s_u is free for the next chunk
     }
+  } else if (live) {
+    landmark_slots(pose_R, pose_t, pose_free, obs_cam, obs_uvr, w_active, P, K, cam, l, tid, 0,
+                   K, X0, X1, X2, hll, blv, chi, s_u);
   }
-  // The block is chi2 tile blockIdx.x; the sum's barrier also orders the U
-  // staging before the stores.
+  // The block is chi2 tile blockIdx.x; with one chunk the sum's barrier also
+  // orders the U staging before the stores.
   const float tile_chi = tile_sum(chi, s_warp);
   if (tid == 0) chi_partial[blockIdx.x] = tile_chi;
 
-  // The block's U rows are one contiguous span of U, 16-byte aligned
-  // (l0 * K * 72 bytes with l0 a multiple of 128).
-  const int n = nl * K * kUFloats;
-  float* Ub = U + (size_t)l0 * K * kUFloats;
-  float4* U4 = reinterpret_cast<float4*>(Ub);
-  for (int q = tid; q < n / 4; q += kLmThreads) {
-    const int b = u_pos(4 * q);  // the 4 floats share one padding offset
-    U4[q] = make_float4(s_u[b], s_u[b + 1], s_u[b + 2], s_u[b + 3]);
+  if constexpr (!kChunked) {
+    // The block's U rows are one contiguous span of U, 16-byte aligned
+    // (l0 * K * 72 bytes with l0 a multiple of 128).
+    const int n = nl * K * kUFloats;
+    float* Ub = U + (size_t)l0 * K * kUFloats;
+    float4* U4 = reinterpret_cast<float4*>(Ub);
+    for (int q = tid; q < n / 4; q += kLmThreads) {
+      const int b = u_pos(4 * q);  // the 4 floats share one padding offset
+      U4[q] = make_float4(s_u[b], s_u[b + 1], s_u[b + 2], s_u[b + 3]);
+    }
+    for (int f = (n / 4) * 4 + tid; f < n; f += kLmThreads) Ub[f] = s_u[u_pos(f)];
+    __syncthreads();
   }
-  for (int f = (n / 4) * 4 + tid; f < n; f += kLmThreads) Ub[f] = s_u[u_pos(f)];
-  __syncthreads();
 
   // Hll and bl through the same buffer (their spans start at l0 * 36 and
   // l0 * 12 bytes: 16-byte aligned too).
@@ -380,43 +436,59 @@ ba_camera_kernel(const float* __restrict__ pose_R, const float* __restrict__ pos
 // K3
 // ---------------------------------------------------------------------------
 
-// K3: block t is chi2 tile t. Its threads evaluate the tile's 128 K slots in
+// K3: block t is chi2 tile t. Its threads evaluate the tile's slots in
+// chunks of C slots per landmark (C = K up to K = 64) and, within a chunk, in
 // flat order (slot f by thread f mod blockDim.x, so neighbouring lanes read
-// neighbouring slots and every observation load is coalesced; poses through
-// the read-only cache and L2), each slot's rho into shared memory. Thread i
-// then adds landmark i's K values in slot order, the sum K2's thread makes,
-// and `tile_sum` gives the tile partial. The block that finishes last (an
-// integer ticket after a fence) sums the partials by tile index and resets
-// the ticket for the next launch on its stream.
+// neighbouring slots of a landmark and the observation loads coalesce; poses
+// through the read-only cache and L2), each slot's rho into shared memory.
+// Thread i then adds landmark i's C values in slot order to its running sum,
+// the sum K2's thread makes, and after the last chunk `tile_sum` gives the
+// tile partial. The block that finishes last (an integer ticket after a
+// fence) sums the partials by tile index and resets the ticket for the next
+// launch on its stream. kChunked = false is the one-chunk instance (C = K),
+// whose slot f of the tile is simply slot e0 + f of the problem.
+template <bool kChunked>
 __global__ void __launch_bounds__(1024)
 ba_chi2_kernel(const float* __restrict__ pose_R, const float* __restrict__ pose_t,
                const float* __restrict__ points, const int32_t* __restrict__ obs_cam,
                const float* __restrict__ obs_uvr, const float* __restrict__ w_active, int P,
-               int L, int K, Cam cam, float* __restrict__ partial,
+               int L, int K, int C, Cam cam, float* __restrict__ partial,
                unsigned int* __restrict__ ticket, float* __restrict__ chi2) {
-  __shared__ float s_rho[kLmThreads * kMaxK];
+  extern __shared__ float s_rho[];  // kLmThreads * C
   __shared__ float s_warp[kLmWarps];
   __shared__ bool s_last;
   const int tid = threadIdx.x;
   const int t = blockIdx.x;
-  const int nl = min(kLmThreads, L - t * kLmThreads);
-  const size_t e0 = (size_t)t * kLmThreads * K;
-#pragma unroll 4
-  for (int f = tid; f < nl * K; f += blockDim.x) {
-    const size_t e = e0 + f;
-    const size_t l = (size_t)t * kLmThreads + f / K;
-    const Pose ps = load_pose(pose_R, pose_t, clamp_cam(__ldg(obs_cam + e), P));
-    Slot s;
-    slot_terms<false>(ps, 1.f, __ldg(points + l * 3 + 0), __ldg(points + l * 3 + 1),
-                      __ldg(points + l * 3 + 2), __ldg(obs_uvr + e * 3 + 0),
-                      __ldg(obs_uvr + e * 3 + 1), __ldg(obs_uvr + e * 3 + 2),
-                      __ldg(w_active + e), cam, s);
-    s_rho[f] = s.rho;
-  }
-  __syncthreads();
+  const int l0 = t * kLmThreads;
+  const int nl = min(kLmThreads, L - l0);
+  const size_t e0 = (size_t)l0 * K;
   float chi = 0.f;
-  if (tid < nl)
-    for (int k = 0; k < K; ++k) chi = __fadd_rn(chi, s_rho[tid * K + k]);
+  for (int k0 = 0; k0 < K; k0 += C) {
+    const int ck = kChunked ? min(C, K - k0) : K;
+#pragma unroll 4
+    for (int f = tid; f < nl * ck; f += blockDim.x) {
+      size_t l, e;
+      if constexpr (kChunked) {
+        const int i = f / ck;
+        l = (size_t)l0 + i;
+        e = l * K + k0 + (f - i * ck);
+      } else {
+        l = (size_t)l0 + f / K;
+        e = e0 + f;
+      }
+      const Pose ps = load_pose(pose_R, pose_t, clamp_cam(__ldg(obs_cam + e), P));
+      Slot s;
+      slot_terms<false>(ps, 1.f, __ldg(points + l * 3 + 0), __ldg(points + l * 3 + 1),
+                        __ldg(points + l * 3 + 2), __ldg(obs_uvr + e * 3 + 0),
+                        __ldg(obs_uvr + e * 3 + 1), __ldg(obs_uvr + e * 3 + 2),
+                        __ldg(w_active + e), cam, s);
+      s_rho[f] = s.rho;
+    }
+    __syncthreads();
+    if (tid < nl)
+      for (int k = 0; k < ck; ++k) chi = __fadd_rn(chi, s_rho[tid * ck + k]);
+    if constexpr (kChunked) __syncthreads();  // s_rho is free for the next chunk
+  }
   const float tile_chi = tile_sum(chi, s_warp);
 
   if (tid == 0) {
@@ -450,7 +522,8 @@ int set_smem(const void* kernel, size_t bytes, size_t* allowed) {
   if (dev < kMaxDevices) allowed[dev] = bytes;
   return 0;
 }
-size_t g_landmark_smem[kMaxDevices];
+size_t g_landmark_smem[kMaxDevices];  // per instance of the landmark kernel
+size_t g_landmark_smem_chunked[kMaxDevices];
 int g_sms[kMaxDevices];  // SMs per device, 0 until read
 
 }  // namespace
@@ -472,14 +545,17 @@ extern "C" int ba_assembly_launch(
   const Cam cam{fx, fy, cx, cy, bf, robust, delta};
   const int n_blocks = (L + kLmThreads - 1) / kLmThreads;
   if (n_blocks > 0) {
-    const size_t smem = landmark_smem_bytes(K);
-    int err = set_smem(reinterpret_cast<const void*>(ba_landmark_kernel), smem, g_landmark_smem);
+    const int C = chunk_slots(K, kLmChunk);
+    const size_t smem = landmark_smem_bytes(C);
+    auto kernel = C == K ? &ba_landmark_kernel<false> : &ba_landmark_kernel<true>;
+    int err = set_smem(reinterpret_cast<const void*>(kernel), smem,
+                       C == K ? g_landmark_smem : g_landmark_smem_chunked);
     if (err != 0) return err;
-    ba_landmark_kernel<<<n_blocks, kLmThreads, smem, s>>>(
+    kernel<<<n_blocks, kLmThreads, smem, s>>>(
         static_cast<const float*>(pose_R), static_cast<const float*>(pose_t),
         static_cast<const float*>(pose_free), static_cast<const float*>(points),
         static_cast<const int32_t*>(obs_cam), static_cast<const float*>(obs_uvr),
-        static_cast<const float*>(w_active), P, L, K, cam, static_cast<float*>(Hll),
+        static_cast<const float*>(w_active), P, L, K, C, cam, static_cast<float*>(Hll),
         static_cast<float*>(bl), static_cast<float*>(U), static_cast<float*>(chi_partial));
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
@@ -497,9 +573,9 @@ extern "C" int ba_assembly_launch(
 // K3: one launch on `stream`, one block per tile of 128 landmarks.
 // chi_partial holds max(ceil(L / 128), 1) floats; ticket is this stream's
 // counter, 0 between launches (the last block resets it). 256 threads per
-// tile; one thread per slot (at most 1,024) when the tiles are fewer than
-// the SMs, where latency and not throughput sets the time. The block size
-// does not enter the float order. Returns cudaGetLastError() (0 = launched).
+// tile; one thread per slot of a chunk (at most 1,024) when the tiles are
+// fewer than the SMs, where latency and not throughput sets the time. The
+// block size does not enter the float order. Returns cudaGetLastError() (0 = launched).
 extern "C" int ba_chi2_launch(
     const void* pose_R, const void* pose_t, const void* points, const void* obs_cam,
     const void* obs_uvr, const void* w_active, int P, int L, int K, float fx, float fy,
@@ -515,13 +591,16 @@ extern "C" int ba_chi2_launch(
     if (dev < kMaxDevices) g_sms[dev] = sms;
   }
   const int n_tiles = (L + kLmThreads - 1) / kLmThreads;
+  const int C = chunk_slots(K, kChi2Chunk);
   int threads = 2 * kLmThreads;
-  if (n_tiles < sms) threads = K * kLmThreads > 1024 ? 1024 : K * kLmThreads;
+  if (n_tiles < sms) threads = C * kLmThreads > 1024 ? 1024 : C * kLmThreads;
   const Cam cam{fx, fy, cx, cy, bf, robust, delta};
-  ba_chi2_kernel<<<n_tiles > 0 ? n_tiles : 1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = sizeof(float) * kLmThreads * C;  // <= 32 KB: no opt-in needed
+  auto kernel = C == K ? &ba_chi2_kernel<false> : &ba_chi2_kernel<true>;
+  kernel<<<n_tiles > 0 ? n_tiles : 1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pose_R), static_cast<const float*>(pose_t),
       static_cast<const float*>(points), static_cast<const int32_t*>(obs_cam),
-      static_cast<const float*>(obs_uvr), static_cast<const float*>(w_active), P, L, K, cam,
+      static_cast<const float*>(obs_uvr), static_cast<const float*>(w_active), P, L, K, C, cam,
       static_cast<float*>(chi_partial), static_cast<unsigned int*>(ticket),
       static_cast<float*>(chi2));
   return static_cast<int>(cudaGetLastError());

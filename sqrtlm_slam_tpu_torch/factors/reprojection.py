@@ -33,6 +33,12 @@ class Camera(NamedTuple):
         v = self.fy * x_cam[..., 1] / z + self.cy
         return torch.stack([u, v], dim=-1)
 
+    def backproject(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """Unproject pixels (..., 2) at given depth (...,) to camera frame."""
+        x = (uv[..., 0] - self.cx) * depth / self.fx
+        y = (uv[..., 1] - self.cy) * depth / self.fy
+        return torch.stack([x, y, depth], dim=-1)
+
 
 def transform_points(T_cw: se3.SE3, X_w: torch.Tensor) -> torch.Tensor:
     return se3.act(T_cw, X_w)

@@ -21,6 +21,13 @@ class SE3(NamedTuple):
     R: torch.Tensor  # (..., 3, 3)
     t: torch.Tensor  # (..., 3)
 
+    @property
+    def batch_shape(self):
+        return self.t.shape[:-1]
+
+    def as_matrix(self) -> torch.Tensor:
+        return rt_to_matrix(self.R, self.t)
+
 
 def identity(
     batch_shape: Tuple[int, ...] = (), dtype=torch.float32, device="cpu"

@@ -36,7 +36,6 @@ from . import segment
 # Number of K2 and of K3 launches in this process (reset by callers that count).
 launch_count = 0
 chi2_launch_count = 0
-_MAX_K = 16
 
 
 class AssemblyOut(NamedTuple):
@@ -200,8 +199,10 @@ def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
     _check(obs_cam, "obs_cam", torch.int32, (L, K), device)
     _check(obs_uvr, "obs_uvr", f32, (L, K, 3), device)
     _check(w_active, "w_active", f32, (L, K), device)
-    if P < 1 or K < 1 or K > _MAX_K:
-        raise ValueError(f"assemble_cuda: need P >= 1 and 1 <= K <= {_MAX_K}, got P={P} K={K}")
+    if P < 1 or K < 1:
+        raise ValueError(f"assemble_cuda: need P >= 1 and K >= 1, got P={P} K={K}")
+    if L * K >= 2**31:  # the camera pass indexes slots l * K + k in int32
+        raise ValueError(f"assemble_cuda: L * K = {L * K} slots exceed an int32 index")
     _check(groups.offsets, "groups.offsets", torch.int32, (P + 1,), device)
     _check(groups.members, "groups.members", torch.int32, (L * K,), device)
 
@@ -305,8 +306,8 @@ def chi2_cuda(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Ca
     _check(obs_cam, "obs_cam", torch.int32, (L, K), device)
     _check(obs_uvr, "obs_uvr", f32, (L, K, 3), device)
     _check(w_active, "w_active", f32, (L, K), device)
-    if P < 1 or K < 1 or K > _MAX_K:
-        raise ValueError(f"chi2_cuda: need P >= 1 and 1 <= K <= {_MAX_K}, got P={P} K={K}")
+    if P < 1 or K < 1:
+        raise ValueError(f"chi2_cuda: need P >= 1 and K >= 1, got P={P} K={K}")
 
     lib = _lib()
     n_tiles = -(-L // lib.ba_assembly_threads())

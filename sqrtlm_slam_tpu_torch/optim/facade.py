@@ -16,6 +16,7 @@ Sim3 refinement are backend-independent.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -55,8 +56,9 @@ class Optimizer:
             raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")
         self.backend = backend
 
-    def pose_optimization(self, pose0, obs: pose_opt.VisualObs, cam, **kwargs):
-        return pose_opt.optimize_pose(pose0, obs, cam, **kwargs)
+    def pose_optimization(self, pose0, obs: pose_opt.VisualObs, cam,
+                          lidar_obs: Optional[pose_opt.LidarObs] = None, **kwargs):
+        return pose_opt.optimize_pose(pose0, obs, cam, lidar_obs=lidar_obs, **kwargs)
 
     def local_bundle_adjustment(self, problem: schur_bucketed.BucketedBAProblem, cam,
                                 first_iters: int = 5, second_iters: int = 10):

@@ -21,6 +21,10 @@ class Loss(NamedTuple):
     def __call__(self, e2: torch.Tensor):
         return self.fn(e2)
 
+    def weight(self, e2: torch.Tensor) -> torch.Tensor:
+        """IRLS weight rho'(e2), clipped to be nonnegative."""
+        return torch.clamp(self.fn(e2)[1], min=0.0)
+
 
 def trivial() -> Loss:
     def fn(e2):

@@ -158,9 +158,13 @@ def _lm_loop(problem: BAProblem, cam: reproj.Camera, active, num_iters: int,
 
 
 def ba_iterate(problem: BAProblem, cam: reproj.Camera, active, num_iters: int,
-               robust_delta: Optional[float]) -> Tuple[BAProblem, torch.Tensor, torch.Tensor]:
+               robust_delta: Optional[float], tau: float = 1e-5
+               ) -> Tuple[BAProblem, torch.Tensor, torch.Tensor]:
     """`num_iters` damped LM iterations, the normal equations rebuilt each
-    iteration. Returns (problem, chi2, accepted count)."""
+    iteration. Returns (problem, chi2, accepted count).
+
+    `tau` is the JAX package's parameter, which its loop never reads: the
+    multiplicative damping starts at mu = 1e-3 (Nielsen) whatever `tau`."""
     plans = edge_plans(problem, active)
 
     def step(prob, mu):
@@ -269,9 +273,10 @@ def cg_reduce_and_solve(problem: BAProblem, cam: reproj.Camera, active, robust_d
 
 
 def ba_iterate_cg(problem: BAProblem, cam: reproj.Camera, active, num_iters: int,
-                  robust_delta: Optional[float], cg_iters: int = 100
+                  robust_delta: Optional[float], tau: float = 1e-5, cg_iters: int = 100
                   ) -> Tuple[BAProblem, torch.Tensor, torch.Tensor]:
-    """LM loop on the matrix-free PCG step (tight CG tolerance, 1e-6)."""
+    """LM loop on the matrix-free PCG step (tight CG tolerance, 1e-6). `tau`
+    as in `ba_iterate`: not read, mu starts at 1e-3."""
     plans = edge_plans(problem, active)
 
     def step(prob, mu):

@@ -35,6 +35,9 @@ class Frame(NamedTuple):
     uvr: torch.Tensor  # (N, 3) [u, v, u_right]; u_right < 0 -> mono
     depth: torch.Tensor  # (N,) associated depth (<= 0 -> none)
     inv_sigma2: torch.Tensor  # (N,) information by pyramid level
+    # (N,) vocabulary word ids: the JAX package defines the field and never
+    # sets or reads it; kept so that code written for its Frame runs here.
+    words: Optional[torch.Tensor] = None
     lidar: Optional[lidar_features.LidarFeatures] = None  # fusion coupling
 
 

@@ -311,14 +311,18 @@ class LocalMapper:
             sel_c = np.take_along_axis(sel, order, axis=1)[:, :K]
             okf_c = np.where(sel_c, okf_c, 0)
             oidx_c = np.where(sel_c, oidx_c, 0)
-            obs_cam[:nl] = np.where(sel_c, slot_of[okf_c], 0)
-            obs_uvr[:nl] = np.where(sel_c[..., None], store.kf_uvr[okf_c, oidx_c], -1.0)
-            obs_is2[:nl] = np.where(
+            # The store holds obs_per_landmark slots: with obs_cap above it the
+            # slots past them stay inactive (the JAX package's gather raises
+            # there).
+            k = okf_c.shape[1]
+            obs_cam[:nl, :k] = np.where(sel_c, slot_of[okf_c], 0)
+            obs_uvr[:nl, :k] = np.where(sel_c[..., None], store.kf_uvr[okf_c, oidx_c], -1.0)
+            obs_is2[:nl, :k] = np.where(
                 sel_c, 1.0 / (1.2 ** (2 * store.kf_octave[okf_c, oidx_c])), 1.0
             )
-            obs_valid[:nl] = sel_c
-            e_kf[:nl] = np.where(sel_c, okf_c, -1)
-            e_kp[:nl] = np.where(sel_c, oidx_c, -1)
+            obs_valid[:nl, :k] = sel_c
+            e_kf[:nl, :k] = np.where(sel_c, okf_c, -1)
+            e_kp[:nl, :k] = np.where(sel_c, oidx_c, -1)
 
         pose_R = np.tile(np.eye(3, dtype=np.float32), (P, 1, 1))
         pose_t = np.zeros((P, 3), np.float32)

@@ -75,6 +75,7 @@ from .frame import Frame
 class TrackingConfig(NamedTuple):
     match_radius_motion: float = 15.0
     match_radius_local: float = 7.0
+    min_matches_motion: int = 20  # the JAX package defines it and never reads it
     min_inliers_track: int = 10
     min_inliers_local: int = 30
     local_map_capacity: int = 2048

@@ -262,12 +262,141 @@ def test_chi2_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         assembly.chi2_cuda(prob.pose_R.cpu(), prob.pose_t, prob.points, prob.obs_cam,
                            prob.obs_uvr, w, DEFAULT_CAM, None)
-    # More slots per landmark than the kernel's rho buffer holds (16).
-    flat, _ = make_ba_problem(seed=0, P=20, L=64, obs_per_landmark=17)
-    wide = schur_bucketed.from_flat(flat, 17, device=cuda_device)
-    with pytest.raises(ValueError):
-        assembly.chi2_cuda(wide.pose_R, wide.pose_t, wide.points, wide.obs_cam, wide.obs_uvr,
-                           wide.obs_inv_sigma2, DEFAULT_CAM, None)
+
+
+# Past 16 slots per landmark: K2's landmark pass goes through the slots in
+# chunks of at most 16, K3 in chunks of at most 64 (ragged last chunks at
+# K = 17 and 130); (96, 2048, 96) is the dense problem (every pose sees every
+# landmark).
+WIDE_K = [(40, 4096, 17), (40, 4096, 24), (48, 4096, 32), (96, 4096, 64), (96, 2048, 96),
+          (160, 1024, 130)]
+
+
+def _wide_problem(P, L, K, device):
+    """As `_k3_problem`: past 96 poses the bench problem's 14.4 m track,
+    observations nearer than 1 m to a camera dropped."""
+    big = dict(spacing=96 * 0.15 / P, min_depth=1.0) if P > 96 else {}
+    flat, _ = make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6,
+                              obs_per_landmark=0 if K == P else K, **big)
+    return schur_bucketed.from_flat(flat, K, device=device)
+
+
+@pytest.mark.parametrize("robust_delta", [None, 2.447])
+@pytest.mark.parametrize("P,L,K", WIDE_K)
+def test_kernels_past_16_slots_match_plain_on_card(cuda_device, robust_delta, P, L, K):
+    """K2 and K3 at any K: K2 against its plain version by
+    `excess_over_plain` (with the camera-sum bound: thousands of slots per
+    camera here), K3 within rtol 1e-4 of its plain version in float64 and
+    bitwise equal to K2's chi2, each bitwise repeatable and launched once a
+    call. A fifth of the first column's slots inactive."""
+    prob = _wide_problem(P, L, K, cuda_device)
+    w = prob.obs_inv_sigma2 * prob.obs_valid.float()
+    w[::5, 0] = 0.0
+    args = (prob.pose_R, prob.pose_t, (~prob.pose_fixed).float(), prob.points, prob.obs_cam,
+            prob.obs_uvr, w, DEFAULT_CAM, robust_delta)
+    k2, k3 = assembly.launch_count, assembly.chi2_launch_count
+    got, again = assembly.assemble(*args), assembly.assemble(*args)
+    chi2, chi2_again = assembly.chi2_sum(*args[:2], *args[3:]), assembly.chi2_sum(*args[:2],
+                                                                                 *args[3:])
+    torch.cuda.synchronize()
+    assert assembly.launch_count == k2 + 2 and assembly.chi2_launch_count == k3 + 2
+    for name, g, a in zip(assembly.AssemblyOut._fields, got, again):
+        assert torch.equal(g, a), f"{name}: K2 is not run-to-run repeatable"
+    assert got.U.shape == (L, K, 6, 3)
+    excess = assembly.excess_over_plain(got, *args, camera_sums=True)
+    assert all(e <= 0 for e, _ in excess.values()), excess
+    assert torch.equal(chi2, chi2_again) and torch.equal(chi2, got.chi2)
+    args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+              for a in args[:2] + args[3:]]
+    np.testing.assert_allclose(float(chi2), float(assembly.chi2_plain(*args64)), rtol=1e-4)
+
+
+@pytest.mark.parametrize("L", [1, 127, 129])
+@pytest.mark.parametrize("P,K", [(P, K) for P, _, K in WIDE_K])
+def test_chi2_kernel_equals_k2_past_16_slots_at_ragged_landmark_counts(cuda_device, P, K, L):
+    """K3's chi2 bitwise equal to K2's past 16 slots per landmark when L is
+    not a multiple of the 128-landmark tile, and within rtol 1e-4 of the
+    plain version in float64."""
+    prob = _wide_problem(P, L, K, cuda_device)
+    for delta in (None, 2.447):
+        args = _k3_args(prob, delta)
+        got = assembly.chi2_sum(*args)
+        assert torch.equal(got, _k2_chi2(prob, args))
+        args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                  for a in args]
+        np.testing.assert_allclose(float(got), float(assembly.chi2_plain(*args64)), rtol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["bucketed", "flat", "cg"])
+def test_facade_past_16_slots_on_card_tracks_cpu(cuda_device, backend):
+    """Local BA at K = 24 through each backend on the card against the CPU:
+    chi2 within 5e-2 relative, poses within 5e-2, survivors within 0.5%;
+    two runs on the card bitwise equal."""
+    flat, _ = make_ba_problem(seed=4, P=48, L=2048, stereo_frac=0.6, obs_per_landmark=24)
+    res = []
+    for dev in ("cpu", cuda_device, cuda_device):
+        prob = schur_bucketed.from_flat(flat, 24, device=dev)
+        out, surv, chi2 = facade.Optimizer(backend).local_bundle_adjustment(prob, DEFAULT_CAM)
+        res.append((float(chi2), out.pose_t.cpu().numpy(), out.points.cpu().numpy(),
+                    surv.cpu().numpy()))
+    (c0, t0, _, s0), (c1, t1, p1, s1), (c2, t2, p2, s2) = res
+    assert c1 == c2 and np.array_equal(t1, t2) and np.array_equal(p1, p2)
+    np.testing.assert_allclose(c1, c0, rtol=5e-2)
+    np.testing.assert_allclose(t1, t0, rtol=5e-2, atol=5e-2)
+    assert (s0 != s1).sum() <= 0.005 * s0.size
+
+
+def test_distributed_lm_and_mp_worker_past_16_slots_on_card(cuda_device):
+    """The distributed LM at K = 24 on one card over 1 and 4 shards (K2 once
+    per shard per iteration, K3 once per shard per chi2; tests/test_dist_ba.py's
+    LM gates, 4 against 1, on the landmarks whose 24 slots hold 24 distinct
+    cameras: the generator clips the others' slots at the chain's last
+    pose, which leaves their depth barely determined), and `mp_worker
+    --obs-per-lm 24` as one nccl rank of 4 shards: bitwise equal to the
+    in-process 4 shards."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from sqrtlm_slam_tpu_torch.parallel import mp_worker
+
+    flat, _ = make_ba_problem(seed=5, P=48, L=2048, obs_per_landmark=24)
+    prob = schur_bucketed.from_flat(flat, 24, device=cuda_device)
+    iters, res = 6, {}
+    for D in (1, 4):
+        k2, k3 = assembly.launch_count, assembly.chi2_launch_count
+        res[D] = dist_ba.distributed_ba_lm(prob, DEFAULT_CAM, dist_ba.make_mesh(D, cuda_device),
+                                           num_iters=iters)
+        torch.cuda.synchronize()
+        assert assembly.launch_count - k2 == D * iters
+        assert assembly.chi2_launch_count - k3 == D * (iters + 1)
+    (o1, c1, a1), (o4, c4, a4) = res[1], res[4]
+    assert abs(int(a4) - int(a1)) <= 1
+    np.testing.assert_allclose(float(c4), float(c1), rtol=5e-2)
+    np.testing.assert_allclose(o4.pose_t.cpu().numpy(), o1.pose_t.cpu().numpy(), atol=5e-3)
+    cams = np.sort(np.where(prob.obs_valid.cpu().numpy(), prob.obs_cam.cpu().numpy(), -1), 1)
+    full = (cams[:, 0] >= 0) & (np.diff(cams, axis=1) != 0).all(1)
+    assert full.sum() > 0.4 * len(full)
+    np.testing.assert_allclose(o4.points.cpu().numpy()[full], o1.points.cpu().numpy()[full],
+                               atol=2e-2)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    run = subprocess.run(
+        [sys.executable, "-m", "sqrtlm_slam_tpu_torch.parallel.mp_worker", "--coordinator",
+         f"localhost:{port}", "--nproc", "1", "--pid", "0", "--shards-per-proc", "4",
+         "--backend", "nccl", "--poses", "48", "--landmarks", "2048", "--obs-per-lm", "24",
+         "--iters", str(iters), "--seed", "5"],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["digest"] == mp_worker.result_digest(
+        o4.pose_R.cpu().numpy(), o4.pose_t.cpu().numpy(), o4.points.cpu().numpy(),
+        c4.cpu().numpy())
 
 
 

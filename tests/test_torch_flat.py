@@ -167,6 +167,76 @@ def test_geometry_and_lm_helpers_match_jax():
     np.testing.assert_allclose(t_se3.from_quat_trans(v).R.numpy(), Tt.R.numpy(), atol=1e-5)
 
 
+def _surface_inputs():
+    """One set of numpy inputs for the public-surface cases below."""
+    rng = np.random.RandomState(3)
+    return dict(uv=(rng.rand(5, 7, 2) * 300).astype(np.float32),
+                depth=(1 + rng.rand(5, 7) * 30).astype(np.float32),
+                xi=(rng.randn(5, 7, 6) * 0.5).astype(np.float32),
+                e2=np.concatenate([[0.0], np.logspace(-4, 3, 99)]).astype(np.float32))
+
+
+_SURFACE = {
+    "backproject": lambda m, cam, x: cam.backproject(x["uv"], x["depth"]),
+    "as_matrix": lambda m, cam, x: m["se3"].exp(x["xi"]).as_matrix(),
+    "batch_shape": lambda m, cam, x: np.asarray(m["se3"].exp(x["xi"]).batch_shape),
+    "weight_trivial": lambda m, cam, x: m["loss"].trivial().weight(x["e2"]),
+    "weight_huber": lambda m, cam, x: m["loss"].huber(2.447).weight(x["e2"]),
+    "weight_cauchy": lambda m, cam, x: m["loss"].cauchy(2.447).weight(x["e2"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SURFACE))
+def test_public_surface_additions_match_jax(case):
+    """`Camera.backproject`, `SE3.as_matrix`, `SE3.batch_shape` and
+    `Loss.weight` (the clipped IRLS weight) against the JAX package's on the
+    same numpy inputs: rtol 1e-6 (the same float32 operations)."""
+    x = _surface_inputs()
+    jax_mods = dict(se3=j_se3, loss=j_loss)
+    port_mods = dict(se3=t_se3, loss=t_loss)
+    want = _SURFACE[case](jax_mods, DEFAULT_CAM, {k: jnp.asarray(v) for k, v in x.items()})
+    got = _SURFACE[case](port_mods, CAM, {k: _t(v) for k, v in x.items()})
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("fn", ["ba_iterate", "ba_iterate_cg"])
+def test_lm_loops_take_tau_as_the_jax_package_does(fn):
+    """`tau` of the flat `ba_iterate` / `ba_iterate_cg`: at tau = 1e-3 the
+    port's loop meets the JAX loop's at the LM gates of
+    tests/test_dist_ba.py (accepted within 1, chi2 rtol 5e-2, poses atol
+    5e-3), and, as in the JAX package, whose loops never read it, the
+    result is that of the default tau bit for bit."""
+    flat, tp = _flat(2)
+    out_j, chi2_j, acc_j = jax.jit(
+        lambda p: getattr(j_schur, fn)(p, DEFAULT_CAM, p.obs_valid, 6, 2.447, tau=1e-3))(flat)
+    out_t, chi2_t, acc_t = getattr(t_schur, fn)(tp, CAM, tp.obs_valid, 6, 2.447, tau=1e-3)
+    assert abs(int(acc_t) - int(acc_j)) <= 1
+    np.testing.assert_allclose(float(chi2_t), float(chi2_j), rtol=5e-2)
+    np.testing.assert_allclose(out_t.pose_t.numpy(), np.asarray(out_j.pose_t), atol=5e-3)
+    out_d, chi2_d, acc_d = getattr(t_schur, fn)(tp, CAM, tp.obs_valid, 6, 2.447)
+    assert torch.equal(out_d.pose_t, out_t.pose_t) and torch.equal(chi2_d, chi2_t)
+
+
+def test_tracking_config_and_frame_fields_follow_the_jax_package():
+    """`TrackingConfig.min_matches_motion` (default 20) and `Frame.words`
+    (default None), which the JAX package defines and never reads, stand in
+    the JAX package's field order with its defaults, and `convert` carries
+    them across."""
+    from sqrtlm_slam_tpu.pipeline import frame as j_frame
+    from sqrtlm_slam_tpu.pipeline import tracking as j_tracking
+    from sqrtlm_slam_tpu_torch.pipeline import frame as t_frame
+    from sqrtlm_slam_tpu_torch.pipeline import tracking as t_tracking
+
+    assert t_frame.Frame._fields == j_frame.Frame._fields
+    assert t_frame.Frame._field_defaults == {"words": None, "lidar": None}
+    want = j_tracking.TrackingConfig()._asdict()
+    got = t_tracking.TrackingConfig()._asdict()
+    assert got["min_matches_motion"] == want["min_matches_motion"] == 20
+    assert [k for k in got if k in want] == [k for k in want if k in got]
+    cfg = convert.tracking_config(j_tracking.TrackingConfig(min_matches_motion=7))
+    assert cfg.min_matches_motion == 7
+
+
 def test_lm_optimize_result_and_generic_retraction():
     """`lm_optimize` returns an `LMResult`; with an explicit retraction (a
     2-vector NamedTuple on R^2) it minimises a quadratic."""
