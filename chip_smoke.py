@@ -65,15 +65,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      default LidarConfig (64 rings x 1800 columns) and TrackingConfig, scans
      of 64 rings x 1800 rays (~114,000 points; the rays centred on the
      range image's columns, `planeworld.center_scan_on_columns`), T_CAM_VELO.
-     Run twice: once timed per frame with the launch counters zeroed just
-     before and read just after, once with every stage bracketed by
+     Run twice: once graphed (the entry point's default) timed per frame
+     with the launch counters zeroed just before and read just after, once
+     eagerly (`utils.cache.disable_graphs`) with every stage bracketed by
      synchronizes (frame build split into ORB | LiDAR features | cloud
      projection + depth association, the tracking step, local mapping and
-     its LiDAR stage) and the last frames under torch.profiler (launches per
-     frame, device idle share). Every frame must track in both, with >= 2
-     keyframes, ATE < 0.5 m, > 20 LiDAR associations on every steady frame,
+     its LiDAR stage; launches and idle share per frame: phase 18). Every
+     frame must track in both, with >= 2 keyframes, ATE < 0.5 m, > 20 LiDAR
+     associations on every steady frame,
      the LiDAR stage of local BA run at least once, K1 and K2 launched, and
-     the two runs' trajectories, keyframe poses and landmarks bitwise equal;
+     the two runs' (graphed and eager) trajectories, keyframe poses and
+     landmarks bitwise equal;
  11. relocalisation on the same sequence: one `recover_pose_no_prior` timed
      cold and warm; the map saved, `SlamSystem.load`ed on the card and a
      frame of the sequence fed in localisation mode (it must relocalise
@@ -96,10 +98,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      initialization frame, `used_homography`, and `initialize_two_view` timed
      cold (its first call, in the run) and warm (again on the same inputs);
  14. standalone LiDAR odometry: `LidarOdometry.process` over the 28 fusion
-     scans in the LiDAR frame (the corner included), run twice: ATE < 0.5 m
-     against the LiDAR-frame ground truth, > 100 associations per scan after
-     the first, the two runs' poses bitwise equal; ms per scan split into
-     feature extraction and alignment, launches per scan; then
+     scans in the LiDAR frame (the corner included), run twice (graphed,
+     then eagerly): ATE < 0.5 m against the LiDAR-frame ground truth, > 100
+     associations per scan after the first, the two runs' poses bitwise
+     equal; ms per scan split into feature extraction and alignment,
+     launches per scan (eager) and the padded scan sizes; then
      `backend_for_loop` with the true first-to-last relative pose must cut
      the end drift below 0.3 x.
  15. the KITTI runner (`python -m sqrtlm_slam_tpu_torch.run_kitti`): 20
@@ -152,10 +155,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      keyframes, 8,000 landmarks seen by 30 each) saved and loaded through
      `mapstore/checkpoint`: chi2 falls, K2 and K3 launch,
      a second GBA from a second load bitwise equal.
+ 18. the captured CUDA graphs (`graphs_phase`, also callable alone): the
+     entry points replay graphs by default (phases 4-17 ran graphed; each of
+     phases 4, 10 and 12-14 reports its graph captures and replays). (b) the
+     RGB-D, stereo, monocular, fusion and LiDAR-odometry paths over 16
+     frames (scans) each, graphed and eagerly (`disable_graphs`): ms per
+     frame, CUDA launches (kernel launches plus graph launches), device ms
+     and idle share from torch.profiler over the last 2, graph captures,
+     replays and host reads per frame; (a) every captured function (the
+     RGB-D, monocular, fusion and stereo builds, `extract_features_jit` of a
+     padded 64 x 1800-ray scan, the tracking step's stage A and stages B + C
+     plain and fused, local BA) replayed on the KITTI-size inputs of its
+     last call in (b) against its eager run: bitwise equal, or the phase
+     raises; (c) phase 4's 16 frames graphed (phase 4's system and (b)'s)
+     and eagerly: trajectories, keyframe poses and landmarks bitwise equal;
+     (d) the tracking step's stage A as three graphs with the inlier read
+     between them (the port's design) and as one graph running both radii
+     with a `torch.where` select: wall and CUDA-event ms per step, with
+     and without the retry, both bitwise equal to the eager step.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
-first 4-shard run), its
+first 4-shard run, `graphs_paths` from phase 18 (b)'s graphed runs; a
+captured graph adds its kernels' launches at each replay), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
 and the final status line.
@@ -368,24 +390,40 @@ def staged_into(record: dict, name: str, fn):
     return wrapper
 
 
-def profiled(fn):
-    """Run `fn` under torch.profiler: (its result, CUDA launches, device ms,
-    wall s)."""
+_KERNEL_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def profile_window(fn) -> dict:
+    """Run `fn` under torch.profiler (CUDA activity: kernels, copies and the
+    CUDA runtime calls) and read its Chrome trace: fn's result, kernel
+    launches, graph launches (`cudaGraphLaunch`, one a replay), CUDA
+    launches (both), device ms (kernels, copies, memsets) and wall s. The
+    trace is read as JSON: parsing a window of ~10^5 kernels into profiler
+    events takes minutes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ev = prof.key_averages()
-    launches = sum(e.count for e in ev if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    dev_us = sum(e.self_device_time_total for e in ev
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    return out, launches, dev_us / 1e3, wall
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"chip_smoke_trace_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.remove(path)
+    kernels = sum(1 for e in events if e.get("name") in _KERNEL_LAUNCHES)
+    graphs = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
+    dev_us = sum(e.get("dur", 0) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return dict(out=out, kernel_launches=kernels, graph_launches=graphs,
+                cuda_launches=kernels + graphs, device_ms=dev_us / 1e3, wall_s=wall)
 
 
 def run_sequence(SlamSystem, cfg, cam, frames, device, time_from: int):
@@ -987,6 +1025,285 @@ def wide_k_phase(kitti_frames=None, device: str = "cuda") -> dict:
     return dict(local_ba=local_launches, gba=runs[0]["launches"])
 
 
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two nests of outputs (NaN bits compare equal)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.is_floating_point():
+            ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+            return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+        return torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def max_abs_diff(a, b) -> float:
+    """Largest |a - b| over the float tensors of two nests (0 when equal)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if not a.is_floating_point() or a.numel() == 0:
+            return 0.0 if torch.equal(a, b) else float("inf")
+        return float(torch.nan_to_num((a.double() - b.double()).abs(), nan=0.0).max())
+    if isinstance(a, (tuple, list)):
+        return max([max_abs_diff(x, y) for x, y in zip(a, b)] + [0.0])
+    return 0.0
+
+
+def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda") -> dict:
+    """18. The captured CUDA graphs of the entry points (`utils.cache`), also
+    callable alone. `kitti` is phase 4's (frames, poses), `street` phase
+    10's (frames (image, scan), T_cam_lidar, right images), `rgbd_system`
+    phase 4's graphed system; each is made here when absent.
+    (b) per path (RGB-D, stereo, monocular, fusion: frames 0-15; LiDAR
+    odometry: scans 0-15), a system run graphed and one eagerly
+    (`disable_graphs`): ms per frame (median of frames 4-13), then frames
+    14-15 under torch.profiler (CUDA launches = kernel launches plus
+    `cudaGraphLaunch`, device ms, idle share) with graph captures, replays
+    and host reads per frame;
+    (a) every captured function replayed against its eager run on the
+    inputs of its last call in (b)'s graphed runs (KITTI size: 1226x370,
+    2000 features, 64 x 1800-ray scans, phase 4's local-BA problem): every
+    output bitwise equal (max_abs_err 0), eager and replay ms per call;
+    (c) the graphed and the eager RGB-D runs over phase 4's 16 frames (and
+    phase 4's own system): trajectories, keyframe poses and landmarks
+    bitwise equal;
+    (d) the tracking step's stage A, two designs on (b)'s last RGB-D step:
+    three graphs with the inlier read between them (what the port runs) and
+    one graph that runs stage A at both radii and selects by `torch.where`
+    (no read): wall and CUDA-event ms per step, with and without the retry,
+    both bitwise equal to the eager step.
+    Returns K1 / K2 launches of (b)'s graphed runs."""
+    import contextlib
+
+    import torch
+    from sqrtlm_slam_tpu_torch import utils
+    from sqrtlm_slam_tpu_torch.eval import planeworld, synthetic
+    from sqrtlm_slam_tpu_torch.factors.reprojection import Camera
+    from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch.geometry import se3
+    from sqrtlm_slam_tpu_torch.lidar import features as lidar_features
+    from sqrtlm_slam_tpu_torch.lidar import odometry as odometry_mod
+    from sqrtlm_slam_tpu_torch.ops import hamming
+    from sqrtlm_slam_tpu_torch.optim import assembly
+    from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking
+    from sqrtlm_slam_tpu_torch.pipeline import system as system_mod
+    from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
+    from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackingConfig
+    from sqrtlm_slam_tpu_torch.utils import cache
+
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
+    kcam = Camera(**KITTI_INTRINSICS)
+    n_frames, n_warm, n_timed_from = 16, 14, 4
+    if kitti is None:
+        world = synthetic.SyntheticWorld(seed=1, n_points=3000)
+        poses = synthetic.forward_trajectory(16, step=0.3)
+        kitti = ([world.render(T, kcam, H=KITTI_H, W=KITTI_W) for T in poses], poses)
+    frames, poses = kitti
+    if street is None:
+        world_s = planeworld.street_circuit_world(seed=0)
+        f_poses, _ = planeworld.circuit_trajectory(n_frames, step=0.8, start_s=FUSION_START_S)
+        f_frames, rights = [], []
+        for i, T in enumerate(f_poses):
+            img = world_s.render(T, kcam, H=KITTI_H, W=KITTI_W, noise_seed=i)[0]
+            scan = world_s.lidar_scan(T, planeworld.T_CAM_VELO, n_azimuth=1800, noise_seed=i)
+            pts, T_cv = planeworld.center_scan_on_columns(scan, planeworld.T_CAM_VELO)
+            f_frames.append((img, pts))
+            T_r = synthetic.Pose(T.R, T.t - np.array([kcam.bf / kcam.fx, 0, 0], np.float32))
+            rights.append(world_s.render(T_r, kcam, H=KITTI_H, W=KITTI_W,
+                                         noise_seed=100 + i)[0])
+        T_cl = (T_cv[:3, :3].astype(np.float32), T_cv[:3, 3].astype(np.float32))
+        street = (f_frames, T_cl, rights)
+    f_frames, T_cl, rights = street
+    cfg = SystemConfig(orb=ORBConfig(max_features=2000))
+    f_cfg = cfg._replace(lidar=lidar_features.LidarConfig())
+    mono_cfg = cfg._replace(tracking=TrackingConfig(min_inliers_local=15))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # The last call of every captured function (and of the step), recorded
+    # in the graphed runs of (b).
+    calls, current_path = {}, [None]
+    recorded = [(system_mod, "build_frame_jit"), (system_mod, "build_frame_stereo_jit"),
+                (lidar_features, "extract_features_jit"), (tracking, "_stage_a_jit"),
+                (tracking, "_stages_bc_jit"), (local_mapping, "_bucketed_local_ba_jit"),
+                (tracking, "track_frame_step")]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr in recorded]
+
+    def recorder(key, fn):
+        def call(*a, **k):
+            calls[key(a, k)] = (fn, a, k)
+            return fn(*a, **k)
+        return call
+
+    def key_of(attr):
+        def key(a, k):
+            if attr == "build_frame_jit":
+                return ("build_frame_fusion" if k.get("cloud_lidar") is not None else
+                        "build_frame_rgbd" if k.get("depth_img") is not None else
+                        "build_frame_mono")
+            if attr == "_stages_bc_jit":
+                fused = (len(a) > 8 and a[8] is not None) or k.get("lidar_map") is not None
+                return "stages_bc_fused" if fused else "stages_bc"
+            if attr == "track_frame_step":
+                return f"step_{current_path[0]}"
+            return attr.replace("_jit", "").lstrip("_")
+        return key
+
+    paths = {
+        "rgbd": (lambda: SlamSystem(kcam, cfg, device=dev),
+                 lambda s, i: s.track_depth(*frames[i])),
+        "stereo": (lambda: SlamSystem(kcam, cfg, device=dev),
+                   lambda s, i: s.track_stereo(f_frames[i][0], rights[i])),
+        "mono": (lambda: SlamSystem(kcam, mono_cfg, device=dev),
+                 lambda s, i: s.track_monocular(frames[i][0])),
+        "fusion": (lambda: SlamSystem(kcam, f_cfg, device=dev),
+                   lambda s, i: s.track_fusion(*f_frames[i], T_cam_lidar=T_cl)),
+        "lidar_odometry": (lambda: odometry_mod.LidarOdometry(feat_cfg=f_cfg.lidar, device=dev),
+                           lambda s, i: s.process(f_frames[i][1])),
+    }
+
+    def run_path(name, eager: bool):
+        make, step = paths[name]
+        secs = []
+        with cache.disable_graphs() if eager else contextlib.nullcontext():
+            system = make()
+            for i in range(n_warm):
+                t = time.perf_counter()
+                step(system, i)
+                sync()
+                secs.append(time.perf_counter() - t)
+            utils.graph_captures = utils.graph_replays = utils.host_reads = 0
+            w = profile_window(lambda: [step(system, i) for i in range(n_warm, n_frames)])
+        n_prof = n_frames - n_warm
+        rec = dict(ms_per_frame=1e3 * float(np.median(secs[n_timed_from:])),
+                   first_frame_ms=1e3 * secs[0],
+                   **{k: w[k] / n_prof for k in ("kernel_launches", "graph_launches",
+                                                 "cuda_launches")},
+                   device_ms_per_frame=w["device_ms"] / n_prof,
+                   device_idle_share=1.0 - w["device_ms"] / 1e3 / w["wall_s"],
+                   profiled_ms_per_frame=1e3 * w["wall_s"] / n_prof,
+                   graph_captures_per_frame=utils.graph_captures / n_prof,
+                   graph_replays_per_frame=utils.graph_replays / n_prof,
+                   host_reads_per_frame=utils.host_reads / n_prof)
+        if not (w["kernel_launches"] > 0 and w["device_ms"] > 0):
+            raise AssertionError(f"{name}: the profiler saw no launch or no device time: {rec}")
+        return system, rec
+
+    # (b) graphed and eager, per path ---------------------------------------
+    per_path, systems = {}, {}
+    k1 = k2 = 0
+    for name in paths:
+        hamming.launch_count = assembly.launch_count = 0
+        current_path[0] = name
+        for mod, attr, fn in originals:
+            setattr(mod, attr, recorder(key_of(attr), fn))
+        try:
+            systems[(name, "graphed")], graphed = run_path(name, eager=False)
+        finally:
+            for mod, attr, fn in originals:
+                setattr(mod, attr, fn)
+        k1, k2 = k1 + hamming.launch_count, k2 + assembly.launch_count
+        systems[(name, "eager")], eager = run_path(name, eager=True)
+        per_path[name] = dict(graphed=graphed, eager=eager)
+        emit("graphs_path", path=name, frames=n_frames, timed_frames=[n_timed_from, n_warm - 1],
+             profiled_frames=[n_warm, n_frames - 1], graphed=graphed, eager=eager,
+             launches_ratio=eager["cuda_launches"] / max(graphed["cuda_launches"], 1e-9),
+             ms_ratio=eager["ms_per_frame"] / graphed["ms_per_frame"])
+        if not graphed["graph_replays_per_frame"] > 0:
+            raise AssertionError(f"the graphed {name} run replayed no graph: {graphed}")
+        if eager["graph_replays_per_frame"] or eager["graph_captures_per_frame"]:
+            raise AssertionError(f"the eager {name} run used graphs: {eager}")
+
+    # (a) every captured function against its eager run ---------------------
+    replay = {}
+    for name in ("build_frame_rgbd", "build_frame_mono", "build_frame_fusion",
+                 "build_frame_stereo", "extract_features", "stage_a", "stages_bc",
+                 "stages_bc_fused", "bucketed_local_ba"):
+        if name not in calls:
+            raise AssertionError(f"{name} was never called in the graphed runs: {sorted(calls)}")
+        fn, a, k = calls[name]
+        with cache.disable_graphs():
+            want = fn(*a, **k)
+            eager_ms = wall_ms(lambda: fn(*a, **k), n=3)
+        r0 = utils.graph_replays
+        got = fn(*a, **k)
+        sync()
+        if utils.graph_replays != r0 + 1:
+            raise AssertionError(f"{name}: the graphed call did not replay a graph")
+        replay_ms = wall_ms(lambda: fn(*a, **k), n=10)
+        err = max_abs_diff(got, want)
+        replay[name] = dict(bitwise_equal=same_bits(got, want), max_abs_err=err,
+                            eager_ms=eager_ms, replay_ms=replay_ms)
+        emit("graphs_replay_vs_eager", function=name, **replay[name])
+        if not replay[name]["bitwise_equal"]:
+            raise AssertionError(f"{name}: the replay differs from the eager run (max |d| {err})")
+
+    # (c) phase 4's frames graphed and eager ----------------------------------
+    def state(s):
+        return (s.get_trajectory(), s.store.kf_R, s.store.kf_t, s.store.lm_pos)
+
+    pairs = [(systems[("rgbd", "graphed")], systems[("rgbd", "eager")])]
+    if rgbd_system is not None:
+        pairs.append((rgbd_system, systems[("rgbd", "eager")]))
+    rgbd_equal = all(np.array_equal(x, y) for g, e in pairs
+                     for x, y in zip(state(g), state(e)))
+    emit("graphs_rgbd_graphed_vs_eager", frames=n_frames, compared=len(pairs),
+         bitwise_equal=rgbd_equal,
+         keyframes=systems[("rgbd", "graphed")].num_keyframes(),
+         local_ba=systems[("rgbd", "graphed")].local_mapper.num_local_ba)
+    if not rgbd_equal:
+        raise AssertionError("the graphed and the eager RGB-D runs differ")
+
+    # (d) stage A: three graphs and a read, or one graph and no read ---------
+    def step_design_b(prev_pose, velocity, lm, frame, cam, r_motion, r_local, min_inliers,
+                      close_depth, lidar_map=None, match_dist=0.45, num_levels=8,
+                      scale_factor=1.2):
+        pyr = dict(num_levels=num_levels, scale_factor=scale_factor)
+        fa = frame._replace(lidar=None)
+        a1 = tracking._stage_a(prev_pose, velocity, lm, fa, cam, r_motion, **pyr)
+        a2 = tracking._stage_a(prev_pose, velocity, lm, fa, cam, r_motion * 2, **pyr)
+        retry = a1[3] < min_inliers
+        pose_a = se3.SE3(torch.where(retry, a2[0].R, a1[0].R), torch.where(retry, a2[0].t,
+                                                                            a1[0].t))
+        return tracking._stages_bc(prev_pose, pose_a, torch.where(retry, a2[3], a1[3]), lm,
+                                   frame, cam, r_local, close_depth, lidar_map, match_dist,
+                                   **pyr)
+
+    design_b = cache.graphed(step_design_b, static_argnames=(
+        "cam", "r_motion", "r_local", "min_inliers", "close_depth", "match_dist",
+        "num_levels", "scale_factor"))
+    step_fn, a, k = calls["step_rgbd"]
+    a = (a[0], a[1], a[2]._replace(ids=None)) + tuple(a[3:])
+    designs = {}
+    for retry in (False, True):
+        args = a[:7] + ((10**6,) if retry else a[7:8]) + a[8:]
+        with cache.disable_graphs():
+            want = step_fn(*args, **k)
+        rec = {}
+        for label, fn in (("a_three_graphs_and_a_read", step_fn),
+                          ("b_one_graph_both_radii", design_b)):
+            got = fn(*args, **k)
+            sync()
+            rec[label] = dict(ms=wall_ms(lambda: fn(*args, **k), n=20),
+                              event_ms=cuda_ms(lambda: fn(*args, **k), n=20),
+                              bitwise_equal_to_eager=same_bits(got, want))
+            if not rec[label]["bitwise_equal_to_eager"]:
+                raise AssertionError(f"stage-A design {label} differs from the eager step")
+        designs["retry" if retry else "no_retry"] = rec
+        emit("graphs_stage_a_designs", case="retry" if retry else "no_retry", **rec,
+             note="the port runs design a; ms = wall per step to a synchronize; event_ms = "
+                  "CUDA events around the step (device time plus, for a, the read's gap); "
+                  "'retry' forces the widened second stage A")
+    return dict(hamming=k1, ba_assembly=k2)
+
+
 def main() -> None:
     global CARD
     import torch
@@ -1012,6 +1329,7 @@ def main() -> None:
     from sqrtlm_slam_tpu_torch.ops import build, hamming
     from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
     from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
+    from sqrtlm_slam_tpu_torch.utils import cache
 
     CARD = card_line()
     dev = torch.device("cuda", 0)
@@ -1136,9 +1454,11 @@ def main() -> None:
     cfg = SystemConfig(orb=ORBConfig(max_features=2000))
     hamming.launch_count = 0
     assembly.launch_count = 0
-    utils.host_reads = 0
+    utils.host_reads = utils.graph_captures = utils.graph_replays = 0
     t0 = time.perf_counter()
-    system, secs, tracked = run_sequence(SlamSystem, cfg, kcam, frames, dev, time_from=5)
+    system, secs, tracked = run_sequence(SlamSystem, cfg, kcam, frames, dev, time_from=0)
+    first_frames_ms = [1e3 * x for x in secs[:5]]  # the graphs' captures fall here
+    secs = secs[5:]
     wall = time.perf_counter() - t0
     launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count}
     reads = utils.host_reads
@@ -1147,8 +1467,10 @@ def main() -> None:
                 landmarks=system.num_landmarks(), local_ba=system.local_mapper.num_local_ba,
                 launches=launches, ate_m=ate,
                 tracked_frames_per_s=1.0 / float(np.median(secs)),
-                median_ms=1e3 * float(np.median(secs)),
-                host_reads_per_frame=reads / len(frames), wall_s=wall)
+                median_ms=1e3 * float(np.median(secs)), first_frames_ms=first_frames_ms,
+                host_reads_per_frame=reads / len(frames),
+                graph_captures=utils.graph_captures,
+                graph_replays_per_frame=utils.graph_replays / len(frames), wall_s=wall)
     emit("main_path_kitti", **main)
     if tracked != len(frames):
         raise AssertionError(f"tracked {tracked}/{len(frames)} frames")
@@ -1456,54 +1778,38 @@ def main() -> None:
     # The map's frame is the first camera's: ground truth relative to frame 0.
     f_gt_rel = np.linalg.inv(f_gt[0]) @ f_gt
 
-    def fusion_run(profile_last: int = 0):
+    def fusion_run():
         """One pass over the fusion frames: (system, seconds per frame, tracked,
-        LiDAR associations per frame, profiler events or None)."""
+        LiDAR associations per frame)."""
         sysf = SlamSystem(kcam, f_cfg, device=dev)
-        secs, hits, tracked, prof = [], [], 0, None
-        for i, (img, pts) in enumerate(f_frames[:n_fusion]):
-            if profile_last and i == n_fusion - profile_last:
-                from torch.profiler import ProfilerActivity, profile
-                torch.cuda.synchronize()
-                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                prof.__enter__()
-                t_prof = time.perf_counter()
+        secs, hits, tracked = [], [], 0
+        for img, pts in f_frames[:n_fusion]:
             t = time.perf_counter()
             pose = sysf.track_fusion(img, pts, T_cam_lidar=T_cl)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
             tracked += pose is not None
             hits.append(sysf.tracker.last_lidar_matches)
-        events = None
-        if prof is not None:
-            wall = time.perf_counter() - t_prof
-            prof.__exit__(None, None, None)
-            ev = prof.key_averages()
-            dev_us = sum(e.self_device_time_total for e in ev
-                         if e.device_type == torch.autograd.DeviceType.CUDA)
-            n_launch = sum(e.count for e in ev if e.key in (
-                "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-            events = dict(profiled_frames=profile_last,
-                          launches_per_frame=n_launch / profile_last,
-                          device_ms_per_frame=dev_us / 1e3 / profile_last,
-                          device_idle_share=1.0 - (dev_us / 1e6) / wall)
-        return sysf, secs, tracked, hits, events
+        return sysf, secs, tracked, hits
 
     hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
-    utils.host_reads = 0
+    utils.host_reads = utils.graph_captures = utils.graph_replays = 0
     t0 = time.perf_counter()
-    fus, f_secs, f_tracked, f_hits, _ = fusion_run()
+    fus, f_secs, f_tracked, f_hits = fusion_run()
     fusion_wall = time.perf_counter() - t0
     fusion_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count}
     f_reads = utils.host_reads
+    f_graphs = dict(graph_captures=utils.graph_captures,
+                    graph_replays_per_frame=utils.graph_replays / n_fusion)
     f_est = fus.get_trajectory()
     f_ate, _ = ate_rmse(f_est, f_gt[: len(f_est)], align_scale=False)
 
-    # The same frames again, every stage bracketed by synchronizes.
+    # The same frames again, eagerly (`disable_graphs`: a synchronize cannot
+    # stand inside a captured graph), every stage bracketed by synchronizes.
     stage_s = {}
 
     patched = [
-        (system_mod, "build_frame", "build_frame"),
+        (system_mod, "build_frame_jit", "build_frame"),
         (frame_mod.orb, "extract", "orb_extract"),
         (lidar_features, "extract_features", "lidar_extract_features"),
         (frame_mod, "project_cloud_to_depth_image", "project_cloud_to_depth_image"),
@@ -1515,25 +1821,21 @@ def main() -> None:
         (tracking.Tracker, "_store_kf_lidar", "store_kf_lidar"),
     ]
     originals = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patched]
-    n_prof = 3
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for obj, attr, name in patched:
             setattr(obj, attr, staged_into(stage_s, name, getattr(obj, attr)))
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fus2, _, f_tracked2, f_hits2, f_prof = fusion_run(profile_last=n_prof)
+            with cache.disable_graphs():
+                fus2, _, f_tracked2, f_hits2 = fusion_run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
             for obj, attr, fn in originals:
                 setattr(obj, attr, fn)
     f_syncs = sum("synchroniz" in str(w.message) for w in caught)
-    # Stage medians over the frames outside the profiler's window.
     n_calls = {k: len(v) for k, v in stage_s.items()}
-    per_frame = ("build_frame", "orb_extract", "lidar_extract_features",
-                 "project_cloud_to_depth_image", "associate_depth")
-    stage_ms = {k: 1e3 * float(np.median(v[: n_fusion - n_prof] if k in per_frame else v))
-                for k, v in stage_s.items()}
+    stage_ms = {k: 1e3 * float(np.median(v)) for k, v in stage_s.items()}
     fusion_equal = all(np.array_equal(a, b) for a, b in (
         (f_est, fus2.get_trajectory()), (fus.store.kf_R, fus2.store.kf_R),
         (fus.store.kf_t, fus2.store.kf_t), (fus.store.lm_pos, fus2.store.lm_pos),
@@ -1542,20 +1844,24 @@ def main() -> None:
     fusion = dict(
         frames=n_fusion, tracked=f_tracked, tracked_rerun=f_tracked2,
         points_per_scan=int(np.mean([len(p) for _, p in f_frames])),
+        padded_scan_rows=sorted({len(lidar_features.pad_cloud(p)) for _, p in f_frames}),
         keyframes=fus.num_keyframes(), landmarks=fus.num_landmarks(),
         local_ba=fus.local_mapper.num_local_ba, lidar_stages=fus.local_mapper.num_lidar_stages,
         lidar_matches_min=int(min(steady_hits)), lidar_matches_median=float(np.median(steady_hits)),
         launches=fusion_launches, ate_m=f_ate,
         tracked_frames_per_s=1.0 / float(np.median(f_secs[5:])),
         median_ms=1e3 * float(np.median(f_secs[5:])), max_ms=1e3 * float(np.max(f_secs[5:])),
-        host_reads_per_frame=f_reads / n_fusion,
+        host_reads_per_frame=f_reads / n_fusion, **f_graphs,
         synchronizing_ops_per_frame=f_syncs / n_fusion,
-        stage_ms_median=stage_ms, stage_calls=n_calls, **f_prof,
+        stage_ms_median=stage_ms, stage_calls=n_calls,
         rerun_bitwise_equal=fusion_equal, start_s=FUSION_START_S,
         yaw_turned_deg=yaw_turned, world_s=world_s,
         render_s_per_frame=render_s / len(f_frames), wall_s=fusion_wall,
-        note="stage times and synchronizing operations from the second run "
-             "(torch.cuda.set_sync_debug_mode('warn'), stages bracketed by synchronizes)")
+        note="the first run graphed (the entry point's default), the second eager; stage "
+             "times and synchronizing operations from the second "
+             "(torch.cuda.set_sync_debug_mode('warn'), stages bracketed by synchronizes); "
+             "rerun_bitwise_equal compares the two; launches, device ms and idle share "
+             "graphed and eager: phase 18")
     emit("fusion_kitti", **fusion)
     if abs(yaw_turned) < 30.0:
         raise AssertionError(f"the fusion window turns {yaw_turned} degrees, not >= 30")
@@ -1571,7 +1877,7 @@ def main() -> None:
     if min(fusion_launches.values()) <= 0:
         raise AssertionError(f"fusion: a kernel never launched: {fusion_launches}")
     if not fusion_equal or f_hits != f_hits2:
-        raise AssertionError("two fusion runs on the card differ")
+        raise AssertionError("the graphed and the eager fusion runs on the card differ")
     del fus2
 
     # 11. Relocalisation and map resume ------------------------------------
@@ -1664,7 +1970,7 @@ def main() -> None:
     sel0 = gt0 > 0
     stereo_depth_err = float(np.median(np.abs(d0[ok0][sel0] - gt0[sel0]) / gt0[sel0]))
     hamming.launch_count = assembly.launch_count = 0
-    utils.host_reads = 0
+    utils.host_reads = utils.graph_captures = utils.graph_replays = 0
     st = SlamSystem(kcam, cfg, device=dev)
     st_secs, st_tracked = [], 0
     for i, (img_l, img_r) in enumerate(zip(lefts, rights)):
@@ -1675,11 +1981,12 @@ def main() -> None:
         st_tracked += pose is not None
     stereo_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count}
     st_reads = utils.host_reads
+    st_graphs = dict(graph_captures=utils.graph_captures,
+                     graph_replays_per_frame=utils.graph_replays / len(lefts))
     st_est = st.get_trajectory()
     st_ate, _ = ate_rmse(st_est, f_gt_rel[: len(st_est)], align_scale=False)
     # All CUDA launches of two steady stereo frames.
-    _, st_all_launches, st_dev_ms, st_wall = profiled(
-        lambda: [st.track_stereo(lefts[k], rights[k]) for k in (14, 15)])
+    st_prof = profile_window(lambda: [st.track_stereo(lefts[k], rights[k]) for k in (14, 15)])
     emit("stereo_kitti", scene="street_circuit_world(seed=0), fusion frames 0-15",
          frames=len(lefts), tracked=st_tracked, keyframes=st.num_keyframes(),
          landmarks=st.num_landmarks(), local_ba=st.local_mapper.num_local_ba,
@@ -1687,11 +1994,12 @@ def main() -> None:
          ate_m=st_ate, median_ms=1e3 * float(np.median(st_secs[5:])),
          max_ms=1e3 * float(np.max(st_secs[5:])), launches=stereo_launches,
          kernel_launches_per_frame={k: v / len(lefts) for k, v in stereo_launches.items()},
-         cuda_launches_per_frame=st_all_launches / 2, device_ms_per_frame=st_dev_ms / 2,
-         device_idle_share=1.0 - st_dev_ms / 1e3 / st_wall,
-         host_reads_per_frame=st_reads / len(lefts),
-         note="cuda launches, device ms and idle share from torch.profiler over frames "
-              "14-15 tracked again after the run")
+         cuda_launches_per_frame=st_prof["cuda_launches"] / 2,
+         device_ms_per_frame=st_prof["device_ms"] / 2,
+         device_idle_share=1.0 - st_prof["device_ms"] / 1e3 / st_prof["wall_s"],
+         host_reads_per_frame=st_reads / len(lefts), **st_graphs,
+         note="cuda launches (kernels and graph launches), device ms and idle share from "
+              "torch.profiler over frames 14-15 tracked again after the run")
     if st_tracked < 13:
         raise AssertionError(f"stereo tracked {st_tracked}/{len(lefts)}")
     if not stereo_depth_err < 0.06:
@@ -1722,7 +2030,7 @@ def main() -> None:
     mono_cfg = SystemConfig(orb=ORBConfig(max_features=2000),
                             tracking=TrackingConfig(min_inliers_local=15))
     hamming.launch_count = assembly.launch_count = 0
-    utils.host_reads = 0
+    utils.host_reads = utils.graph_captures = utils.graph_replays = 0
     mono = SlamSystem(kcam, mono_cfg, device=dev)
     mono_secs, mono_tracked = [], 0
     tracking.initializer.initialize_two_view = timed_two_view
@@ -1737,6 +2045,8 @@ def main() -> None:
         tracking.initializer.initialize_two_view = two_view
     mono_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count}
     mono_reads = utils.host_reads
+    mono_graphs = dict(graph_captures=utils.graph_captures,
+                       graph_replays_per_frame=utils.graph_replays / len(frames))
     mono_est = mono.get_trajectory()
     mono_ate, _ = ate_rmse(mono_est, gt_cam_to_world(poses[-len(mono_est):]), align_scale=True)
     inits = [c for c in init_calls if c["success"]]
@@ -1760,7 +2070,7 @@ def main() -> None:
          ate_sim3_m=mono_ate, median_ms=1e3 * float(np.median(mono_secs[5:])),
          max_ms=1e3 * float(np.max(mono_secs[5:])), launches=mono_launches,
          kernel_launches_per_frame={k: v / len(frames) for k, v in mono_launches.items()},
-         host_reads_per_frame=mono_reads / len(frames))
+         host_reads_per_frame=mono_reads / len(frames), **mono_graphs)
     if mono.num_keyframes() < 2 or mono.num_landmarks() <= 80:
         raise AssertionError(f"mono: {mono.num_keyframes()} keyframes, "
                              f"{mono.num_landmarks()} landmarks")
@@ -1792,28 +2102,31 @@ def main() -> None:
             stats.append(odo.last_stats)
         return odo, secs, stats
 
-    utils.host_reads = 0
+    utils.host_reads = utils.graph_captures = utils.graph_replays = 0
     t0 = time.perf_counter()
     odo, l_secs, l_stats = odometry_run()
     odo_wall = time.perf_counter() - t0
     l_reads = utils.host_reads
+    l_graphs = dict(graph_captures=utils.graph_captures,
+                    graph_replays_per_scan=utils.graph_replays / len(scans))
     l_matches = [int(s["matches"]) for s in l_stats[1:]]
     def sensor_to_world(chain):  # T_lw poses -> (N, 4, 4) LiDAR -> world
         return gt_cam_to_world([synthetic.Pose(*utils.to_host(p.R, p.t)) for p in chain])
 
     l_est = sensor_to_world(odo._chain)
     l_ate, _ = ate_rmse(l_est, l_gt, align_scale=False)
-    # Again, the feature extraction and the alignment bracketed by
-    # synchronizes, the last scans under the profiler.
+    # Again eagerly (`disable_graphs`), the feature extraction and the
+    # alignment bracketed by synchronizes, the last scans under the profiler.
     stage_l = {}
-    l_patched = [(lidar_features, "extract_features", "features"),
+    l_patched = [(lidar_features, "extract_features_jit", "features"),
                  (odometry_mod, "align_scan", "align_scan")]
     l_orig = [(o, a, getattr(o, a)) for o, a, _ in l_patched]
     for o, a, name in l_patched:
         setattr(o, a, staged_into(stage_l, name, getattr(o, a)))
     try:
-        odo2, _, _ = odometry_run()
-        _, l_launch, l_dev_ms, l_wall = profiled(lambda: [odo2.process(p) for p in scans[-3:]])
+        with cache.disable_graphs():
+            odo2, _, _ = odometry_run()
+            l_prof = profile_window(lambda: [odo2.process(p) for p in scans[-3:]])
     finally:
         for o, a, fn in l_orig:
             setattr(o, a, fn)
@@ -1832,24 +2145,27 @@ def main() -> None:
     c_last = sensor_to_world(chain[-1:])[0]
     drift_after = float(np.linalg.norm(c_last[:3, 3] - l_gt[-1][:3, 3]))
     emit("lidar_odometry", scans=len(scans), points_per_scan=int(np.mean([len(p) for p in scans])),
+         padded_scan_rows=sorted({len(lidar_features.pad_cloud(p)) for p in scans}),
          keyframes=odo.num_keyframes, ate_m=l_ate, matches_min=int(min(l_matches)),
          matches_median=float(np.median(l_matches)),
          median_ms=1e3 * float(np.median(l_secs[1:])), max_ms=1e3 * float(np.max(l_secs[1:])),
          stage_ms_median={k: 1e3 * float(np.median(v)) for k, v in stage_l.items()},
-         cuda_launches_per_scan=l_launch / 3, device_ms_per_scan=l_dev_ms / 3,
-         device_idle_share=1.0 - l_dev_ms / 1e3 / l_wall,
-         host_reads_per_scan=l_reads / len(scans), rerun_bitwise_equal=l_equal,
+         cuda_launches_per_scan=l_prof["cuda_launches"] / 3,
+         device_ms_per_scan=l_prof["device_ms"] / 3,
+         device_idle_share=1.0 - l_prof["device_ms"] / 1e3 / l_prof["wall_s"],
+         host_reads_per_scan=l_reads / len(scans), **l_graphs, rerun_bitwise_equal=l_equal,
          yaw_turned_deg=yaw_turned, end_drift_before_m=drift_before,
          end_drift_after_backend_m=drift_after, backend_ms=backend_ms, wall_s=odo_wall,
-         note="stage times from the second run (stages bracketed by synchronizes); "
-              "launches, device ms and idle share from torch.profiler over its last 3 scans "
-              "processed again")
+         note="the first run graphed, the second eager; stage times from the second "
+              "(stages bracketed by synchronizes); launches, device ms and idle share from "
+              "torch.profiler over its last 3 scans processed again; rerun_bitwise_equal "
+              "compares the two")
     if not l_ate < 0.5:
         raise AssertionError(f"LiDAR odometry ATE {l_ate} m >= 0.5 m")
     if min(l_matches) <= 100:
         raise AssertionError(f"LiDAR odometry associations per scan {l_matches}")
     if not l_equal:
-        raise AssertionError("two LiDAR odometry runs on the card differ")
+        raise AssertionError("the graphed and the eager LiDAR odometry runs on the card differ")
     if not drift_after < 0.3 * drift_before:
         raise AssertionError(f"backend_for_loop: end drift {drift_before} -> {drift_after} m")
     del odo, odo2
@@ -1866,6 +2182,10 @@ def main() -> None:
     # 17. More than 16 slots per landmark: local BA and global BA ----------
     wide_launches = wide_k_phase(kitti_frames=list(zip(frames[:10], poses[:10])))
 
+    # 18. The captured CUDA graphs against the eager port --------------------
+    graph_launches = graphs_phase(kitti=(frames, poses), street=(f_frames[:16], T_cl, rights),
+                                  rgbd_system=system)
+
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by") + keys}
@@ -1880,7 +2200,8 @@ def main() -> None:
                                    ring_loop=loop_launches["hamming"],
                                    stereo=stereo_launches["hamming"],
                                    mono=mono_launches["hamming"],
-                                   kitti_runner=runner_launches["hamming"]),
+                                   kitti_runner=runner_launches["hamming"],
+                                   graphs_paths=graph_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
@@ -1895,7 +2216,8 @@ def main() -> None:
                                    kitti_runner=runner_launches["ba_assembly"],
                                    dist_ba=dist_launches["ba_assembly"],
                                    local_ba_obs_cap_24=wide_launches["local_ba"]["ba_assembly"],
-                                   gba_obs_per_landmark_32=wide_launches["gba"]["ba_assembly"]),
+                                   gba_obs_per_landmark_32=wide_launches["gba"]["ba_assembly"],
+                                   graphs_paths=graph_launches["ba_assembly"]),
              max_abs_err=k2_err,
              **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_tracking.py            # RGB-D, bench shape
     python3 scripts/profile_torch_tracking.py --fusion   # camera+LiDAR, KITTI size
+    ... --eager                                          # op by op, no CUDA graphs
 
 Runs `sqrtlm_slam_tpu_torch` SlamSystem.track_depth over the bench.py
 tracking scene (240x320 synthetic world, seed 1, 1200 points, step 0.3 m)
@@ -19,6 +20,10 @@ default LidarConfig and TrackingConfig) through
 `SlamSystem.track_fusion` (20 frames, the last 4 profiled), and the stage
 split also times the parts of the frame build (ORB, LiDAR features, cloud
 projection, depth association) and the LiDAR stage of local BA.
+The entry points replay captured CUDA graphs (`utils.cache`); `--eager`
+runs them op by op (`disable_graphs`), and only then are the frame
+build's parts timed (a synchronize cannot stand inside a captured graph).
+Launches per frame count kernel launches and graph launches.
 The first lines carry the card's name and power limit from nvidia-smi.
 """
 
@@ -58,10 +63,8 @@ def fusion_scene(n_frames: int):
     return cam, cfg, frames, T_cl
 
 
-def main() -> None:
+def run(fusion: bool, eager: bool) -> None:
     import torch
-
-    fusion = "--fusion" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         sys.exit("profile_torch_tracking: needs a CUDA device")
@@ -90,7 +93,7 @@ def main() -> None:
             return out
         return wrapper
 
-    system.build_frame = timed("build_frame", system.build_frame)
+    system.build_frame_jit = timed("build_frame", system.build_frame_jit)
     tracking.track_frame_step = timed("track_frame_step", tracking.track_frame_step)
     local_mapping.LocalMapper.process_keyframe = timed(
         "process_keyframe", local_mapping.LocalMapper.process_keyframe)
@@ -98,12 +101,13 @@ def main() -> None:
 
     n_prof = 4
     if fusion:
-        frame_mod.orb.extract = timed("orb_extract", frame_mod.orb.extract)
-        lidar_features.extract_features = timed("lidar_extract_features",
-                                                lidar_features.extract_features)
-        frame_mod.project_cloud_to_depth_image = timed(
-            "project_cloud_to_depth_image", frame_mod.project_cloud_to_depth_image)
-        frame_mod.associate_depth = timed("associate_depth", frame_mod.associate_depth)
+        if eager:
+            frame_mod.orb.extract = timed("orb_extract", frame_mod.orb.extract)
+            lidar_features.extract_features = timed("lidar_extract_features",
+                                                    lidar_features.extract_features)
+            frame_mod.project_cloud_to_depth_image = timed(
+                "project_cloud_to_depth_image", frame_mod.project_cloud_to_depth_image)
+            frame_mod.associate_depth = timed("associate_depth", frame_mod.associate_depth)
         local_mapping.LocalMapper._lidar_stage = timed(
             "lidar_stage", local_mapping.LocalMapper._lidar_stage)
         tracking.Tracker._gather_lidar_local_map = timed(
@@ -127,7 +131,7 @@ def main() -> None:
     print(json.dumps({
         "stages_ms_median": {k: 1e3 * float(np.median(v)) for k, v in stage_s.items()},
         "stage_calls": {k: len(v) for k, v in stage_s.items()},
-        "mode": "fusion" if fusion else "rgbd", "tracked": tracked,
+        "mode": "fusion" if fusion else "rgbd", "graphs": not eager, "tracked": tracked,
         "frames": len(frames) - n_prof, "keyframes": s.num_keyframes(),
         "last_lidar_matches": s.tracker.last_lidar_matches, "card": card}), flush=True)
 
@@ -145,6 +149,7 @@ def main() -> None:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                         "cudaLaunchKernelExC"))
+    graph_launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
     top_dev = sorted((e for e in events if e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)[:12]
     top_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:12]
@@ -153,10 +158,22 @@ def main() -> None:
         "device_ms_per_frame": dev_us / 1e3 / n_prof,
         "device_idle_share": 1.0 - (dev_us / 1e6) / wall,
         "kernel_launches_per_frame": launches / n_prof,
+        "graph_launches_per_frame": graph_launches / n_prof,
+        "cuda_launches_per_frame": (launches + graph_launches) / n_prof,
         "keyframes": s.num_keyframes(),
         "top_device": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top_dev],
         "top_host_self_ms": [(e.key[:60], e.count, e.self_cpu_time_total / 1e3) for e in top_cpu],
         "card": card}), flush=True)
+
+
+def main() -> None:
+    import contextlib
+
+    from sqrtlm_slam_tpu_torch.utils import cache
+
+    eager = "--eager" in sys.argv[1:]
+    with cache.disable_graphs() if eager else contextlib.nullcontext():
+        run(fusion="--fusion" in sys.argv[1:], eager=eager)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@ level); BoW vectors are dense L1-normalised tf-idf arrays scored by
 ``sum(min(q, m))``. Descriptors and centroids are (N, 8) int32 holding the
 uint32 bits (`utils.desc_to_torch`); popcount is the port's byte table.
 
-`load_default` reads the vocabulary the JAX package ships
-(`sqrtlm_slam_tpu/assets/orbvoc_synth_k10_d4.npz`) by file path with numpy;
+`load_default` reads the shipped vocabulary from the port's own asset
+(`sqrtlm_slam_tpu_torch/assets/orbvoc_synth_k10_d4.npz`, a byte-for-byte copy
+of the JAX package's) by file path with numpy;
 `train` is the same host-side numpy k-medians, for systems built without a
 vocabulary; `save` writes the JAX package's npz layout.
 """
@@ -24,8 +25,7 @@ import torch
 from ..ops.hamming import popcount_words
 from ..utils import desc_to_numpy, desc_to_torch
 
-DEFAULT_ASSET = (Path(__file__).resolve().parents[2] / "sqrtlm_slam_tpu" / "assets"
-                 / "orbvoc_synth_k10_d4.npz")
+DEFAULT_ASSET = Path(__file__).resolve().parents[1] / "assets" / "orbvoc_synth_k10_d4.npz"
 
 
 class Vocabulary(NamedTuple):

@@ -7,8 +7,11 @@ each ring, corner / flat picks per (ring, subregion), and plane normals from
 a 3-ring x 7-column neighbourhood fit. Outputs are fixed-capacity feature
 sets with validity masks.
 
-Clouds of any length are taken as they are (no padding to a size bucket);
-rows holding NaN are inert: `ring_and_azimuth` keeps only finite ranges.
+`extract_features` takes clouds of any length as they are; rows holding
+NaN are inert: `ring_and_azimuth` keeps only finite ranges. The captured
+entry `extract_features_jit` (`utils.cache`) is paired with `pad_cloud`,
+which pads a scan with NaN rows to a size bucket, so that one graph serves
+scans of varying length; the padding changes no feature.
 
 Where the JAX package leaves a tie to the backend, the port fixes the rule
 so that every device gives the same result:
@@ -23,9 +26,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..optim.schur_bucketed import chol3x3, trinv_lower3x3
+from ..utils import cache
 
 
 class LidarConfig(NamedTuple):
@@ -52,6 +57,27 @@ class LidarConfig(NamedTuple):
     @property
     def num_cols(self) -> int:
         return int(round(360.0 / self.horizon_res_deg))
+
+
+def pad_cloud(points, bucket: int = 16384):
+    """Pad an (N, D) cloud with NaN rows to the next multiple of `bucket`
+    rows (at least one bucket), so that scans of varying length share one
+    captured graph per size bucket. NaN rows are inert in every consumer:
+    `ring_and_azimuth` keeps only finite ranges and
+    `project_cloud_to_depth_image` rejects them (NaN fails z > 0.1).
+    A numpy array (or anything numpy takes) comes back as a float32 numpy
+    array, as the JAX package pads it; a tensor is padded on its device."""
+    n = points.shape[0]
+    cap = max(bucket, -(-n // bucket) * bucket)
+    if isinstance(points, torch.Tensor):
+        pts = points.to(torch.float32)
+        nan = torch.full((cap - n, pts.shape[1]), math.nan, dtype=torch.float32,
+                         device=pts.device)
+        return torch.cat([pts, nan]) if cap != n else pts
+    pts = np.asarray(points, np.float32)
+    if cap != n:
+        pts = np.concatenate([pts, np.full((cap - n, pts.shape[1]), np.nan, np.float32)])
+    return pts
 
 
 class RangeImage(NamedTuple):
@@ -312,3 +338,9 @@ def transform_features(feat: LidarFeatures, R: torch.Tensor, t: torch.Tensor) ->
         flat_d=feat.flat_d - torch.sum(n_new * t, dim=-1),
         less_flat=rot(feat.less_flat) + t,
     )
+
+
+# The extraction as a captured CUDA graph per cloud shape and configuration
+# (the JAX package's jit entry): pair it with `pad_cloud` so that scans of
+# varying length replay one graph. The eager function on the CPU.
+extract_features_jit = cache.graphed(extract_features, static_argnames=("cfg",))

@@ -200,9 +200,11 @@ class LidarOdometry:
 
     def process(self, points, dof: Optional[str] = None) -> se3.SE3:
         """Track one raw LiDAR cloud (N, 3) in the sensor frame (an array or
-        a tensor; scans of any length are taken as they are)."""
-        pts = torch.as_tensor(points).to(device=self.device, dtype=torch.float32)
-        return self.process_features(feat.extract_features(pts[:, :3], self.feat_cfg), dof=dof)
+        a tensor). The cloud is padded to a size bucket (`pad_cloud`), so
+        scans of varying length replay one captured extraction graph."""
+        pts = torch.as_tensor(feat.pad_cloud(points)).to(device=self.device)
+        return self.process_features(feat.extract_features_jit(pts[:, :3], self.feat_cfg),
+                                     dof=dof)
 
     def process_features(self, f: feat.LidarFeatures, dof: Optional[str] = None) -> se3.SE3:
         """Track one pre-extracted feature scan. `dof` optionally names a

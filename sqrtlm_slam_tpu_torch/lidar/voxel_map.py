@@ -14,6 +14,7 @@ voxel), and among equally distant candidates the lowest candidate slot wins
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -25,6 +26,13 @@ _COORD_OFF = 1 << (_COORD_BITS - 1)
 _INVALID_KEY = 2**31 - 1
 
 _NEIGHBOR_OFFSETS = [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _neighbor_offsets(device: torch.device) -> torch.Tensor:
+    """(27, 3) int32 cell offsets, kept on `device` once per process (no
+    host-to-device copy per query: a captured graph takes none)."""
+    return torch.tensor(_NEIGHBOR_OFFSETS, dtype=torch.int32, device=device)
 
 
 def _voxel_key(ijk: torch.Tensor) -> torch.Tensor:
@@ -72,7 +80,7 @@ def knn(vm: VoxelMap, queries: torch.Tensor, k: int = 1, max_per_cell: int = 8,
     finite = torch.isfinite(queries).all(dim=-1)
     q = torch.where(finite[:, None], queries, torch.zeros_like(queries))
     qijk = torch.floor(q / vm.cell).to(torch.int32)
-    offsets = torch.tensor(_NEIGHBOR_OFFSETS, dtype=torch.int32, device=dev)
+    offsets = _neighbor_offsets(dev)
     nkeys = _voxel_key(qijk[:, None, :] + offsets[None, :, :])  # (Q, 27)
 
     lo = torch.searchsorted(vm.keys, nkeys.contiguous())  # left side, (Q, 27)

@@ -17,6 +17,7 @@ import functools
 
 import torch
 
+from ..utils import cache
 from . import build
 
 _WORDS = 8
@@ -24,7 +25,8 @@ _WORDS = 8
 # (rows, T, 32) byte intermediate.
 _PLAIN_ROWS = 256
 
-# Number of K1 launches in this process (reset by callers that count).
+# Number of K1 launches in this process (reset by callers that count; a
+# captured graph adds its launches at each replay, `utils.cache`).
 launch_count = 0
 
 
@@ -78,7 +80,6 @@ def _launch_fn():
 
 def hamming_matrix_cuda(desc_q: torch.Tensor, desc_t: torch.Tensor) -> torch.Tensor:
     """Launch K1 on the current stream: (Q, 8) x (T, 8) int32 -> (Q, T) int32."""
-    global launch_count
     _check_desc(desc_q, "desc_q")
     _check_desc(desc_t, "desc_t")
     if desc_q.device != desc_t.device:
@@ -92,7 +93,7 @@ def hamming_matrix_cuda(desc_q: torch.Tensor, desc_t: torch.Tensor) -> torch.Ten
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(desc_q.data_ptr(), desc_t.data_ptr(), out.data_ptr(), Q, T, stream)
     build.check(rc, "hamming_launch")
-    launch_count += 1
+    cache.count_launch(__name__, "launch_count")
     return out
 
 

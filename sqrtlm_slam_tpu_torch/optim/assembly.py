@@ -30,10 +30,12 @@ import torch
 from ..factors import reprojection as reproj
 from ..geometry import se3
 from ..ops import build
+from ..utils import cache
 from . import loss as losses
 from . import segment
 
-# Number of K2 and of K3 launches in this process (reset by callers that count).
+# Number of K2 and of K3 launches in this process (reset by callers that
+# count; a captured graph adds its launches at each replay, `utils.cache`).
 launch_count = 0
 chi2_launch_count = 0
 
@@ -82,8 +84,9 @@ def reductions(terms, obs_cam, pose_free, P: int) -> AssemblyOut:
     Hll = torch.einsum("lkri,lk,lkrj->lij", Jl, w, Jl)
     bl = torch.einsum("lkri,lk,lkr->li", Jl, w, r)
     U = torch.einsum("lkri,lk,lkrj->lkij", Jp, w, Jl)
-    # Camera-keyed sums as a one-hot matmul (a fixed summation order).
-    O = torch.nn.functional.one_hot(cam_idx.reshape(-1), P).to(r.dtype)  # (L*K, P)
+    # Camera-keyed sums as a one-hot matmul (a fixed summation order); the
+    # one-hot by comparison (`one_hot` checks its classes on the host).
+    O = (cam_idx.reshape(-1, 1) == torch.arange(P, device=r.device)).to(r.dtype)  # (L*K, P)
     Hpp = (O.T @ torch.einsum("lkri,lk,lkrj->lkij", Jp, w, Jp).reshape(L * K, 36))
     bp = O.T @ torch.einsum("lkri,lk,lkr->lki", Jp, w, r).reshape(L * K, 6)
     return AssemblyOut(Hll, bl, U, Hpp.reshape(P, 6, 6), bp, chi2)
@@ -186,7 +189,6 @@ def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
                   groups: segment.KeyGroups) -> AssemblyOut:
     """Launch K2 on the current stream (all inputs on one CUDA device).
     `groups` lists the active slots of `obs_cam` by camera (P keys)."""
-    global launch_count
     device = points.device
     if device.type != "cuda":
         raise ValueError(f"assemble_cuda: expected CUDA tensors, got {device}")
@@ -230,7 +232,7 @@ def assemble_cuda(pose_R, pose_t, pose_free, points, obs_cam, obs_uvr, w_active,
             Hpp.data_ptr(), bp.data_ptr(), chi2.data_ptr(), stream,
         )
     build.check(rc, "ba_assembly_launch")
-    launch_count += 1
+    cache.count_launch(__name__, "launch_count")
     return AssemblyOut(Hll, bl, U, Hpp, bp, chi2)
 
 
@@ -294,7 +296,6 @@ def chi2_cuda(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Ca
               robust_delta: Optional[float]) -> torch.Tensor:
     """Launch K3 on the current stream (all inputs on one CUDA device): one
     kernel launch, no pose cap."""
-    global chi2_launch_count
     device = points.device
     if device.type != "cuda":
         raise ValueError(f"chi2_cuda: expected CUDA tensors, got {device}")
@@ -325,7 +326,7 @@ def chi2_cuda(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Ca
             partial.data_ptr(), ticket.data_ptr(), chi2.data_ptr(), stream,
         )
     build.check(rc, "ba_chi2_launch")
-    chi2_launch_count += 1
+    cache.count_launch(__name__, "chi2_launch_count")
     return chi2
 
 

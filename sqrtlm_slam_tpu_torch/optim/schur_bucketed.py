@@ -250,7 +250,8 @@ def _pieces_tail(problem: BucketedBAProblem, Hll, bl, U, Hpp, bp, chi2, mu) -> L
     dtype, dev = bl.dtype, bl.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
-    O = torch.nn.functional.one_hot(problem.obs_cam.long(), P).to(dtype)  # (L, K, P)
+    # (L, K, P) one-hot by comparison: `one_hot` checks its classes on the host.
+    O = (problem.obs_cam.long()[..., None] == torch.arange(P, device=dev)).to(dtype)
 
     dll = torch.diagonal(Hll, dim1=-2, dim2=-1)
     Hll_d = Hll + mu * dll[..., None] * eye3 + 1e-8 * eye3
@@ -363,8 +364,9 @@ def _ba_iterate_core(problem: BucketedBAProblem, reduce_fn, num_iters: int):
     accept test; on acceptance it becomes the next carry)."""
     red = reduce_fn(problem)
     dtype, dev = problem.points.dtype, problem.points.device
-    mu = torch.tensor(1e-3, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    # Filled on the device: no host-to-device copy (a captured graph has none).
+    mu = torch.full((), 1e-3, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
     n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     prob = problem
     for _ in range(num_iters):

@@ -14,6 +14,11 @@ matches left to right inside a row band and a disparity range (one K1
 launch), and refines each match to subpixel by a 5x5 SAD search along the
 row with a parabola fit. Without any depth source every keypoint is
 monocular (`u_right = -1`).
+
+`build_frame_jit` and `build_frame_stereo_jit` are the same builds behind
+the graph cache (`utils.cache`): one captured CUDA graph per image shape
+and configuration, replayed with one launch; the eager functions on the
+CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from ..factors.reprojection import Camera
 from ..frontend import matching, orb
 from ..lidar import features as lidar_features
+from ..utils import cache
 
 
 class Frame(NamedTuple):
@@ -208,3 +214,11 @@ def build_frame(image: torch.Tensor, cam: Camera, orb_cfg: orb.ORBConfig,
         torch.full_like(depth, -1.0),
     )
     return _frame_from(kp, u_right, depth, orb_cfg, lidar)
+
+
+# The frame builds as captured CUDA graphs, one per shape bucket and static
+# configuration (the JAX package's jit entry points): run op by op, the ORB
+# pyramid alone issues thousands of launches a frame. On the CPU, and inside
+# `utils.cache.disable_graphs()`, they run the eager functions above.
+build_frame_jit = cache.graphed(build_frame, static_argnames=("cam", "orb_cfg", "lidar_cfg"))
+build_frame_stereo_jit = cache.graphed(build_frame_stereo, static_argnames=("cam", "orb_cfg"))

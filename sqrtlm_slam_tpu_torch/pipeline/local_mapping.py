@@ -3,7 +3,8 @@
 Counterpart of `sqrtlm_slam_tpu/pipeline/local_mapping.py` (synchronous,
 one pass per keyframe): landmark culling, triangulation against covisible
 neighbours, the two-way neighbour fuse, local BA on the bucketed
-sqrt-Schur engine (kernel K2 per LM iteration) with write-back and outlier
+sqrt-Schur engine (kernel K2 per LM iteration; on the card one captured
+CUDA graph per problem shape, replayed) with write-back and outlier
 pruning, and keyframe culling. The map bookkeeping is the shared numpy
 `MapStore`; device work runs on the mapper's device and is read back once
 per dispatch group. When the keyframes carry LiDAR feature clouds, local BA
@@ -23,7 +24,7 @@ from ..frontend import matching
 from ..geometry import se3
 from ..mapstore import MapStore
 from ..optim import facade, pose_opt, schur_bucketed
-from ..utils import desc_to_torch, to_host
+from ..utils import cache, desc_to_torch, to_host
 from . import triangulation
 from .tracking import aggregate_kf_lidar, lidar_association, local_map_from_clouds
 
@@ -62,6 +63,14 @@ def _project_and_match_many(pose_R, pose_t, lm_pos, lm_desc, lm_valid, lm_normal
         for b in range(pose_R.shape[0])
     ]
     return torch.stack([r.valid for r in res]), torch.stack([r.idx for r in res])
+
+
+# The bucketed backend's local BA (what `facade.Optimizer("bucketed")` runs)
+# as one captured CUDA graph per problem shape, `utils.cache` (the JAX
+# package's `_ba_jit`): the caps of `LocalMappingConfig` fix the shapes. The
+# flat and cg backends run eagerly; on the CPU so does this one.
+_bucketed_local_ba_jit = cache.graphed(
+    schur_bucketed.local_ba, static_argnames=("cam", "first_iters", "second_iters"))
 
 
 class LocalMappingConfig(NamedTuple):
@@ -351,7 +360,10 @@ class LocalMapper:
         """Gather -> two-phase LM -> write back -> prune outliers, then the
         LiDAR stage when the centre keyframe carries LiDAR clouds."""
         problem, (kf_ids, lm_ids, e_kf, e_kp, pose_fixed) = self.gather_problem(center_kf)
-        result, survivors, chi2 = self._optimizer.local_bundle_adjustment(problem, self.cam)
+        if self.cfg.backend == "bucketed":
+            result, survivors, chi2 = _bucketed_local_ba_jit(problem, self.cam)
+        else:
+            result, survivors, chi2 = self._optimizer.local_bundle_adjustment(problem, self.cam)
         self.num_local_ba += 1
         store = self.store
         nk, nl = len(kf_ids), len(lm_ids)

@@ -12,6 +12,11 @@ corrections propagate at save time. `save` / `load` checkpoint and resume
 the map (a resumed system starts LOST and relocalises); localisation mode
 tracks the frozen map without inserting keyframes.
 
+Every `track_*` entry builds its frame through the captured CUDA graphs of
+`pipeline/frame.py` (`build_frame_jit`, `build_frame_stereo_jit`; a fusion
+scan padded by `pad_cloud` first), as the JAX package builds through its
+jitted builds; on the CPU they run eagerly.
+
 A vocabulary is attached as in the JAX package: the one given, else the
 shipped asset (`cfg.use_shipped_vocab`), else one trained lazily from the
 first keyframe with enough descriptors. Every keyframe gets its word ids
@@ -44,12 +49,12 @@ import torch
 from ..factors.reprojection import Camera
 from ..frontend import orb, vocab as vocab_mod
 from ..geometry import so3
-from ..lidar.features import LidarConfig
+from ..lidar.features import LidarConfig, pad_cloud
 from ..loop import LoopCloser, LoopClosingConfig
 from ..loop.database import KeyFrameDatabase
 from ..mapstore import MapStore, checkpoint
 from ..utils import desc_to_numpy, to_host
-from .frame import Frame, build_frame, build_frame_stereo
+from .frame import Frame, build_frame_jit, build_frame_stereo_jit
 from .local_mapping import LocalMapper, LocalMappingConfig
 from .tracking import Tracker, TrackingConfig, TrackState
 
@@ -202,7 +207,7 @@ class SlamSystem:
         system's device) or None while uninitialized."""
         img = torch.as_tensor(image, dtype=torch.float32).to(self.device)
         depth = torch.as_tensor(depth_img, dtype=torch.float32).to(self.device)
-        frame = build_frame(img, self.cam, self.cfg.orb, depth_img=depth)
+        frame = build_frame_jit(img, self.cam, self.cfg.orb, depth_img=depth)
         return self._track(frame)
 
     def track_fusion(self, image, cloud_lidar, T_cam_lidar=None):
@@ -210,13 +215,17 @@ class SlamSystem:
         in the LiDAR frame (x forward, y left, z up; numpy arrays or
         tensors), with `T_cam_lidar` = (R, t) the extrinsics. The cloud
         gives keypoint depth and, with `cfg.lidar` set, the corner / flat
-        features of the tight coupling. Scans of any length are taken as
-        they are; rows holding NaN are ignored. Returns the frame's T_cw or
-        None while uninitialized or lost."""
+        features of the tight coupling. The scan is padded with NaN rows to
+        a size bucket (`pad_cloud`), so scans of varying length share one
+        captured graph; rows holding NaN are ignored. Returns the frame's
+        T_cw or None while uninitialized or lost."""
         img = torch.as_tensor(image, dtype=torch.float32).to(self.device)
-        cloud = torch.as_tensor(cloud_lidar, dtype=torch.float32).to(self.device)
-        frame = build_frame(img, self.cam, self.cfg.orb, cloud_lidar=cloud[:, :3],
-                            T_cam_lidar=T_cam_lidar, lidar_cfg=self.cfg.lidar)
+        cloud = torch.as_tensor(pad_cloud(cloud_lidar)).to(self.device)
+        if T_cam_lidar is not None:
+            T_cam_lidar = tuple(torch.as_tensor(a, dtype=torch.float32).to(self.device)
+                                for a in T_cam_lidar)
+        frame = build_frame_jit(img, self.cam, self.cfg.orb, cloud_lidar=cloud[:, :3],
+                                T_cam_lidar=T_cam_lidar, lidar_cfg=self.cfg.lidar)
         return self._track(frame)
 
     def track_stereo(self, img_left, img_right):
@@ -226,7 +235,7 @@ class SlamSystem:
         while uninitialized or lost."""
         left = torch.as_tensor(img_left, dtype=torch.float32).to(self.device)
         right = torch.as_tensor(img_right, dtype=torch.float32).to(self.device)
-        return self._track(build_frame_stereo(left, right, self.cam, self.cfg.orb))
+        return self._track(build_frame_stereo_jit(left, right, self.cam, self.cfg.orb))
 
     def track_monocular(self, image):
         """Monocular entry: an (H, W) image. The map starts with the two-view
@@ -234,7 +243,7 @@ class SlamSystem:
         from local mapping's triangulation. Returns the frame's T_cw or None
         while uninitialized or lost."""
         img = torch.as_tensor(image, dtype=torch.float32).to(self.device)
-        return self._track(build_frame(img, self.cam, self.cfg.orb))
+        return self._track(build_frame_jit(img, self.cam, self.cfg.orb))
 
     def track_frame(self, frame: Frame):
         """Entry for a frame built by the caller (tests, custom front ends)."""

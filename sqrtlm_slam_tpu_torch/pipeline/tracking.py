@@ -28,6 +28,10 @@ with LiDAR features: their downsampled clouds), once per fallback, once
 per relocalisation candidate tried, and, until a monocular map starts,
 twice per frame (the match count, one packed read of the initializer).
 
+On the card `track_frame_step` replays captured CUDA graphs (`utils.cache`,
+the JAX package's jit): stage A, the widened stage A when the first finds
+too few inliers, and stages B and C; the stage-A read sits between them.
+
 At every keyframe insertion the system's `vocab_hook` supplies the
 keyframe's word ids and BoW vector (place recognition reads them).
 
@@ -67,7 +71,7 @@ from ..lidar import odometry as lidar_odometry
 from ..lidar import voxel_map
 from ..mapstore import MapStore
 from ..optim import pose_opt
-from ..utils import desc_to_numpy, desc_to_torch, to_host
+from ..utils import cache, desc_to_numpy, desc_to_torch, to_host
 from . import initializer
 from .frame import Frame
 
@@ -205,25 +209,20 @@ def match_and_optimize_fused(pose_guess: se3.SE3, lm: LocalMapBuffer, frame: Fra
             n_lidar)
 
 
-def track_frame_step(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuffer,
-                     frame: Frame, cam: Camera, r_motion: float, r_local: float,
-                     min_inliers: int, close_depth: float, lidar_map=None,
-                     match_dist: float = 0.45, num_levels: int = 8,
-                     scale_factor: float = 1.2):
-    """The per-frame device computation (stages A, B, C + counters). With a
-    `lidar_map`, stages B and C are the fused stage (C re-matches and
-    re-associates from B's improved pose).
-
-    Returns (pose, new_velocity, packed_i (3, M) int32 [match idx, match
-    valid, frustum-visible], packed_f (17,) f32 [R.ravel(9), t(3), n_inliers,
-    nA, n_lidar, tracked_close, total_close]), all on the device. The
-    JAX package's `lax.cond` on the stage-A inlier count is one host read."""
+def _stage_a(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuffer, frame: Frame,
+             cam: Camera, radius_px: float, num_levels: int = 8, scale_factor: float = 1.2):
+    """Stage A: the constant-velocity prediction, then one tracking stage at
+    `radius_px`. Returns `match_and_optimize`'s tuple."""
     guess = se3.retract(prev_pose, velocity)
+    return match_and_optimize(guess, lm, frame, cam, radius_px, num_levels, scale_factor)
+
+
+def _stages_bc(prev_pose: se3.SE3, poseA: se3.SE3, nA: torch.Tensor, lm: LocalMapBuffer,
+               frame: Frame, cam: Camera, r_local: float, close_depth: float, lidar_map=None,
+               match_dist: float = 0.45, num_levels: int = 8, scale_factor: float = 1.2):
+    """Stages B and C from stage A's pose, the next velocity, the close-point
+    counters and the packed results (see `track_frame_step`)."""
     pyr = dict(num_levels=num_levels, scale_factor=scale_factor)
-    outA = match_and_optimize(guess, lm, frame, cam, r_motion, **pyr)
-    if int(to_host(outA[3])) < min_inliers:
-        outA = match_and_optimize(guess, lm, frame, cam, r_motion * 2, **pyr)
-    poseA, _, _, nA = outA
     if lidar_map is not None:
         poseB = match_and_optimize_fused(poseA, lm, frame, cam, r_local, lidar_map,
                                          match_dist, **pyr)[0]
@@ -258,6 +257,43 @@ def track_frame_step(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuf
     counts = torch.stack([n_inl, nA, n_lidar, tracked_close, total_close]).to(torch.float32)
     packed_f = torch.cat([pose.R.reshape(-1), pose.t, counts])
     return pose, new_velocity, packed_i, packed_f
+
+
+# The step's two device programs as captured CUDA graphs (`utils.cache`):
+# stage A (captured once per radius: the retry widens it), and stages B and
+# C with the counters. The eager functions on the CPU.
+_stage_a_jit = cache.graphed(_stage_a,
+                             static_argnames=("cam", "radius_px", "num_levels", "scale_factor"))
+_stages_bc_jit = cache.graphed(_stages_bc, static_argnames=(
+    "cam", "r_local", "close_depth", "match_dist", "num_levels", "scale_factor"))
+
+
+def track_frame_step(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuffer,
+                     frame: Frame, cam: Camera, r_motion: float, r_local: float,
+                     min_inliers: int, close_depth: float, lidar_map=None,
+                     match_dist: float = 0.45, num_levels: int = 8,
+                     scale_factor: float = 1.2):
+    """The per-frame device computation (stages A, B, C + counters). With a
+    `lidar_map`, stages B and C are the fused stage (C re-matches and
+    re-associates from B's improved pose).
+
+    Returns (pose, new_velocity, packed_i (3, M) int32 [match idx, match
+    valid, frustum-visible], packed_f (17,) f32 [R.ravel(9), t(3), n_inliers,
+    nA, n_lidar, tracked_close, total_close]), all on the device.
+
+    On the card the step replays captured graphs: stage A, then, when it
+    finds fewer than `min_inliers` inliers, stage A at twice the radius, then
+    stages B and C. The JAX package's `lax.cond` on stage A's inlier count is
+    the one host read between them; the device work is the eager step's."""
+    lm = lm._replace(ids=None)  # host bookkeeping, not a graph input
+    pyr = dict(num_levels=num_levels, scale_factor=scale_factor)
+    frame_a = frame._replace(lidar=None)  # stage A matches visually only
+    outA = _stage_a_jit(prev_pose, velocity, lm, frame_a, cam, r_motion, **pyr)
+    if int(to_host(outA[3])) < min_inliers:
+        outA = _stage_a_jit(prev_pose, velocity, lm, frame_a, cam, r_motion * 2, **pyr)
+    poseA, _, _, nA = outA
+    return _stages_bc_jit(prev_pose, poseA, nA, lm, frame, cam, r_local, close_depth,
+                          lidar_map, match_dist, **pyr)
 
 
 def recover_pose_no_prior(lm: LocalMapBuffer, frame: Frame, cam: Camera,

@@ -5,6 +5,10 @@ counts the reads that wait for the device (`host_reads`): the pipeline's
 host syncs per tracked frame are read off this counter (from every thread:
 the asynchronous mapping worker's reads count too).
 
+`graph_captures` and `graph_replays` count the CUDA graphs that
+`utils/cache.py` (the counterpart of the JAX package's jit) captures and
+replays.
+
 `StageTimer` / `TicToc` (`utils/timing.py`) and `SequenceConfig` /
 `kitti_sequence_config` (`utils/config.py`) are exported lazily, as in the
 JAX package: `config.py` imports the pipeline, which imports this module.
@@ -19,6 +23,9 @@ import torch
 
 # Reads that copied device tensors to the host (reset by callers that count).
 host_reads = 0
+# CUDA graphs captured and replayed by `utils.cache` (reset by callers that count).
+graph_captures = 0
+graph_replays = 0
 _reads_lock = threading.Lock()
 
 _LAZY = {

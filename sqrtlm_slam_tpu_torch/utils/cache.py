@@ -1,0 +1,283 @@
+"""Captured CUDA graphs: the port's counterpart of the JAX package's jit.
+
+The JAX package compiles each per-frame program (the frame builds, the
+LiDAR feature extraction, the tracking step, local BA) into one XLA
+program per shape bucket and runs it with one dispatch. On the card the
+counterpart is a CUDA graph: `graphed(fn, static_argnames=...)` captures
+`fn` once per cache key and replays it with one launch. The graph holds the
+very kernels the eager function launches, in the same order, so a replay
+gives the eager function's bits.
+
+* Cache key: the static arguments (`static_argnames`, by value: the JAX
+  function's static arguments), the nesting of the other arguments (tuples,
+  NamedTuples, lists, dicts), their non-tensor values, and every tensor's
+  shape and dtype. A value that is neither a tensor nor hashable (a numpy
+  array) raises `TypeError`: convert it to a tensor first.
+* First call of a key: the inputs are copied into static buffers, `fn` runs
+  once eagerly on a side stream (kernels built at first use, the kernels'
+  one-time `cudaFuncSetAttribute` calls and per-stream scratch such as K3's
+  counter all happen outside the capture), then it is captured on that
+  stream and replayed. A capture that fails raises; nothing falls back to
+  the eager function.
+* Every call: inputs are copied into the static buffers, the graph is
+  replayed on the caller's current stream, and the caller gets fresh
+  copies of the outputs (a later replay never overwrites them).
+* Counts: a kernel wrapper counts its launches through `count_launch`;
+  inside a capture the launch is noted for the graph, and each replay adds
+  the graph's launches to the wrappers' counts. `utils.graph_captures` and
+  `utils.graph_replays` count captures and replays.
+* CPU: when no argument lies on a CUDA device (the caller asked for the
+  CPU) the eager function runs. Inside `disable_graphs()` (the counterpart
+  of `jax.disable_jit()`) every graphed function runs eagerly, in every
+  thread; a call made while its thread captures or warms up another graph
+  runs eagerly inside it.
+
+Each thread captures on its own side stream with
+`capture_error_mode="thread_local"`, and one lock orders the captures of
+all threads, so the asynchronous mapping worker can capture local BA while
+the tracking thread replays its graphs. `enable_persistent_cache` (the XLA
+compile cache) has no counterpart: a CUDA graph does not outlive its
+process.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import inspect
+import sys
+import threading
+from typing import Callable, Iterable, NamedTuple
+
+import torch
+
+_lock = threading.RLock()  # counters, the eager switch, the entry tables
+_capture_lock = threading.Lock()  # one capture at a time, process-wide
+_local = threading.local()  # per thread: capture streams, launch tally, busy flag
+_eager_depth = 0
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Run every graphed function eagerly inside the block, in every thread
+    (the counterpart of `jax.disable_jit()`): the same system then runs op
+    by op, for comparison with its graphs."""
+    global _eager_depth
+    with _lock:
+        _eager_depth += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _eager_depth -= 1
+
+
+def _bump(module: str, counter: str, n: int) -> None:
+    mod = sys.modules[module]
+    with _lock:
+        setattr(mod, counter, getattr(mod, counter) + n)
+
+
+def count_launch(module: str, counter: str) -> None:
+    """Count one launch of a kernel in `module.counter` (a module-level
+    int). While this thread captures a graph the launch only runs at the
+    graph's replays, so it is noted for the graph, whose replays add it."""
+    tally = getattr(_local, "tally", None)
+    if tally is not None:
+        tally[(module, counter)] = tally.get((module, counter), 0) + 1
+    else:
+        _bump(module, counter, 1)
+
+
+# ----------------------------------------------------------------------
+# Argument trees: tensors are the graph's inputs, everything else is key.
+# ----------------------------------------------------------------------
+
+_TENSOR = object()
+_CONST = object()
+
+
+def _flatten(x, leaves: list):
+    """Append the tensors of a nest of tuples / NamedTuples / lists / dicts
+    to `leaves`; return a hashable spec of the nest and its other values."""
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return _TENSOR
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_flatten(v, leaves) for v in x))
+    if isinstance(x, dict):
+        return (dict, tuple((k, _flatten(v, leaves)) for k, v in x.items()))
+    try:
+        hash(x)
+    except TypeError:
+        raise TypeError(f"a graphed function takes tensors and hashable values, not "
+                        f"{type(x).__name__}: pass it as a tensor") from None
+    return (_CONST, x)
+
+
+def _unflatten(spec, leaves: Iterable):
+    it = iter(leaves)
+
+    def build(s):
+        if s is _TENSOR:
+            return next(it)
+        kind, body = s
+        if kind is _CONST:
+            return body
+        if kind is dict:
+            return {k: build(v) for k, v in body}
+        vals = [build(v) for v in body]
+        if kind is list:
+            return vals
+        return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
+
+    return build(spec)
+
+
+class _Entry(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list  # static input buffers
+    outputs: list  # static output tensors (the graph's pool)
+    out_spec: object
+    launches: dict  # (module, counter) -> launches per replay
+    lock: threading.Lock  # orders copy-in, replay and copy-out of callers
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    streams = getattr(_local, "streams", None)
+    if streams is None:
+        streams = _local.streams = {}
+    s = streams.get(device)
+    if s is None:
+        s = streams[device] = torch.cuda.Stream(device)
+    return s
+
+
+class Graphed:
+    """`fn` behind the graph cache (see the module docstring). Call it as
+    `fn`; `.eager` is `fn` itself."""
+
+    def __init__(self, fn: Callable, static_argnames=()):
+        self.eager = fn
+        self.static_argnames = tuple(static_argnames)
+        self._sig = inspect.signature(fn)
+        self._entries: dict = {}
+        functools.update_wrapper(self, fn)
+
+    def _split(self, args, kwargs):
+        bound = self._sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        statics, dynamic = [], {}
+        for name, value in bound.arguments.items():
+            if name in self.static_argnames:
+                if _leaves(value):
+                    raise TypeError(f"static argument {name!r} holds a tensor")
+                statics.append((name, value))
+            else:
+                dynamic[name] = value
+        leaves: list = []
+        spec = _flatten(dynamic, leaves)
+        return tuple(statics), spec, leaves
+
+    def key(self, *args, **kwargs):
+        """The cache key of a call (computable for tensors on any device)."""
+        return _key(*self._split(args, kwargs))
+
+    def num_entries(self) -> int:
+        return len(self._entries)
+
+    def __call__(self, *args, **kwargs):
+        statics, spec, leaves = self._split(args, kwargs)
+        devices = {t.device for t in leaves}
+        if (not any(d.type == "cuda" for d in devices) or _eager_depth > 0
+                or getattr(_local, "busy", False)):
+            return self.eager(*args, **kwargs)
+        if len(devices) != 1:
+            raise ValueError(f"{self.__name__}: a graphed call takes tensors on one CUDA "
+                             f"device, got {sorted(map(str, devices))}")
+        device = devices.pop()
+        key = _key(statics, spec, leaves)
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._capture(key, statics, spec, leaves, device)
+        return self._replay(entry, leaves)
+
+    def _run(self, statics, spec, leaves):
+        dynamic = _unflatten(spec, leaves)
+        return self.eager(**dynamic, **dict(statics))
+
+    def _capture(self, key, statics, spec, leaves, device) -> _Entry:
+        with _capture_lock:
+            entry = self._entries.get(key)
+            if entry is not None:  # another thread captured it meanwhile
+                return entry
+            with torch.cuda.device(device):
+                current = torch.cuda.current_stream()
+                inputs = [torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+                          for t in leaves]
+                stream = _capture_stream(device)
+                stream.wait_stream(current)
+                graph = torch.cuda.CUDAGraph()
+                _local.busy = True
+                try:
+                    with torch.cuda.stream(stream):
+                        self._run(statics, spec, inputs)  # warm-up, counted as it runs
+                        _local.tally = {}
+                        graph.capture_begin(capture_error_mode="thread_local")
+                        try:
+                            out = self._run(statics, spec, inputs)
+                        except BaseException:
+                            _end_failed_capture(graph)
+                            raise
+                        graph.capture_end()
+                        launches = _local.tally
+                finally:
+                    _local.busy = False
+                    _local.tally = None
+                current.wait_stream(stream)
+            outputs: list = []
+            out_spec = _flatten(out, outputs)
+            entry = _Entry(graph, inputs, outputs, out_spec, launches, threading.Lock())
+            with _lock:
+                self._entries[key] = entry
+            _bump(_UTILS, "graph_captures", 1)
+            return entry
+
+    def _replay(self, entry: _Entry, leaves):
+        with entry.lock:
+            for buf, x in zip(entry.inputs, leaves):
+                buf.copy_(x)
+            entry.graph.replay()
+            fresh = [t.clone() for t in entry.outputs]
+        for (module, counter), n in entry.launches.items():
+            _bump(module, counter, n)
+        _bump(_UTILS, "graph_replays", 1)
+        return _unflatten(entry.out_spec, fresh)
+
+
+_UTILS = __name__.rsplit(".", 1)[0]
+
+
+def _key(statics, spec, leaves) -> tuple:
+    return (statics, spec, tuple((tuple(t.shape), t.dtype) for t in leaves))
+
+
+def _leaves(x) -> list:
+    leaves: list = []
+    _flatten(x, leaves)
+    return leaves
+
+
+def _end_failed_capture(graph) -> None:
+    """End a capture whose function raised; the function's error is the
+    one reported."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        pass
+
+
+def graphed(fn: Callable, static_argnames=()) -> Graphed:
+    """Put `fn` behind the graph cache (see the module docstring): the
+    counterpart of `jax.jit(fn, static_argnames=...)`."""
+    return Graphed(fn, static_argnames)

@@ -29,16 +29,9 @@ EXCLUDED = {
         "hamming_matrix_pallas": "the TPU kernel; its CUDA counterpart is hamming_matrix_cuda",
         "hamming_matrix_reference": "the plain version; the port's is hamming_matrix_plain",
     },
-    "lidar/features.py": {
-        "extract_features_jit": "a jit bucket; PyTorch runs eagerly",
-        "pad_cloud": "pads clouds to jit buckets; nothing to compile in the port",
-    },
-    "pipeline/frame.py": {
-        "build_frame_jit": "a jit bucket; PyTorch runs eagerly",
-        "build_frame_stereo_jit": "a jit bucket; PyTorch runs eagerly",
-    },
     "utils/cache.py": {
-        "enable_persistent_cache": "the XLA compile cache; PyTorch compiles nothing",
+        "enable_persistent_cache": "the XLA compile cache; a captured CUDA graph does not "
+                                   "outlive its process",
     },
     "optim/schur_bucketed.py": {
         "ChunkPlan": "TPU layout: the banded chunked S-Gram",
