@@ -65,17 +65,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      default LidarConfig (64 rings x 1800 columns) and TrackingConfig, scans
      of 64 rings x 1800 rays (~114,000 points; the rays centred on the
      range image's columns, `planeworld.center_scan_on_columns`), T_CAM_VELO.
-     Run twice: once graphed (the entry point's default) timed per frame
-     with the launch counters zeroed just before and read just after, once
-     eagerly (`utils.cache.disable_graphs`) with every stage bracketed by
-     synchronizes (frame build split into ORB | LiDAR features | cloud
-     projection + depth association, the tracking step, local mapping and
-     its LiDAR stage; launches and idle share per frame: phase 18). Every
-     frame must track in both, with >= 2 keyframes, ATE < 0.5 m, > 20 LiDAR
-     associations on every steady frame,
-     the LiDAR stage of local BA run at least once, K1 and K2 launched, and
-     the two runs' (graphed and eager) trajectories, keyframe poses and
-     landmarks bitwise equal;
+     Run three times: graphed (the entry point's default) timed per frame
+     with the launch counters zeroed just before and read just after (the
+     slowest frame against the median, the keyframe frames' ms); graphed
+     with local mapping's steps bracketed by synchronizes
+     (`process_keyframe` split into triangulation, fuse, local BA and the
+     LiDAR stage); eagerly (`utils.cache.disable_graphs`) with every stage
+     bracketed (frame build split into ORB | LiDAR features | cloud
+     projection + depth association, the tracking step, local mapping's
+     steps; launches and idle share per frame: phase 18). Every frame must
+     track in each, with >= 2 keyframes, ATE < 0.5 m, > 20 LiDAR
+     associations on every steady frame, the LiDAR stage of local BA run
+     at least once, K1 and K2 launched, and the three runs' trajectories,
+     keyframe poses and landmarks bitwise equal;
  11. relocalisation on the same sequence: one `recover_pose_no_prior` timed
      cold and warm; the map saved, `SlamSystem.load`ed on the card and a
      frame of the sequence fed in localisation mode (it must relocalise
@@ -90,7 +92,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      6). Counters zeroed just before and read just
      after; >= 13/16 tracked, median relative stereo depth error < 0.06 on
      frame 0 against the rendered depth, ATE < 0.1 m, K1 launched > 16 times;
-     ms, kernel launches and host reads per frame;
+     ms, kernel launches and host reads per frame, the slowest frame against
+     the median and the keyframe frames' ms;
  13. monocular at KITTI size: phase 4's left images through
      `SlamSystem.track_monocular` (tests/test_e2e_mono.py's tracking config).
      Counters zeroed just before and read just after; >= 2 keyframes, > 80
@@ -98,11 +101,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      initialization frame, `used_homography`, and `initialize_two_view` timed
      cold (its first call, in the run) and warm (again on the same inputs);
  14. standalone LiDAR odometry: `LidarOdometry.process` over the 28 fusion
-     scans in the LiDAR frame (the corner included), run twice (graphed,
-     then eagerly): ATE < 0.5 m against the LiDAR-frame ground truth, > 100
-     associations per scan after the first, the two runs' poses bitwise
-     equal; ms per scan split into feature extraction and alignment,
-     launches per scan (eager) and the padded scan sizes; then
+     scans in the LiDAR frame (the corner included), run three times
+     (graphed, graphed with its stages bracketed, eagerly): ATE < 0.5 m
+     against the LiDAR-frame ground truth, > 100 associations per scan
+     after the first, the three runs' poses bitwise equal, at most one
+     `align_scan` capture; ms per scan (graphed and eager) split into
+     feature extraction and alignment, CUDA launches, device ms and idle
+     share per scan graphed and eager, and the padded scan sizes; then
      `backend_for_loop` with the true first-to-last relative pose must cut
      the end drift below 0.3 x.
  15. the KITTI runner (`python -m sqrtlm_slam_tpu_torch.run_kitti`): 20
@@ -116,7 +121,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      fusion --checkpoint` (every frame tracked, ATE < 0.5 m, >= 2
      keyframes, > 20 LiDAR associations on steady frames, K1 and K2
      launched); (b) `--async-mapping --pipelined`, then each alone, then
-     sync again (every frame tracked, ATE < 0.5 m, the worker's queue
+     sync again (ms per frame, also over the calls that inserted no
+     keyframe, the share of step reads after which the device still had
+     work queued: the next frame overlapping this frame's host
+     bookkeeping; but for async alone the last 3 frames under
+     torch.profiler: device ms, idle share, CUDA launches per frame) (every
+     frame tracked, ATE < 0.5 m, the worker's queue
      drained and the worker joined); (c) `--resume` from (a)'s map over 4 frames (relocalised or
      re-initialised by the > 5-keyframe rule, reported); (d) `--mode lidar
      --json` as a subprocess (ATE < 0.5 m). Each run prints ms per frame,
@@ -164,15 +174,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      and idle share from torch.profiler over the last 2, graph captures,
      replays and host reads per frame; (a) every captured function (the
      RGB-D, monocular, fusion and stereo builds, `extract_features_jit` of a
-     padded 64 x 1800-ray scan, the tracking step's stage A and stages B + C
-     plain and fused, local BA) replayed on the KITTI-size inputs of its
+     padded 64 x 1800-ray scan, the tracking step's stage A, pipelined
+     mode's stage A at both radii and stages B + C plain and fused, local
+     BA, `align_scan` and the odometry's graphed `retract` / `local_delta`,
+     `match_and_triangulate`, `_project_and_match` and
+     `_project_and_match_many`) replayed on the KITTI-size inputs of its
      last call in (b) against its eager run: bitwise equal, or the phase
-     raises; (c) phase 4's 16 frames graphed (phase 4's system and (b)'s)
-     and eagerly: trajectories, keyframe poses and landmarks bitwise equal;
-     (d) the tracking step's stage A as three graphs with the inlier read
-     between them (the port's design) and as one graph running both radii
-     with a `torch.where` select: wall and CUDA-event ms per step, with
-     and without the retry, both bitwise equal to the eager step.
+     raises; each with the device memory a fresh capture of it keeps
+     (`memory_reserved` after `empty_cache`, before and after), and the
+     fuse's 24-wide graph against 24 single replays; (c) phase 4's 16
+     frames graphed (phase 4's system and (b)'s) and eagerly: trajectories,
+     keyframe poses and landmarks bitwise equal; (d) the tracking step's
+     stage A as three graphs with the inlier read between them (sync mode)
+     and as one graph running both radii with a `torch.where` select
+     (pipelined mode): wall and CUDA-event ms per step, with and without
+     the retry, both bitwise equal to the eager step.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
@@ -393,37 +409,58 @@ def staged_into(record: dict, name: str, fn):
 _KERNEL_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 
 
-def profile_window(fn) -> dict:
-    """Run `fn` under torch.profiler (CUDA activity: kernels, copies and the
-    CUDA runtime calls) and read its Chrome trace: fn's result, kernel
-    launches, graph launches (`cudaGraphLaunch`, one a replay), CUDA
+class ProfiledSpan:
+    """torch.profiler (CUDA activity: kernels, copies and the CUDA runtime
+    calls) between `start()` and `stop()`, read from its Chrome trace:
+    kernel launches, graph launches (`cudaGraphLaunch`, one a replay), CUDA
     launches (both), device ms (kernels, copies, memsets) and wall s. The
     trace is read as JSON: parsing a window of ~10^5 kernels into profiler
     events takes minutes."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
+    def start(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        f"chip_smoke_trace_{os.getpid()}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self.t0
+        self.prof.__exit__(None, None, None)
+
+    def read(self) -> dict:
+        """The counts of the stopped span (its trace written and parsed)."""
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            f"chip_smoke_trace_{os.getpid()}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self.prof.export_chrome_trace(path)
+        try:
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        finally:
+            os.remove(path)
+        kernels = sum(1 for e in events if e.get("name") in _KERNEL_LAUNCHES)
+        graphs = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
+        dev_us = sum(e.get("dur", 0) for e in events
+                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        return dict(kernel_launches=kernels, graph_launches=graphs,
+                    cuda_launches=kernels + graphs, device_ms=dev_us / 1e3, wall_s=self.wall)
+
+
+def profile_window(fn) -> dict:
+    """Run `fn` under a `ProfiledSpan`: its counts, and fn's result as `out`."""
+    span = ProfiledSpan()
+    span.start()
     try:
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
+        out = fn()
     finally:
-        os.remove(path)
-    kernels = sum(1 for e in events if e.get("name") in _KERNEL_LAUNCHES)
-    graphs = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
-    dev_us = sum(e.get("dur", 0) for e in events
-                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    return dict(out=out, kernel_launches=kernels, graph_launches=graphs,
-                cuda_launches=kernels + graphs, device_ms=dev_us / 1e3, wall_s=wall)
+        span.stop()
+    return dict(span.read(), out=out)
 
 
 def run_sequence(SlamSystem, cfg, cam, frames, device, time_from: int):
@@ -458,6 +495,7 @@ def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") ->
     from sqrtlm_slam_tpu_torch.ops import hamming
     from sqrtlm_slam_tpu_torch.optim import assembly
     from sqrtlm_slam_tpu_torch.pipeline import system as system_mod
+    from sqrtlm_slam_tpu_torch.pipeline import tracking as tracking_mod
 
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(here, "build", "chip_smoke_kitti")
@@ -516,15 +554,40 @@ def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") ->
     base = ["--root", root, "--seq", "00", "--mode", "fusion", "--device", device]
     ckpt = os.path.join(work, "map.npz")
 
-    def run(name, extra, frames=n_frames):
+    def run(name, extra, frames=n_frames, profile=False):
         """One in-process runner call: its summary, launches, host reads per
-        frame, LiDAR associations per frame and the system it drove."""
-        seen = {"matches": [], "system": None}
+        frame, LiDAR associations per frame and the system it drove. Each
+        read of a tracking step's results notes whether the device still
+        had work queued when the read returned (`torch.cuda.Stream.query`):
+        the next frame's work overlapping this frame's host bookkeeping.
+        With `profile`, the last 3 frames run under torch.profiler (device
+        ms, idle share); ms per frame is then the median of the others."""
+        seen = {"matches": [], "system": None, "busy_after_read": [], "ms": []}
         track_fusion, shutdown = system_mod.SlamSystem.track_fusion, system_mod.SlamSystem.shutdown
+        wait_host = tracking_mod.wait_host
+        window = range(frames - 3, frames) if profile and device == "cuda" else range(0)
+        span = ProfiledSpan()
+
+        def noting_wait_host(copy):
+            out = wait_host(copy)
+            if device == "cuda":
+                seen["busy_after_read"].append((len(seen["matches"]),
+                                                not torch.cuda.current_stream().query()))
+            return out
 
         def counted_track_fusion(self, *a, **k):
+            i = len(seen["matches"])
+            if window and i == window.start:
+                span.start()
+            n_kf = self.num_keyframes()
+            t = time.perf_counter()
             pose = track_fusion(self, *a, **k)
+            seen["ms"].append(1e3 * (time.perf_counter() - t))
+            seen.setdefault("kf", []).append(self.num_keyframes() > n_kf)
             seen["matches"].append(self.tracker.last_lidar_matches)
+            if i + 1 == window.stop:
+                span.stop()  # read after the run: its wall_s holds no trace parsing
+                seen["window"] = span
             return pose
 
         def kept_shutdown(self):
@@ -532,14 +595,17 @@ def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") ->
             return shutdown(self)
         system_mod.SlamSystem.track_fusion = counted_track_fusion
         system_mod.SlamSystem.shutdown = kept_shutdown
+        tracking_mod.wait_host = noting_wait_host
         hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
         utils.host_reads = 0
         out = os.path.join(work, f"traj_{name}.txt")
+        argv = base + ["--frames", str(frames), "--out", out] + extra
         try:
-            res = run_kitti.main(base + ["--frames", str(frames), "--out", out] + extra)
+            res = run_kitti.main(argv)
         finally:
             system_mod.SlamSystem.track_fusion = track_fusion
             system_mod.SlamSystem.shutdown = shutdown
+            tracking_mod.wait_host = wait_host
         if device == "cuda":
             torch.cuda.synchronize()
         rec = dict(res, launches={"hamming": hamming.launch_count,
@@ -548,6 +614,24 @@ def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") ->
                    host_reads_per_frame=utils.host_reads / frames,
                    trajectory_rows=int(np.loadtxt(out, ndmin=2).shape[0]),
                    lidar_matches=seen["matches"])
+        outside = [b for i, b in seen["busy_after_read"] if i not in window]
+        inside = [b for i, b in seen["busy_after_read"] if i in window]
+        if outside:
+            rec.update(step_reads=len(outside),
+                       device_busy_after_step_read_share=sum(outside) / len(outside))
+        rec["ms_per_frame"] = float(np.median([m for i, m in enumerate(seen["ms"])
+                                               if i not in window]))
+        plain = [m for i, m in enumerate(seen["ms"]) if i not in window and not seen["kf"][i]]
+        rec["ms_per_frame_without_keyframe"] = float(np.median(plain)) if plain else None
+        rec["keyframe_calls"] = int(sum(seen["kf"]))
+        rec["max_ms"] = float(max(seen["ms"]))
+        w = seen["window"].read() if "window" in seen else None
+        if w is not None:
+            rec["profiled"] = dict(
+                frames=[window.start, window.stop - 1], device_ms_per_frame=w["device_ms"] / 3,
+                device_idle_share=1.0 - w["device_ms"] / 1e3 / w["wall_s"],
+                ms_per_frame=1e3 * w["wall_s"] / 3, cuda_launches_per_frame=w["cuda_launches"] / 3,
+                device_busy_after_step_read_share=sum(inside) / max(len(inside), 1))
         emit("kitti_runner", run=name, args=extra, **rec)
         return rec, seen["system"]
 
@@ -574,7 +658,7 @@ def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") ->
     for name, extra in (("async_pipelined", ["--async-mapping", "--pipelined"]),
                         ("async", ["--async-mapping"]), ("pipelined", ["--pipelined"]),
                         ("sync_again", [])):
-        runs[name], system = run(name, extra)
+        runs[name], system = run(name, extra, profile=name != "async")
         check(name, runs[name])
         if system._worker is not None and (system._worker.is_alive()
                                            or system._kf_queue.unfinished_tasks):
@@ -1067,16 +1151,18 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
     and host reads per frame;
     (a) every captured function replayed against its eager run on the
     inputs of its last call in (b)'s graphed runs (KITTI size: 1226x370,
-    2000 features, 64 x 1800-ray scans, phase 4's local-BA problem): every
-    output bitwise equal (max_abs_err 0), eager and replay ms per call;
+    2000 features, 64 x 1800-ray scans, phase 4's local-BA problem, the
+    keyframes' triangulation and fuse): every output bitwise equal
+    (max_abs_err 0), eager and replay ms per call, the memory a fresh
+    capture keeps;
     (c) the graphed and the eager RGB-D runs over phase 4's 16 frames (and
     phase 4's own system): trajectories, keyframe poses and landmarks
     bitwise equal;
     (d) the tracking step's stage A, two designs on (b)'s last RGB-D step:
-    three graphs with the inlier read between them (what the port runs) and
-    one graph that runs stage A at both radii and selects by `torch.where`
-    (no read): wall and CUDA-event ms per step, with and without the retry,
-    both bitwise equal to the eager step.
+    three graphs with the inlier read between them (sync mode) and one
+    graph that runs stage A at both radii and selects by `torch.where` (no
+    read; pipelined mode): wall and CUDA-event ms per step, with and
+    without the retry, both bitwise equal to the eager step.
     Returns K1 / K2 launches of (b)'s graphed runs."""
     import contextlib
 
@@ -1085,12 +1171,11 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
     from sqrtlm_slam_tpu_torch.eval import planeworld, synthetic
     from sqrtlm_slam_tpu_torch.factors.reprojection import Camera
     from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
-    from sqrtlm_slam_tpu_torch.geometry import se3
     from sqrtlm_slam_tpu_torch.lidar import features as lidar_features
     from sqrtlm_slam_tpu_torch.lidar import odometry as odometry_mod
     from sqrtlm_slam_tpu_torch.ops import hamming
     from sqrtlm_slam_tpu_torch.optim import assembly
-    from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking
+    from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking, triangulation
     from sqrtlm_slam_tpu_torch.pipeline import system as system_mod
     from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
     from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackingConfig
@@ -1133,12 +1218,16 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
     recorded = [(system_mod, "build_frame_jit"), (system_mod, "build_frame_stereo_jit"),
                 (lidar_features, "extract_features_jit"), (tracking, "_stage_a_jit"),
                 (tracking, "_stages_bc_jit"), (local_mapping, "_bucketed_local_ba_jit"),
-                (tracking, "track_frame_step")]
+                (odometry_mod, "align_scan"), (odometry_mod, "_retract_jit"),
+                (odometry_mod, "_local_delta_jit"), (triangulation, "match_and_triangulate"),
+                (local_mapping, "_project_and_match"),
+                (local_mapping, "_project_and_match_many"), (tracking, "track_frame_step")]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr in recorded]
 
     def recorder(key, fn):
         def call(*a, **k):
-            calls[key(a, k)] = (fn, a, k)
+            if not getattr(cache._local, "busy", False):  # not a call inside a capture
+                calls[key(a, k)] = (fn, a, k)
             return fn(*a, **k)
         return call
 
@@ -1192,7 +1281,7 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
                    graph_captures_per_frame=utils.graph_captures / n_prof,
                    graph_replays_per_frame=utils.graph_replays / n_prof,
                    host_reads_per_frame=utils.host_reads / n_prof)
-        if not (w["kernel_launches"] > 0 and w["device_ms"] > 0):
+        if not (w["cuda_launches"] > 0 and w["device_ms"] > 0):
             raise AssertionError(f"{name}: the profiler saw no launch or no device time: {rec}")
         return system, rec
 
@@ -1222,10 +1311,36 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
             raise AssertionError(f"the eager {name} run used graphs: {eager}")
 
     # (a) every captured function against its eager run ---------------------
+    # Pipelined mode's stage A at both radii, on the last stage-A call's
+    # inputs (the runs of (b) are sync).
+    if "stage_a" in calls:
+        _, a, k = calls["stage_a"]
+        calls["stage_a_both"] = (tracking._stage_a_both_jit, a[:6] + (10,) + a[6:], k)
+
+    def pool_mb(fn, a, k):
+        """The device memory a fresh capture of `fn` keeps (its private pool
+        and static inputs): memory_reserved after empty_cache, before and
+        after the capture."""
+        if dev.type != "cuda":
+            return None
+        fresh = cache.graphed(fn.eager, static_argnames=fn.static_argnames)
+        sync()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved(dev)
+        fresh(*a, **k)
+        sync()
+        torch.cuda.empty_cache()
+        mb = (torch.cuda.memory_reserved(dev) - r0) / 2**20
+        del fresh
+        torch.cuda.empty_cache()
+        return mb
+
     replay = {}
     for name in ("build_frame_rgbd", "build_frame_mono", "build_frame_fusion",
                  "build_frame_stereo", "extract_features", "stage_a", "stages_bc",
-                 "stages_bc_fused", "bucketed_local_ba"):
+                 "stages_bc_fused", "bucketed_local_ba", "stage_a_both", "align_scan",
+                 "retract", "local_delta", "match_and_triangulate", "project_and_match",
+                 "project_and_match_many"):
         if name not in calls:
             raise AssertionError(f"{name} was never called in the graphed runs: {sorted(calls)}")
         fn, a, k = calls[name]
@@ -1240,10 +1355,18 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
         replay_ms = wall_ms(lambda: fn(*a, **k), n=10)
         err = max_abs_diff(got, want)
         replay[name] = dict(bitwise_equal=same_bits(got, want), max_abs_err=err,
-                            eager_ms=eager_ms, replay_ms=replay_ms)
+                            eager_ms=eager_ms, replay_ms=replay_ms,
+                            graph_memory_mb=pool_mb(fn, a, k))
         emit("graphs_replay_vs_eager", function=name, **replay[name])
         if not replay[name]["bitwise_equal"]:
             raise AssertionError(f"{name}: the replay differs from the eager run (max |d| {err})")
+    # The fuse's reverse direction: one graph of B unrolled matches against B
+    # replays of the single match (the alternative to unrolling).
+    many = replay["project_and_match_many"]["replay_ms"]
+    emit("graphs_fuse_batch", batch=local_mapping.FUSE_BATCH, many_replay_ms=many,
+         single_replay_ms=replay["project_and_match"]["replay_ms"],
+         many_over_batch_singles=many / (local_mapping.FUSE_BATCH
+                                         * replay["project_and_match"]["replay_ms"]))
 
     # (c) phase 4's frames graphed and eager ----------------------------------
     def state(s):
@@ -1261,24 +1384,9 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
     if not rgbd_equal:
         raise AssertionError("the graphed and the eager RGB-D runs differ")
 
-    # (d) stage A: three graphs and a read, or one graph and no read ---------
-    def step_design_b(prev_pose, velocity, lm, frame, cam, r_motion, r_local, min_inliers,
-                      close_depth, lidar_map=None, match_dist=0.45, num_levels=8,
-                      scale_factor=1.2):
-        pyr = dict(num_levels=num_levels, scale_factor=scale_factor)
-        fa = frame._replace(lidar=None)
-        a1 = tracking._stage_a(prev_pose, velocity, lm, fa, cam, r_motion, **pyr)
-        a2 = tracking._stage_a(prev_pose, velocity, lm, fa, cam, r_motion * 2, **pyr)
-        retry = a1[3] < min_inliers
-        pose_a = se3.SE3(torch.where(retry, a2[0].R, a1[0].R), torch.where(retry, a2[0].t,
-                                                                            a1[0].t))
-        return tracking._stages_bc(prev_pose, pose_a, torch.where(retry, a2[3], a1[3]), lm,
-                                   frame, cam, r_local, close_depth, lidar_map, match_dist,
-                                   **pyr)
-
-    design_b = cache.graphed(step_design_b, static_argnames=(
-        "cam", "r_motion", "r_local", "min_inliers", "close_depth", "match_dist",
-        "num_levels", "scale_factor"))
+    # (d) stage A: three graphs and a read (sync mode), or stage A at both
+    # radii in one graph and no read (pipelined mode) ----------------------
+    design_b = tracking._track_frame_step_no_read
     step_fn, a, k = calls["step_rgbd"]
     a = (a[0], a[1], a[2]._replace(ids=None)) + tuple(a[3:])
     designs = {}
@@ -1298,9 +1406,9 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
                 raise AssertionError(f"stage-A design {label} differs from the eager step")
         designs["retry" if retry else "no_retry"] = rec
         emit("graphs_stage_a_designs", case="retry" if retry else "no_retry", **rec,
-             note="the port runs design a; ms = wall per step to a synchronize; event_ms = "
-                  "CUDA events around the step (device time plus, for a, the read's gap); "
-                  "'retry' forces the widened second stage A")
+             note="sync mode runs design a, pipelined mode design b; ms = wall per step to a "
+                  "synchronize; event_ms = CUDA events around the step (device time plus, "
+                  "for a, the read's gap); 'retry' forces the widened second stage A")
     return dict(hamming=k1, ba_assembly=k2)
 
 
@@ -1467,8 +1575,9 @@ def main() -> None:
                 landmarks=system.num_landmarks(), local_ba=system.local_mapper.num_local_ba,
                 launches=launches, ate_m=ate,
                 tracked_frames_per_s=1.0 / float(np.median(secs)),
-                median_ms=1e3 * float(np.median(secs)), first_frames_ms=first_frames_ms,
-                host_reads_per_frame=reads / len(frames),
+                median_ms=1e3 * float(np.median(secs)), max_ms=1e3 * float(np.max(secs)),
+                slowest_over_median=float(np.max(secs) / np.median(secs)),
+                first_frames_ms=first_frames_ms, host_reads_per_frame=reads / len(frames),
                 graph_captures=utils.graph_captures,
                 graph_replays_per_frame=utils.graph_replays / len(frames), wall_s=wall)
     emit("main_path_kitti", **main)
@@ -1780,22 +1889,44 @@ def main() -> None:
 
     def fusion_run():
         """One pass over the fusion frames: (system, seconds per frame, tracked,
-        LiDAR associations per frame)."""
+        LiDAR associations per frame, the frames that inserted a keyframe)."""
         sysf = SlamSystem(kcam, f_cfg, device=dev)
-        secs, hits, tracked = [], [], 0
-        for img, pts in f_frames[:n_fusion]:
+        secs, hits, tracked, kf_frames = [], [], 0, []
+        for i, (img, pts) in enumerate(f_frames[:n_fusion]):
+            n_kf = sysf.num_keyframes()
             t = time.perf_counter()
             pose = sysf.track_fusion(img, pts, T_cam_lidar=T_cl)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
             tracked += pose is not None
             hits.append(sysf.tracker.last_lidar_matches)
-        return sysf, secs, tracked, hits
+            if sysf.num_keyframes() > n_kf:
+                kf_frames.append(i)
+        return sysf, secs, tracked, hits, kf_frames
+
+    # Local mapping's split: its steps are called outside every captured
+    # graph, so they can be bracketed in a graphed run too.
+    mapper_steps = [(local_mapping.LocalMapper, "process_keyframe", "process_keyframe"),
+                    (local_mapping.LocalMapper, "create_new_map_points", "triangulation"),
+                    (local_mapping.LocalMapper, "search_in_neighbors", "fuse"),
+                    (local_mapping.LocalMapper, "local_ba", "local_ba"),
+                    (local_mapping.LocalMapper, "_lidar_stage", "lidar_stage")]
+
+    def bracketed(patches, record, fn):
+        """fn() with each (object, attribute) of `patches` timed into `record`."""
+        kept = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+        for obj, attr, name in patches:
+            setattr(obj, attr, staged_into(record, name, getattr(obj, attr)))
+        try:
+            return fn()
+        finally:
+            for obj, attr, f in kept:
+                setattr(obj, attr, f)
 
     hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
     utils.host_reads = utils.graph_captures = utils.graph_replays = 0
     t0 = time.perf_counter()
-    fus, f_secs, f_tracked, f_hits = fusion_run()
+    fus, f_secs, f_tracked, f_hits, f_kf_frames = fusion_run()
     fusion_wall = time.perf_counter() - t0
     fusion_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count}
     f_reads = utils.host_reads
@@ -1803,6 +1934,12 @@ def main() -> None:
                     graph_replays_per_frame=utils.graph_replays / n_fusion)
     f_est = fus.get_trajectory()
     f_ate, _ = ate_rmse(f_est, f_gt[: len(f_est)], align_scale=False)
+    # Graphed again, local mapping's steps bracketed by synchronizes.
+    mapper_s = {}
+    fus_b, fb_secs, _, _, _ = bracketed(mapper_steps, mapper_s, fusion_run)
+    fus_b_equal = all(np.array_equal(a, b) for a, b in (
+        (f_est, fus_b.get_trajectory()), (fus.store.lm_pos, fus_b.store.lm_pos)))
+    del fus_b
 
     # The same frames again, eagerly (`disable_graphs`: a synchronize cannot
     # stand inside a captured graph), every stage bracketed by synchronizes.
@@ -1815,24 +1952,20 @@ def main() -> None:
         (frame_mod, "project_cloud_to_depth_image", "project_cloud_to_depth_image"),
         (frame_mod, "associate_depth", "associate_depth"),
         (tracking, "track_frame_step", "track_frame_step"),
-        (local_mapping.LocalMapper, "process_keyframe", "process_keyframe"),
-        (local_mapping.LocalMapper, "local_ba", "local_ba"),
-        (local_mapping.LocalMapper, "_lidar_stage", "lidar_stage"),
+        *mapper_steps,
         (tracking.Tracker, "_store_kf_lidar", "store_kf_lidar"),
     ]
-    originals = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patched]
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        for obj, attr, name in patched:
-            setattr(obj, attr, staged_into(stage_s, name, getattr(obj, attr)))
+    def eager_fusion():
         torch.cuda.set_sync_debug_mode("warn")
         try:
             with cache.disable_graphs():
-                fus2, _, f_tracked2, f_hits2 = fusion_run()
+                return fusion_run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-            for obj, attr, fn in originals:
-                setattr(obj, attr, fn)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fus2, _, f_tracked2, f_hits2, _ = bracketed(patched, stage_s, eager_fusion)
     f_syncs = sum("synchroniz" in str(w.message) for w in caught)
     n_calls = {k: len(v) for k, v in stage_s.items()}
     stage_ms = {k: 1e3 * float(np.median(v)) for k, v in stage_s.items()}
@@ -1841,6 +1974,7 @@ def main() -> None:
         (fus.store.kf_t, fus2.store.kf_t), (fus.store.lm_pos, fus2.store.lm_pos),
         (fus.store.kf_flat_normal, fus2.store.kf_flat_normal)))
     steady_hits = f_hits[2:]
+    steady = np.asarray(f_secs[5:])
     fusion = dict(
         frames=n_fusion, tracked=f_tracked, tracked_rerun=f_tracked2,
         points_per_scan=int(np.mean([len(p) for _, p in f_frames])),
@@ -1851,14 +1985,24 @@ def main() -> None:
         launches=fusion_launches, ate_m=f_ate,
         tracked_frames_per_s=1.0 / float(np.median(f_secs[5:])),
         median_ms=1e3 * float(np.median(f_secs[5:])), max_ms=1e3 * float(np.max(f_secs[5:])),
+        slowest_frame=5 + int(np.argmax(steady)),
+        slowest_over_median=float(np.max(steady) / np.median(steady)),
+        keyframe_frames=f_kf_frames,
+        keyframe_frames_ms=[1e3 * f_secs[i] for i in f_kf_frames if i >= 5],
+        graphed_stage_ms_median={k: 1e3 * float(np.median(v)) for k, v in mapper_s.items()},
+        graphed_stage_ms_max={k: 1e3 * float(np.max(v)) for k, v in mapper_s.items()},
+        graphed_stage_calls={k: len(v) for k, v in mapper_s.items()},
+        graphed_bracketed_median_ms=1e3 * float(np.median(fb_secs[5:])),
+        graphed_bracketed_rerun_bitwise_equal=fus_b_equal,
         host_reads_per_frame=f_reads / n_fusion, **f_graphs,
         synchronizing_ops_per_frame=f_syncs / n_fusion,
         stage_ms_median=stage_ms, stage_calls=n_calls,
         rerun_bitwise_equal=fusion_equal, start_s=FUSION_START_S,
         yaw_turned_deg=yaw_turned, world_s=world_s,
         render_s_per_frame=render_s / len(f_frames), wall_s=fusion_wall,
-        note="the first run graphed (the entry point's default), the second eager; stage "
-             "times and synchronizing operations from the second "
+        note="the first run graphed (the entry point's default), the second graphed with "
+             "local mapping's steps bracketed (graphed_stage_*), the third eager; stage "
+             "times and synchronizing operations from the third "
              "(torch.cuda.set_sync_debug_mode('warn'), stages bracketed by synchronizes); "
              "rerun_bitwise_equal compares the two; launches, device ms and idle share "
              "graphed and eager: phase 18")
@@ -1876,7 +2020,7 @@ def main() -> None:
         raise AssertionError(f"fusion: LiDAR associations per frame {f_hits}")
     if min(fusion_launches.values()) <= 0:
         raise AssertionError(f"fusion: a kernel never launched: {fusion_launches}")
-    if not fusion_equal or f_hits != f_hits2:
+    if not fusion_equal or f_hits != f_hits2 or not fus_b_equal:
         raise AssertionError("the graphed and the eager fusion runs on the card differ")
     del fus2
 
@@ -1972,13 +2116,16 @@ def main() -> None:
     hamming.launch_count = assembly.launch_count = 0
     utils.host_reads = utils.graph_captures = utils.graph_replays = 0
     st = SlamSystem(kcam, cfg, device=dev)
-    st_secs, st_tracked = [], 0
+    st_secs, st_tracked, st_kf_frames = [], 0, set()
     for i, (img_l, img_r) in enumerate(zip(lefts, rights)):
+        n_kf = st.num_keyframes()
         t = time.perf_counter()
         pose = st.track_stereo(img_l, img_r)
         torch.cuda.synchronize()
         st_secs.append(time.perf_counter() - t)
         st_tracked += pose is not None
+        if st.num_keyframes() > n_kf:
+            st_kf_frames.add(i)
     stereo_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count}
     st_reads = utils.host_reads
     st_graphs = dict(graph_captures=utils.graph_captures,
@@ -1992,7 +2139,11 @@ def main() -> None:
          landmarks=st.num_landmarks(), local_ba=st.local_mapper.num_local_ba,
          stereo_matches_frame0=int(ok0.sum()), depth_median_rel_err_frame0=stereo_depth_err,
          ate_m=st_ate, median_ms=1e3 * float(np.median(st_secs[5:])),
-         max_ms=1e3 * float(np.max(st_secs[5:])), launches=stereo_launches,
+         max_ms=1e3 * float(np.max(st_secs[5:])), slowest_frame=5 + int(np.argmax(st_secs[5:])),
+         slowest_over_median=float(np.max(st_secs[5:]) / np.median(st_secs[5:])),
+         keyframe_frames_ms=[1e3 * st_secs[i] for i in range(5, len(st_secs))
+                             if i in st_kf_frames],
+         launches=stereo_launches,
          kernel_launches_per_frame={k: v / len(lefts) for k, v in stereo_launches.items()},
          cuda_launches_per_frame=st_prof["cuda_launches"] / 2,
          device_ms_per_frame=st_prof["device_ms"] / 2,
@@ -2090,48 +2241,68 @@ def main() -> None:
     T_wl = [M @ T_cv for M in gt_cam_to_world(f_poses[:n_fusion])]
     l_gt = np.stack([np.linalg.inv(T_wl[0]) @ M for M in T_wl])
 
-    def odometry_run():
+    def odometry_run(profiled: int = 0):
+        """One pass over the scans: (odometry, seconds per scan, stats); the
+        last `profiled` scans each under torch.profiler, their counts and
+        whether they inserted a keyframe in `scan_windows`."""
         odo = odometry_mod.LidarOdometry(feat_cfg=f_cfg.lidar, device=dev)
         secs, stats = [], []
-        for pts in scans:
+        for i, pts in enumerate(scans):
+            n_kf = odo.num_keyframes
+            span = ProfiledSpan() if i >= len(scans) - profiled else None
+            if span:
+                span.start()
             t = time.perf_counter()
             odo.process(pts)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
+            if span:
+                span.stop()
+                scan_windows.append(dict(span.read(), keyframe=odo.num_keyframes > n_kf))
             odo.record_pose()
             stats.append(odo.last_stats)
         return odo, secs, stats
 
+    scan_windows = []
+
     utils.host_reads = utils.graph_captures = utils.graph_replays = 0
+    align_entries = odometry_mod.align_scan.num_entries()
     t0 = time.perf_counter()
     odo, l_secs, l_stats = odometry_run()
     odo_wall = time.perf_counter() - t0
     l_reads = utils.host_reads
     l_graphs = dict(graph_captures=utils.graph_captures,
+                    align_scan_captures=odometry_mod.align_scan.num_entries() - align_entries,
                     graph_replays_per_scan=utils.graph_replays / len(scans))
     l_matches = [int(s["matches"]) for s in l_stats[1:]]
+    # The graphed launches of the last 3 scans, processed again.
+    l_prof_g = profile_window(lambda: [odo.process(p) for p in scans[-3:]])
+
     def sensor_to_world(chain):  # T_lw poses -> (N, 4, 4) LiDAR -> world
         return gt_cam_to_world([synthetic.Pose(*utils.to_host(p.R, p.t)) for p in chain])
 
     l_est = sensor_to_world(odo._chain)
     l_ate, _ = ate_rmse(l_est, l_gt, align_scale=False)
-    # Again eagerly (`disable_graphs`), the feature extraction and the
-    # alignment bracketed by synchronizes, the last scans under the profiler.
-    stage_l = {}
+    # Graphed again and eagerly (`disable_graphs`), the feature extraction
+    # and the alignment bracketed by synchronizes; the eager run's last
+    # scans under the profiler.
     l_patched = [(lidar_features, "extract_features_jit", "features"),
                  (odometry_mod, "align_scan", "align_scan")]
-    l_orig = [(o, a, getattr(o, a)) for o, a, _ in l_patched]
-    for o, a, name in l_patched:
-        setattr(o, a, staged_into(stage_l, name, getattr(o, a)))
-    try:
+    stage_g, stage_l = {}, {}
+    odo_g, lg_secs, _ = bracketed(l_patched, stage_g, lambda: odometry_run(profiled=8))
+    kf_launches = [w["cuda_launches"] for w in scan_windows if w["keyframe"]]
+    other_launches = [w["cuda_launches"] for w in scan_windows if not w["keyframe"]]
+
+    def eager_odometry():
         with cache.disable_graphs():
-            odo2, _, _ = odometry_run()
-            l_prof = profile_window(lambda: [odo2.process(p) for p in scans[-3:]])
-    finally:
-        for o, a, fn in l_orig:
-            setattr(o, a, fn)
+            run = odometry_run()
+            return run, profile_window(lambda: [run[0].process(p) for p in scans[-3:]])
+
+    (odo2, l2_secs, _), l_prof = bracketed(l_patched, stage_l, eager_odometry)
     l_equal = all(torch.equal(a.R, b.R) and torch.equal(a.t, b.t)
                   for a, b in zip(odo._chain, odo2._chain))
+    l_rerun_equal = all(torch.equal(a.R, b.R) and torch.equal(a.t, b.t)
+                        for a, b in zip(odo._chain, odo_g._chain))
     # Backend: the true relative pose of the last scan w.r.t. the first.
     K = len(odo._chain)
     T_last_first = np.linalg.inv(l_gt[-1])  # world (first scan) -> last scan
@@ -2149,26 +2320,40 @@ def main() -> None:
          keyframes=odo.num_keyframes, ate_m=l_ate, matches_min=int(min(l_matches)),
          matches_median=float(np.median(l_matches)),
          median_ms=1e3 * float(np.median(l_secs[1:])), max_ms=1e3 * float(np.max(l_secs[1:])),
-         stage_ms_median={k: 1e3 * float(np.median(v)) for k, v in stage_l.items()},
-         cuda_launches_per_scan=l_prof["cuda_launches"] / 3,
-         device_ms_per_scan=l_prof["device_ms"] / 3,
-         device_idle_share=1.0 - l_prof["device_ms"] / 1e3 / l_prof["wall_s"],
-         host_reads_per_scan=l_reads / len(scans), **l_graphs, rerun_bitwise_equal=l_equal,
+         eager_median_ms=1e3 * float(np.median(l2_secs[1:])),
+         stage_ms_median={k: 1e3 * float(np.median(v)) for k, v in stage_g.items()},
+         eager_stage_ms_median={k: 1e3 * float(np.median(v)) for k, v in stage_l.items()},
+         cuda_launches_per_scan=l_prof_g["cuda_launches"] / 3,
+         cuda_launches_per_scan_without_keyframe=other_launches,
+         cuda_launches_per_keyframe_scan=kf_launches,
+         graph_launches_per_scan=l_prof_g["graph_launches"] / 3,
+         device_ms_per_scan=l_prof_g["device_ms"] / 3,
+         device_idle_share=1.0 - l_prof_g["device_ms"] / 1e3 / l_prof_g["wall_s"],
+         eager_cuda_launches_per_scan=l_prof["cuda_launches"] / 3,
+         eager_device_ms_per_scan=l_prof["device_ms"] / 3,
+         eager_device_idle_share=1.0 - l_prof["device_ms"] / 1e3 / l_prof["wall_s"],
+         host_reads_per_scan=l_reads / len(scans), **l_graphs,
+         graphed_rerun_bitwise_equal=l_rerun_equal, rerun_bitwise_equal=l_equal,
          yaw_turned_deg=yaw_turned, end_drift_before_m=drift_before,
          end_drift_after_backend_m=drift_after, backend_ms=backend_ms, wall_s=odo_wall,
-         note="the first run graphed, the second eager; stage times from the second "
-              "(stages bracketed by synchronizes); launches, device ms and idle share from "
-              "torch.profiler over its last 3 scans processed again; rerun_bitwise_equal "
-              "compares the two")
+         note="the first run graphed (ms per scan, captures, reads), the second graphed with "
+              "the stages bracketed by synchronizes (stage_ms_median), the third eager and "
+              "bracketed (eager_*); launches, device ms and idle share from torch.profiler "
+              "over the last 3 scans processed again after the first and the third run, "
+              "and per scan over the second run's last 8 (cuda_launches_per_*: a keyframe "
+              "scan rebuilds the local map eagerly); graphed_rerun_bitwise_equal compares "
+              "the first two, rerun_bitwise_equal the first and the eager run")
     if not l_ate < 0.5:
         raise AssertionError(f"LiDAR odometry ATE {l_ate} m >= 0.5 m")
     if min(l_matches) <= 100:
         raise AssertionError(f"LiDAR odometry associations per scan {l_matches}")
-    if not l_equal:
+    if not (l_equal and l_rerun_equal):
         raise AssertionError("the graphed and the eager LiDAR odometry runs on the card differ")
+    if l_graphs["align_scan_captures"] > 1:
+        raise AssertionError(f"align_scan captured {l_graphs['align_scan_captures']} graphs")
     if not drift_after < 0.3 * drift_before:
         raise AssertionError(f"backend_for_loop: end drift {drift_before} -> {drift_after} m")
-    del odo, odo2
+    del odo, odo2, odo_g
 
     # 15. The KITTI runner ------------------------------------------------
     runner = kitti_runner_phase(street=street)

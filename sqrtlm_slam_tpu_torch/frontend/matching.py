@@ -138,8 +138,11 @@ def projection_window_mask(
     projection q, with optional pyramid-level compatibility."""
     d = uv_pred[:, None, :] - uv_kp[None, :, :]
     dist2 = torch.sum(d * d, dim=-1)
-    r = torch.as_tensor(radius, dtype=uv_pred.dtype, device=uv_pred.device)
-    r = r.expand(uv_pred.shape[0])
+    if isinstance(radius, torch.Tensor):
+        r = radius.to(uv_pred.dtype).expand(uv_pred.shape[0])
+    else:  # a fill on the device, not a copy of a host scalar (a graph takes none)
+        r = torch.full((uv_pred.shape[0],), float(radius), dtype=uv_pred.dtype,
+                       device=uv_pred.device)
     mask = dist2 <= (r[:, None] * r[:, None])
     if octave_pred is not None and octave_kp is not None:
         dl = octave_kp[None, :] - octave_pred[:, None]

@@ -9,7 +9,13 @@ Counterpart of `sqrtlm_slam_tpu/lidar/odometry.py` (`art::Odom`):
     sharp / flat features, 3 damped Gauss-Newton steps on SE(3) over the
     point-to-point and point-to-plane residuals}, with an optional DoF mask
     (`DOF_PRESETS`). The JAX package's `lax.scan` loops are Python loops;
-    each 6x6 step is `solve_ex` (no error check, so no host read per step);
+    each 6x6 step is `solve_ex` (no error check, so no host read per step:
+    the pose LM's solve, which the tracking graphs capture). As in the JAX
+    package (`jax.jit`, static `cfg`), `align_scan` is the captured graph
+    (`utils.cache.graphed`, one capture per `OdomConfig` and shape: the
+    local map is downsampled to `map_capacity` and the features have fixed
+    caps, so one capture serves every scan of a run); `align_scan.eager`
+    is the op-by-op body;
   * `LidarOdometry`: the host-side loop with the keyframe policy (2 m / 5 deg),
     the 30-keyframe window (`slam`), unbounded growth (`mapping`), a fixed
     prior map (`localization`), and the SE(3) pose-graph backend over the
@@ -21,6 +27,7 @@ per scan (the keyframe test).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -28,7 +35,7 @@ import torch
 
 from ..factors import lidar as lf
 from ..geometry import se3
-from ..utils import to_host
+from ..utils import cache, to_host
 from . import features as feat
 from . import voxel_map as vmap
 
@@ -91,6 +98,14 @@ DOF_PRESETS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _dof_mask(mask: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A DoF mask (a `DOF_PRESETS` entry) as a (6,) tensor on `device`, made
+    once per process (no host-to-device copy per scan: a captured graph
+    takes none)."""
+    return torch.tensor(mask, dtype=dtype, device=device)
+
+
 def align_scan(pose0: se3.SE3, corner_pts: torch.Tensor, corner_valid: torch.Tensor,
                flat_pts: torch.Tensor, flat_valid: torch.Tensor, local_map: LocalMap,
                cfg: OdomConfig, dof_mask=None):
@@ -99,10 +114,13 @@ def align_scan(pose0: se3.SE3, corner_pts: torch.Tensor, corner_valid: torch.Ten
     pose0: initial guess T_lw (world -> lidar). Returns (pose, {"chi2",
     "matches"}) on the device: the last GN step's chi2 (at the pose before
     that step) and the last round's associations. `dof_mask` (6,) (a
-    `DOF_PRESETS` entry or a tensor) restricts the update to a DoF subset."""
+    tensor, or a `DOF_PRESETS` entry, kept on the device once per process)
+    restricts the update to a DoF subset."""
     dev, dtype = pose0.t.device, pose0.t.dtype
-    m = torch.as_tensor(dof_mask if dof_mask is not None else (1.0,) * 6,
-                        dtype=dtype).to(dev)
+    if isinstance(dof_mask, torch.Tensor):
+        m = dof_mask.to(dtype)
+    else:
+        m = _dof_mask(tuple(dof_mask) if dof_mask is not None else (1.0,) * 6, dtype, dev)
     pin = torch.diag(1.0 - m)
     eye = torch.eye(6, dtype=dtype, device=dev)
     pose = pose0
@@ -133,6 +151,14 @@ def align_scan(pose0: se3.SE3, corner_pts: torch.Tensor, corner_valid: torch.Ten
             pose = se3.retract(pose, dx * m)
         matches = torch.sum(c_ok) + torch.sum(f_ok)
     return pose, {"chi2": chi2, "matches": matches}
+
+
+align_scan = cache.graphed(align_scan, static_argnames=("cfg",))
+# The scan's SE(3) bookkeeping around it (the constant-velocity guess, the
+# velocity, the keyframe test's motion), ~100-180 operations each when
+# eager, as graphs too.
+_retract_jit = cache.graphed(se3.retract)
+_local_delta_jit = cache.graphed(se3.local_delta)
 
 
 class LidarOdometry:
@@ -166,7 +192,7 @@ class LidarOdometry:
     def _is_keyframe(self, pose: se3.SE3) -> bool:
         if self.last_kf_pose is None:
             return True
-        d = to_host(se3.local_delta(pose, self.last_kf_pose))
+        d = to_host(_local_delta_jit(pose, self.last_kf_pose))
         return (float(math.hypot(*d[:3])) > self.cfg.kf_dist
                 or float(math.hypot(*d[3:])) > math.radians(self.cfg.kf_angle_deg))
 
@@ -214,11 +240,12 @@ class LidarOdometry:
                 raise RuntimeError("localization mode requires set_prior_map()")
             self._insert_keyframe(self.pose, f)
             return self.pose
-        guess = se3.retract(self.pose, self.velocity)
+        guess = _retract_jit(self.pose, self.velocity)
         pose, self.last_stats = align_scan(
             guess, f.sharp, f.sharp_valid, f.flat, f.flat_valid, self._local_map, self.cfg,
-            dof_mask=None if dof is None else DOF_PRESETS[dof])
-        self.velocity = se3.local_delta(pose, self.pose)
+            dof_mask=_dof_mask(DOF_PRESETS[dof] if dof is not None else (1.0,) * 6,
+                               self.pose.t.dtype, self.device))
+        self.velocity = _local_delta_jit(pose, self.pose)
         self.pose = pose
         if self.mode != "localization" and self._is_keyframe(pose):
             self._insert_keyframe(pose, f)

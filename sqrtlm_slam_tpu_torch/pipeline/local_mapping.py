@@ -7,7 +7,13 @@ sqrt-Schur engine (kernel K2 per LM iteration; on the card one captured
 CUDA graph per problem shape, replayed) with write-back and outlier
 pruning, and keyframe culling. The map bookkeeping is the shared numpy
 `MapStore`; device work runs on the mapper's device and is read back once
-per dispatch group. When the keyframes carry LiDAR feature clouds, local BA
+per dispatch group. The JAX package's jitted programs of local mapping are
+captured CUDA graphs here (`utils.cache`): triangulation
+(`triangulation.match_and_triangulate`), the neighbour fuse's
+`_project_and_match` and `_project_and_match_many` (on buffers padded to
+`fuse_cap` and neighbour chunks of `FUSE_BATCH`, the JAX shapes, so one
+capture serves every keyframe) and the bucketed local BA. When the
+keyframes carry LiDAR feature clouds, local BA
 ends with the LiDAR stage: the centre keyframe's pose is refined against the
 LiDAR local map rebuilt from the optimized neighbour poses.
 """
@@ -27,6 +33,11 @@ from ..optim import facade, pose_opt, schur_bucketed
 from ..utils import cache, desc_to_torch, to_host
 from . import triangulation
 from .tracking import aggregate_kf_lidar, lidar_association, local_map_from_clouds
+
+
+# Neighbours per `_project_and_match_many` dispatch (the JAX package's B):
+# 10 first-order + 5 x 5 second-order neighbours at most, in chunks.
+FUSE_BATCH = 24
 
 
 def _project_and_match(pose_R, pose_t, lm_pos, lm_desc, lm_valid, lm_normal, lm_min_dist,
@@ -55,7 +66,8 @@ def _project_and_match_many(pose_R, pose_t, lm_pos, lm_desc, lm_valid, lm_normal
                             lm_min_dist, lm_max_dist, kp_xy, kp_desc, kp_valid,
                             cam: Camera, radius_px: float):
     """One landmark set projected into B keyframes (leading axis on the pose
-    and keypoint arrays). Returns stacked (valid (B, M), idx (B, M))."""
+    and keypoint arrays). Returns stacked (valid (B, M), idx (B, M)): the B
+    matches in turn (one graph holds them all on the card)."""
     res = [
         _project_and_match(pose_R[b], pose_t[b], lm_pos, lm_desc, lm_valid, lm_normal,
                            lm_min_dist, lm_max_dist, kp_xy[b], kp_desc[b], kp_valid[b],
@@ -63,6 +75,14 @@ def _project_and_match_many(pose_R, pose_t, lm_pos, lm_desc, lm_valid, lm_normal
         for b in range(pose_R.shape[0])
     ]
     return torch.stack([r.valid for r in res]), torch.stack([r.idx for r in res])
+
+
+# The JAX package's two jitted programs (static `cam`, `radius_px`) as
+# captured CUDA graphs; the `_many` graph calls the single function's eager
+# body B times.
+_project_and_match = cache.graphed(_project_and_match, static_argnames=("cam", "radius_px"))
+_project_and_match_many = cache.graphed(_project_and_match_many,
+                                        static_argnames=("cam", "radius_px"))
 
 
 # The bucketed backend's local BA (what `facade.Optimizer("bucketed")` runs)
@@ -99,6 +119,12 @@ class LocalMapper:
         self.recent_landmarks: list = []  # (lm_id, created_at_kf)
         self.num_local_ba = 0
         self.num_lidar_stages = 0
+        # The fuse's buffers padded to the JAX shapes (`fuse_cap` landmarks,
+        # FUSE_BATCH neighbours) on the card, where one captured graph then
+        # serves every keyframe. On the CPU nothing is captured and the rows
+        # present suffice: pad rows never match, so the results are the same
+        # bits, at a fraction of the plain Hamming matrices' work.
+        self._pad_fuse = self.device.type == "cuda"
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -137,13 +163,21 @@ class LocalMapper:
             return ids[store.lm_valid[ids]][-fuse_cap:]
 
         def lm_buffer(lm_ids):
-            # Sized to the landmarks present: the JAX package pads to fuse_cap
-            # for static jit shapes, and empty rows never match.
-            return (self._t(store.lm_pos[lm_ids]),
-                    desc_to_torch(store.lm_desc[lm_ids], self.device),
-                    torch.ones(len(lm_ids), dtype=torch.bool, device=self.device),
-                    self._t(store.lm_normal[lm_ids]), self._t(store.lm_min_dist[lm_ids]),
-                    self._t(store.lm_max_dist[lm_ids]))
+            # Padded to fuse_cap, as the JAX package's (see `_pad_fuse`). Pad
+            # rows are invalid and never match.
+            m = len(lm_ids)
+            cap = fuse_cap if self._pad_fuse else m
+            pos = np.zeros((cap, 3), np.float32)
+            desc = np.zeros((cap, 8), np.uint32)
+            val = np.zeros(cap, bool)
+            normal = np.zeros((cap, 3), np.float32)
+            dmin = np.zeros(cap, np.float32)
+            dmax = np.full(cap, np.inf, np.float32)
+            pos[:m], desc[:m], val[:m] = store.lm_pos[lm_ids], store.lm_desc[lm_ids], True
+            normal[:m], dmin[:m] = store.lm_normal[lm_ids], store.lm_min_dist[lm_ids]
+            dmax[:m] = store.lm_max_dist[lm_ids]
+            return (self._t(pos), desc_to_torch(desc, self.device), self._t(val),
+                    self._t(normal), self._t(dmin), self._t(dmax))
 
         def fuse_apply(target_kf, lm_ids, res_valid, res_idx):
             m = len(lm_ids)
@@ -180,18 +214,29 @@ class LocalMapper:
                 )
                 rv, ri = to_host(res.valid, res.idx)
                 total += fuse_apply(kf, ids, rv, ri)
+        # Reverse direction: the neighbours in chunks of FUSE_BATCH, pad rows
+        # with an identity pose and no valid keypoint (see `_pad_fuse`).
         own = lm_of(kf)
-        if len(own) and neighbors:
+        if len(own):
             buf = lm_buffer(own)
-            rv, ri = to_host(*_project_and_match_many(
-                self._t(store.kf_R[neighbors]), self._t(store.kf_t[neighbors]), *buf,
-                self._t(store.kf_xy[neighbors]),
-                desc_to_torch(store.kf_desc[neighbors].reshape(-1, 8), self.device)
-                .reshape(len(neighbors), -1, 8),
-                self._t(store.kf_kp_valid[neighbors]), self.cam, 3.0,
-            ))
-            for i, nb in enumerate(neighbors):
-                total += fuse_apply(nb, own, rv[i], ri[i])
+            for start in range(0, len(neighbors), FUSE_BATCH):
+                nbs = neighbors[start:start + FUSE_BATCH]
+                B = FUSE_BATCH if self._pad_fuse else len(nbs)
+                bR = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
+                bt = np.zeros((B, 3), np.float32)
+                bxy = np.zeros((B,) + store.kf_xy.shape[1:], np.float32)
+                bdesc = np.zeros((B,) + store.kf_desc.shape[1:], np.uint32)
+                bval = np.zeros((B,) + store.kf_kp_valid.shape[1:], bool)
+                n = len(nbs)
+                bR[:n], bt[:n], bxy[:n] = store.kf_R[nbs], store.kf_t[nbs], store.kf_xy[nbs]
+                bdesc[:n], bval[:n] = store.kf_desc[nbs], store.kf_kp_valid[nbs]
+                rv, ri = to_host(*_project_and_match_many(
+                    self._t(bR), self._t(bt), *buf, self._t(bxy),
+                    desc_to_torch(bdesc.reshape(-1, 8), self.device).reshape(B, -1, 8),
+                    self._t(bval), self.cam, 3.0,
+                ))
+                for i, nb in enumerate(nbs):
+                    total += fuse_apply(nb, own, rv[i], ri[i])
         if total:
             touched = lm_of(kf)
             store.update_landmark_stats(touched[:512])

@@ -22,15 +22,22 @@ Counterpart of `sqrtlm_slam_tpu/pipeline/tracking.py`:
     (skipped in localisation mode).
 
 Device work stays on the frame's device; the host reads results twice per
-frame (the stage-A inlier count that decides the widened retry, and one
-packed fetch of the step's results), once more per inserted keyframe (twice
-with LiDAR features: their downsampled clouds), once per fallback, once
-per relocalisation candidate tried, and, until a monocular map starts,
-twice per frame (the match count, one packed read of the initializer).
+frame in sync mode (the stage-A inlier count that decides the widened
+retry, and one packed fetch of the step's results) and once in pipelined
+mode (the packed fetch), once more per inserted keyframe (twice with LiDAR
+features: their downsampled clouds), once per fallback, once per
+relocalisation candidate tried, and, until a monocular map starts, twice
+per frame (the match count, one packed read of the initializer).
 
 On the card `track_frame_step` replays captured CUDA graphs (`utils.cache`,
 the JAX package's jit): stage A, the widened stage A when the first finds
 too few inliers, and stages B and C; the stage-A read sits between them.
+Pipelined mode replays `_stage_a_both_jit` instead: stage A at both radii
+in one graph, the result selected on the device by the inlier count (the
+JAX `lax.cond`), so dispatching a step reads nothing. The packed results
+are copied into pinned host memory right after the step is enqueued
+(`utils.to_host_async`); consuming the step waits for that copy's event
+alone, not for the work queued after it.
 
 At every keyframe insertion the system's `vocab_hook` supplies the
 keyframe's word ids and BoW vector (place recognition reads them).
@@ -45,9 +52,8 @@ results are read only after frame t+1's step has been dispatched
 the no-prior fallback and keyframe insertion for frame t happen while t+1
 is in flight; on a correction t+1 is dispatched again from the corrected
 state. `flush` finalizes the deferred frame (the system calls it before any
-read of the trajectory or the map). The stage-A retry inside the step still
-reads the host, so dispatching t+1 waits for its stage A: pipelining defers
-only `_consume_step`'s reads.
+read of the trajectory or the map). Frame t+1's device work runs while the
+host consumes frame t.
 
 With the system's asynchronous mapping worker, `map_lock` (a shared RLock,
 a no-op context otherwise) guards the tracker's store-touching sections:
@@ -71,7 +77,7 @@ from ..lidar import odometry as lidar_odometry
 from ..lidar import voxel_map
 from ..mapstore import MapStore
 from ..optim import pose_opt
-from ..utils import cache, desc_to_numpy, desc_to_torch, to_host
+from ..utils import cache, desc_to_numpy, desc_to_torch, to_host, to_host_async, wait_host
 from . import initializer
 from .frame import Frame
 
@@ -259,11 +265,30 @@ def _stages_bc(prev_pose: se3.SE3, poseA: se3.SE3, nA: torch.Tensor, lm: LocalMa
     return pose, new_velocity, packed_i, packed_f
 
 
-# The step's two device programs as captured CUDA graphs (`utils.cache`):
-# stage A (captured once per radius: the retry widens it), and stages B and
-# C with the counters. The eager functions on the CPU.
+def _stage_a_both(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuffer,
+                  frame: Frame, cam: Camera, radius_px: float, min_inliers: int,
+                  num_levels: int = 8, scale_factor: float = 1.2):
+    """Stage A at `radius_px` and at twice it, the second's result taken
+    where the first finds fewer than `min_inliers` inliers: the widened
+    retry decided on the device (the JAX step's `lax.cond`), at the cost of
+    the wide stage A on every frame. Each output equals the retry's bits."""
+    pyr = dict(num_levels=num_levels, scale_factor=scale_factor)
+    first = _stage_a(prev_pose, velocity, lm, frame, cam, radius_px, **pyr)
+    wide = _stage_a(prev_pose, velocity, lm, frame, cam, radius_px * 2, **pyr)
+    retry = first[3] < min_inliers
+    pose = se3.SE3(torch.where(retry, wide[0].R, first[0].R),
+                   torch.where(retry, wide[0].t, first[0].t))
+    return (pose,) + tuple(torch.where(retry, w, f) for f, w in zip(first[1:], wide[1:]))
+
+
+# The step's device programs as captured CUDA graphs (`utils.cache`): stage
+# A (captured once per radius: the retry widens it), stage A at both radii
+# (pipelined mode), and stages B and C with the counters. The eager
+# functions on the CPU.
 _stage_a_jit = cache.graphed(_stage_a,
                              static_argnames=("cam", "radius_px", "num_levels", "scale_factor"))
+_stage_a_both_jit = cache.graphed(_stage_a_both, static_argnames=(
+    "cam", "radius_px", "min_inliers", "num_levels", "scale_factor"))
 _stages_bc_jit = cache.graphed(_stages_bc, static_argnames=(
     "cam", "r_local", "close_depth", "match_dist", "num_levels", "scale_factor"))
 
@@ -292,6 +317,22 @@ def track_frame_step(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuf
     if int(to_host(outA[3])) < min_inliers:
         outA = _stage_a_jit(prev_pose, velocity, lm, frame_a, cam, r_motion * 2, **pyr)
     poseA, _, _, nA = outA
+    return _stages_bc_jit(prev_pose, poseA, nA, lm, frame, cam, r_local, close_depth,
+                          lidar_map, match_dist, **pyr)
+
+
+def _track_frame_step_no_read(prev_pose: se3.SE3, velocity: torch.Tensor, lm: LocalMapBuffer,
+                              frame: Frame, cam: Camera, r_motion: float, r_local: float,
+                              min_inliers: int, close_depth: float, lidar_map=None,
+                              match_dist: float = 0.45, num_levels: int = 8,
+                              scale_factor: float = 1.2):
+    """`track_frame_step` with the retry decided on the device
+    (`_stage_a_both_jit`): two graphs and no host read, for pipelined mode.
+    The same results, bit for bit; stage A's device work twice."""
+    lm = lm._replace(ids=None)
+    pyr = dict(num_levels=num_levels, scale_factor=scale_factor)
+    poseA, _, _, nA = _stage_a_both_jit(prev_pose, velocity, lm, frame._replace(lidar=None),
+                                        cam, r_motion, min_inliers, **pyr)
     return _stages_bc_jit(prev_pose, poseA, nA, lm, frame, cam, r_local, close_depth,
                           lidar_map, match_dist, **pyr)
 
@@ -741,8 +782,10 @@ class Tracker:
         return self._track_steady(frame)
 
     def _step(self, pose: se3.SE3, velocity: torch.Tensor, lm_buffer, lidar_map, frame):
+        """The frame's step; in pipelined mode without the stage-A read."""
         cfg = self.cfg
-        return track_frame_step(
+        step = _track_frame_step_no_read if cfg.pipelined else track_frame_step
+        return step(
             pose, velocity, lm_buffer, frame, self.cam, cfg.match_radius_motion,
             cfg.match_radius_local, cfg.min_inliers_track, cfg.close_depth,
             lidar_map=lidar_map, match_dist=cfg.lidar_match_dist,
@@ -750,15 +793,16 @@ class Tracker:
         )
 
     def _dispatch_step(self, frame: Frame) -> tuple:
-        """Launch the frame's step from the current pose and velocity; returns
+        """Launch the frame's step from the current pose and velocity, and
+        the copy of its packed results to the host (`to_host_async`); returns
         what `_consume_step` needs: (frame, frame index, local map, LiDAR map,
-        pose, velocity, packed_i, packed_f, previous pose)."""
+        pose, velocity, the packed results' copy, previous pose)."""
         lm_buffer = self._gather_local_map()
         lidar_map = self._gather_lidar_local_map() if frame.lidar is not None else None
         pose, velocity, packed_i, packed_f = self._step(self.pose, self.velocity, lm_buffer,
                                                         lidar_map, frame)
-        return (frame, self.frame_idx, lm_buffer, lidar_map, pose, velocity, packed_i,
-                packed_f, self.pose)
+        return (frame, self.frame_idx, lm_buffer, lidar_map, pose, velocity,
+                to_host_async(packed_i, packed_f), self.pose)
 
     def _track_steady(self, frame: Frame) -> Optional[se3.SE3]:
         """Synchronous steady-state frame: dispatch, then consume at once."""
@@ -795,9 +839,8 @@ class Tracker:
         step chained off the original dispatch must be dispatched again).
         `commit_pose` makes the step's pose and velocity the tracker's
         (sync mode; pipelined mode has chained them already)."""
-        (frame, frame_idx, lm_buffer, lidar_map, pose, velocity, packed_i, packed_f,
-         prev_pose) = pending
-        packed_i, packed_f = to_host(packed_i, packed_f)
+        frame, frame_idx, lm_buffer, lidar_map, pose, velocity, packed, prev_pose = pending
+        packed_i, packed_f = wait_host(packed)
         corrected = False
         if int(packed_f[13]) < self.cfg.min_inliers_track:  # nA
             # No-prior fallback: descriptor-only match + RANSAC seed, then the

@@ -1,9 +1,11 @@
 """Host <-> device helpers, and the timing and configuration utilities.
 
-Every read of device results by the host goes through `to_host`, which
-counts the reads that wait for the device (`host_reads`): the pipeline's
-host syncs per tracked frame are read off this counter (from every thread:
-the asynchronous mapping worker's reads count too).
+Every read of device results by the host goes through `to_host`, or
+through `to_host_async` + `wait_host` (the copy started on the stream into
+pinned host memory, waited for by its event alone), which count the reads
+that wait for the device (`host_reads`): the pipeline's host syncs per
+tracked frame are read off this counter (from every thread: the
+asynchronous mapping worker's reads count too).
 
 `graph_captures` and `graph_replays` count the CUDA graphs that
 `utils/cache.py` (the counterpart of the JAX package's jit) captures and
@@ -17,6 +19,7 @@ JAX package: `config.py` imports the pipeline, which imports this module.
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +56,47 @@ def to_host(*xs):
             host_reads += 1
     out = tuple(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
                 for x in xs)
+    return out[0] if len(out) == 1 else out
+
+
+class HostCopy(NamedTuple):
+    """A copy to the host in flight (`to_host_async`): the pinned host
+    tensors and the event recorded after their copies (None on the CPU,
+    where `tensors` are the caller's)."""
+
+    tensors: tuple
+    event: Optional["torch.cuda.Event"]
+
+
+def to_host_async(*xs: torch.Tensor) -> HostCopy:
+    """Start copying device tensors into pinned host tensors on the current
+    stream (`non_blocking`) and record an event after them; nothing waits
+    and nothing is counted. `wait_host` finishes the read. Tensors on the
+    CPU are kept as they are."""
+    if not any(x.device.type == "cuda" for x in xs):
+        return HostCopy(xs, None)
+    pinned = []
+    for x in xs:
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        h.copy_(x.detach(), non_blocking=True)
+        pinned.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return HostCopy(tuple(pinned), event)
+
+
+def wait_host(copy: HostCopy):
+    """Finish a `to_host_async` read: wait for its event only (not for work
+    queued on the stream after it) and return numpy arrays, one counted
+    read; on the CPU, `to_host` of the tensors. Returns one array or a
+    tuple."""
+    global host_reads
+    if copy.event is None:
+        return to_host(*copy.tensors)
+    with _reads_lock:
+        host_reads += 1
+    copy.event.synchronize()
+    out = tuple(t.numpy() for t in copy.tensors)
     return out[0] if len(out) == 1 else out
 
 

@@ -19,6 +19,7 @@ import torch
 from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse
 from sqrtlm_slam_tpu_torch.eval.synthetic import DEFAULT_CAM, SyntheticWorld, forward_trajectory
 from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+from sqrtlm_slam_tpu_torch.pipeline import tracking
 from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
 from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackingConfig, TrackState
 
@@ -118,6 +119,45 @@ def test_pipelined_tracks_accurately(pipelined_run):
     rmse, _ = ate_rmse(est, _gt(poses))
     assert rmse < 0.1, f"pipelined ATE {rmse}"
     assert s.state == TrackState.OK and s.num_keyframes() >= 2
+
+
+def test_pipelined_dispatch_reads_nothing_and_sync_reads_stage_a(monkeypatch):
+    """Dispatching a step reads nothing back in pipelined mode (stage A at
+    both radii, the retry decided on the device); sync mode reads stage A's
+    inlier count once a step. Consuming a step is one read in both."""
+    world = SyntheticWorld(seed=3, n_points=900)
+    poses = forward_trajectory(5, step=0.4)
+    calls = {"dispatch": 0, "reads_in_dispatch": 0, "consume_waits": 0}
+    inside = [False]
+    to_host, wait_host = tracking.to_host, tracking.wait_host
+    dispatch = tracking.Tracker._dispatch_step
+
+    def counting_to_host(*xs):
+        calls["reads_in_dispatch"] += inside[0]
+        return to_host(*xs)
+
+    def counting_wait_host(copy):
+        calls["consume_waits"] += 1
+        return wait_host(copy)
+
+    def marked_dispatch(self, frame):
+        calls["dispatch"] += 1
+        inside[0] = True
+        try:
+            return dispatch(self, frame)
+        finally:
+            inside[0] = False
+
+    monkeypatch.setattr(tracking, "to_host", counting_to_host)
+    monkeypatch.setattr(tracking, "wait_host", counting_wait_host)
+    monkeypatch.setattr(tracking.Tracker, "_dispatch_step", marked_dispatch)
+    for pipelined in (True, False):
+        calls.update(dispatch=0, reads_in_dispatch=0, consume_waits=0)
+        s = SlamSystem(DEFAULT_CAM, _pipelined_cfg(pipelined), device="cpu")
+        assert all(s.track_depth(*world.render(T, DEFAULT_CAM)) is not None for T in poses)
+        s.get_trajectory()
+        assert calls["dispatch"] == len(poses) - 1 == calls["consume_waits"]
+        assert calls["reads_in_dispatch"] == (0 if pipelined else calls["dispatch"]), calls
 
 
 def test_tracker_flush_is_idempotent(pipelined_run):

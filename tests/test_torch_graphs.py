@@ -19,7 +19,12 @@ the CPU), so here:
   * every graphed function issues, on these inputs, no operation that
     would read the device back on the card (`.item()`, `nonzero`,
     boolean-mask indexing, a linalg error check, a host-to-device copy of
-    an array): a CUDA graph cannot capture one.
+    an array): a CUDA graph cannot capture one. Besides the per-frame
+    programs: pipelined mode's stage A at both radii, `align_scan` and the
+    odometry's SE(3) bookkeeping around it, `match_and_triangulate`,
+    `_project_and_match` and `_project_and_match_many`;
+  * the both-radii stage A (pipelined mode) gives the bits of stage A with
+    the read and the widened retry, without and with the retry;
   * the port reads its vocabulary from its own copy of the asset.
 
 The same functions captured and replayed on the card:
@@ -47,7 +52,7 @@ from sqrtlm_slam_tpu_torch.lidar import features as t_feat
 from sqrtlm_slam_tpu_torch.lidar import odometry as t_odo
 from sqrtlm_slam_tpu_torch.optim import schur_bucketed
 from sqrtlm_slam_tpu_torch.pipeline import frame as t_frame
-from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking
+from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking, triangulation
 from sqrtlm_slam_tpu_torch.utils import cache, desc_to_numpy
 
 CFG = j_orb.ORBConfig(max_features=600)
@@ -357,6 +362,16 @@ def _graphed_calls(images, scan):
     pose_a, _, _, n_a = tracking._stage_a(pose, vel, lm, frame_a, cam, 15.0)
     flat, _ = t_synth.make_ba_problem(seed=1, P=8, L=256, stereo_frac=0.6, obs_per_landmark=4)
     problem = schur_bucketed.from_flat(flat, 8, device="cpu")
+    feat = frame.lidar
+    kp = frame.kp
+    sigma2 = torch.pow(1.2, 2.0 * kp.octave.to(torch.float32))
+    T2 = tracking.se3.SE3(torch.eye(3), torch.tensor([-0.3, 0.0, 0.0]))
+    tri = (pose, T2, cam, kp.xy, kp.desc, kp.valid, sigma2, kp.xy, kp.desc, kp.valid, sigma2)
+    M = lm.pos.shape[0]
+    lms = (lm.pos, lm.desc, lm.valid, torch.nn.functional.normalize(lm.pos, dim=-1),
+           torch.zeros(M), torch.full((M,), float("inf")))
+    B = 3
+    many_kp = (kp.xy.expand(B, -1, -1), kp.desc.expand(B, -1, -1), kp.valid.expand(B, -1))
     return [
         ("build_frame_rgbd", t_frame.build_frame_jit, (T(img), cam, orb_cfg),
          dict(depth_img=T(depth))),
@@ -372,6 +387,19 @@ def _graphed_calls(images, scan):
         ("stages_bc_fused", tracking._stages_bc_jit,
          (pose, pose_a, n_a, lm, frame, cam, 7.0, 40.0, lidar_map), {}),
         ("local_ba", local_mapping._bucketed_local_ba_jit, (problem, cam), {}),
+        ("stage_a_both", tracking._stage_a_both_jit, (pose, vel, lm, frame_a, cam, 15.0, 10),
+         {}),
+        ("align_scan", t_odo.align_scan, (pose, feat.sharp, feat.sharp_valid, feat.flat,
+                                          feat.flat_valid, lidar_map, t_odo.OdomConfig()),
+         dict(dof_mask=t_odo.DOF_PRESETS["z_rot_xy_trans"])),
+        ("match_and_triangulate", triangulation.match_and_triangulate, tri,
+         dict(angles1=kp.angle, angles2=kp.angle)),
+        ("project_and_match", local_mapping._project_and_match,
+         (torch.eye(3), torch.zeros(3), *lms, kp.xy, kp.desc, kp.valid, cam, 3.0), {}),
+        ("project_and_match_many", local_mapping._project_and_match_many,
+         (torch.eye(3).expand(B, 3, 3), torch.zeros(B, 3), *lms, *many_kp, cam, 3.0), {}),
+        ("odometry_retract", t_odo._retract_jit, (pose_a, torch.full((6,), 0.01)), {}),
+        ("odometry_local_delta", t_odo._local_delta_jit, (pose_a, pose), {}),
     ]
 
 
@@ -380,7 +408,7 @@ def graphed_calls(images, scan):
     return _graphed_calls(images, scan)
 
 
-@pytest.mark.parametrize("which", range(9))
+@pytest.mark.parametrize("which", range(16))
 def test_graphed_functions_issue_no_device_read(graphed_calls, which):
     name, fn, args, kwargs = graphed_calls[which]
     fn(*args, **kwargs)  # first use: the per-device tables a warm-up would make
@@ -405,6 +433,29 @@ def test_the_step_through_its_stages_equals_the_old_single_function(images, scan
             for a, b in zip(got[2:], want[2:]):
                 assert torch.equal(a, b)
             assert torch.equal(got[0].R, want[0].R) and torch.equal(got[1], want[1])
+
+
+def test_the_both_radii_stage_a_equals_the_retry_bit_for_bit(images, scan):
+    """Pipelined mode's step (stage A at both radii, selected on the
+    device, no read) gives the bits of `track_frame_step` (stage A, the
+    read, the widened retry), without and with the retry, fused and not."""
+    pose, vel, lm, frame, lidar_map = _step_inputs(images, scan)
+    cam = t_synth.DEFAULT_CAM
+    for lmap, fr in ((None, frame._replace(lidar=None)), (lidar_map, frame)):
+        for min_inl in (0, 10**6):
+            args = (pose, vel, lm, fr, cam, 15.0, 7.0, min_inl, 40.0)
+            want = tracking.track_frame_step(*args, lidar_map=lmap)
+            got = tracking._track_frame_step_no_read(*args, lidar_map=lmap)
+            for a, b in zip(got[2:], want[2:]):
+                assert torch.equal(a, b)
+            assert torch.equal(got[0].R, want[0].R) and torch.equal(got[0].t, want[0].t)
+            assert torch.equal(got[1], want[1])
+    outs = [tracking._stage_a_both(pose, vel, lm, frame._replace(lidar=None), cam, 15.0, m)
+            for m in (0, 10**6)]
+    for out, radius in zip(outs, (15.0, 30.0)):
+        want = tracking._stage_a(pose, vel, lm, frame._replace(lidar=None), cam, radius)
+        assert torch.equal(out[0].R, want[0].R) and torch.equal(out[0].t, want[0].t)
+        assert all(torch.equal(a, b) for a, b in zip(out[1:], want[1:]))
 
 
 def test_the_port_reads_its_own_vocabulary_asset():

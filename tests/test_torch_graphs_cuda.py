@@ -1,7 +1,13 @@
 """The captured CUDA graphs of the port (`utils.cache`) on the card: every
-graphed function replays its eager run bit for bit, outputs survive later
+graphed function replays its eager run bit for bit (the per-frame programs,
+pipelined mode's both-radii stage A, `align_scan`, `match_and_triangulate`,
+`_project_and_match` and `_project_and_match_many`), outputs survive later
 replays, replays count the kernels they launch, a capture that fails
-raises, and two threads capture and replay at once.
+raises, and two threads capture and replay at once. Whole runs: one
+`align_scan` capture serves every scan of an odometry run in its three
+modes, and a LiDAR odometry run and a pipelined `SlamSystem` run equal
+their eager reruns; the pinned read of a step's results (`to_host_async` +
+`wait_host`) gives `to_host`'s arrays.
 
 Marked `cuda`: each test skips where no CUDA device exists. The file
 imports neither JAX nor the JAX package (the card has no JAX):
@@ -28,9 +34,10 @@ from sqrtlm_slam_tpu_torch.lidar import odometry
 from sqrtlm_slam_tpu_torch.ops import hamming
 from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
 from sqrtlm_slam_tpu_torch.pipeline import frame as frame_mod
-from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking
+from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking, triangulation
 from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMappingConfig
 from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
+from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackingConfig
 from sqrtlm_slam_tpu_torch.utils import cache
 
 pytestmark = pytest.mark.cuda
@@ -73,14 +80,21 @@ def _perturbed(x):
     return x
 
 
-def _scan():
+def _scans(n: int, first: int = 0):
+    """Scans (sensor frame, rays on LCFG's columns) of the small street."""
     world = planeworld.street_circuit_world(seed=0, A=12.0, B=8.0, half_width=4.0, texel=0.05,
                                             panel_spacing=6.0)
-    poses, _ = planeworld.circuit_trajectory(4, A=12.0, B=8.0, corner_r=3.0, step=0.5)
-    raw = world.lidar_scan(poses[3], planeworld.T_CAM_VELO, n_rings=32, n_azimuth=720,
-                           noise_seed=3)
-    pts, _ = planeworld.center_scan_on_columns(raw, planeworld.T_CAM_VELO, 0.5)
-    return pts
+    poses, _ = planeworld.circuit_trajectory(first + n, A=12.0, B=8.0, corner_r=3.0, step=0.5)
+    out = []
+    for i in range(first, first + n):
+        raw = world.lidar_scan(poses[i], planeworld.T_CAM_VELO, n_rings=32, n_azimuth=720,
+                               noise_seed=i)
+        out.append(planeworld.center_scan_on_columns(raw, planeworld.T_CAM_VELO, 0.5)[0])
+    return out
+
+
+def _scan():
+    return _scans(1, first=3)[0]
 
 
 def _programs(dev):
@@ -116,6 +130,32 @@ def _programs(dev):
     flat, _ = synthetic.make_ba_problem(seed=1, P=32, L=1024, stereo_frac=0.6,
                                         obs_per_landmark=4)
     problem = schur_bucketed.from_flat(flat, 8, device=dev)
+    # Local mapping's inputs: frame 0 against the frame 0.4 m further on.
+    T1 = synthetic.forward_trajectory(25, step=0.4)[13]
+    img1, depth1 = (torch.as_tensor(a, device=dev) for a in world.render(T1, CAM))
+    f1 = frame_mod.build_frame(img1, CAM, ORB, depth_img=depth1)
+    pose0 = tracking.se3.SE3(torch.as_tensor(T0.R, device=dev), torch.as_tensor(T0.t, device=dev))
+    pose1 = tracking.se3.SE3(torch.as_tensor(T1.R, device=dev), torch.as_tensor(T1.t, device=dev))
+
+    def sigma2(kp):
+        return torch.pow(1.2, 2.0 * kp.octave.to(torch.float32))
+
+    tri = (pose0, pose1, CAM, f0.kp.xy, f0.kp.desc, f0.kp.valid, sigma2(f0.kp), f1.kp.xy,
+           f1.kp.desc, f1.kp.valid, sigma2(f1.kp))
+    M = 4096  # fuse_cap
+    world_pos = tracking.se3.act(tracking.se3.inverse(pose0), pos)
+    n = world_pos.shape[0]
+    lms = [torch.zeros(M, 3, device=dev), torch.zeros(M, 8, dtype=torch.int32, device=dev),
+           torch.zeros(M, dtype=torch.bool, device=dev), torch.zeros(M, 3, device=dev),
+           torch.zeros(M, device=dev), torch.full((M,), float("inf"), device=dev)]
+    lms[0][:n], lms[1][:n], lms[2][:n] = world_pos, f0.kp.desc, lm.valid
+    lms[3][:n] = torch.nn.functional.normalize(world_pos - pose0.t, dim=-1)
+    B = local_mapping.FUSE_BATCH
+    many = (torch.eye(3, device=dev).repeat(B, 1, 1), torch.zeros(B, 3, device=dev),
+            *lms, f1.kp.xy.repeat(B, 1, 1), f1.kp.desc.repeat(B, 1, 1),
+            torch.zeros(B, f1.kp.valid.shape[0], dtype=torch.bool, device=dev))
+    many[0][:2], many[1][:2] = torch.stack([pose1.R, pose0.R]), torch.stack([pose1.t, pose0.t])
+    many[-1][:2] = torch.stack([f1.kp.valid, f0.kp.valid])
     return [
         ("build_frame_rgbd", frame_mod.build_frame_jit, (img, CAM, ORB), dict(depth_img=depth)),
         ("build_frame_mono", frame_mod.build_frame_jit, (img, CAM, ORB), {}),
@@ -128,11 +168,26 @@ def _programs(dev):
         ("stages_bc_fused", tracking._stages_bc_jit,
          (pose, pose_a, n_a, lm, f0._replace(lidar=feat), CAM, 7.0, 40.0, lidar_map), {}),
         ("local_ba", local_mapping._bucketed_local_ba_jit, (problem, CAM), {}),
+        ("stage_a_both", tracking._stage_a_both_jit, (pose, vel, lm, f0, CAM, 15.0, 10), {}),
+        ("align_scan", odometry.align_scan, (pose, feat.sharp, feat.sharp_valid, feat.flat,
+                                             feat.flat_valid, lidar_map, odometry.OdomConfig()),
+         dict(dof_mask=odometry.DOF_PRESETS["z_rot_xy_trans"])),
+        ("match_and_triangulate", triangulation.match_and_triangulate, tri,
+         dict(angles1=f0.kp.angle, angles2=f1.kp.angle)),
+        ("project_and_match", local_mapping._project_and_match,
+         (pose1.R, pose1.t, *lms, f1.kp.xy, f1.kp.desc, f1.kp.valid, CAM, 3.0), {}),
+        ("project_and_match_many", local_mapping._project_and_match_many, many + (CAM, 3.0),
+         {}),
+        ("odometry_retract", odometry._retract_jit, (pose_a, torch.full((6,), 0.01, device=dev)),
+         {}),
+        ("odometry_local_delta", odometry._local_delta_jit, (pose_a, pose), {}),
     ]
 
 
 NAMES = ["build_frame_rgbd", "build_frame_mono", "build_frame_fusion", "build_frame_stereo",
-         "extract_features", "stage_a", "stages_bc", "stages_bc_fused", "local_ba"]
+         "extract_features", "stage_a", "stages_bc", "stages_bc_fused", "local_ba",
+         "stage_a_both", "align_scan", "match_and_triangulate", "project_and_match",
+         "project_and_match_many", "odometry_retract", "odometry_local_delta"]
 
 
 @pytest.mark.parametrize("which", NAMES)
@@ -279,3 +334,79 @@ def test_graphed_system_equals_the_eager_system_and_async_mapping_tracks(cuda_de
     ate, _ = ate_rmse(s.get_trajectory(), np.stack(gt), align_scale=False)
     assert ate < 0.05, ate
 
+
+
+def _odometry_run(dev, scans, cfg):
+    """`LidarOdometry.process` over `scans` in `slam` mode, then the last
+    scans again in `mapping` and `localization` modes (the slam run's map as
+    the prior): the poses of the three runs."""
+    poses = []
+    slam = odometry.LidarOdometry(cfg, feat_cfg=LCFG, device=dev)
+    poses += [slam.process(p) for p in scans]
+    mapping = odometry.LidarOdometry(cfg, feat_cfg=LCFG, device=dev)
+    mapping.mode = "mapping"
+    poses += [mapping.process(p) for p in scans[:4]]
+    loc = odometry.LidarOdometry(cfg, feat_cfg=LCFG, device=dev)
+    lm = slam._local_map
+    loc._local_map, loc.mode = lm, "localization"
+    poses += [loc.process(p) for p in scans[4:]]
+    assert slam.num_keyframes >= 2
+    return poses
+
+
+def test_one_align_scan_capture_serves_every_scan_and_equals_the_eager_run(cuda_device):
+    """A fresh `OdomConfig` (a new key): one capture for every scan of the
+    three modes, one replay a scan after each mode's first, and the graphed
+    poses bitwise equal to the eager run's."""
+    scans = _scans(8)
+    cfg = odometry.OdomConfig(damping=1.25e-4, kf_dist=1.0)
+    entries, replays = odometry.align_scan.num_entries(), utils.graph_replays
+    graphed = _odometry_run(cuda_device, scans, cfg)
+    torch.cuda.synchronize()
+    assert odometry.align_scan.num_entries() == entries + 1
+    with cache.disable_graphs():
+        eager = _odometry_run(cuda_device, scans, cfg)
+    for a, b in zip(graphed, eager):
+        assert _same_bits((a.R, a.t), (b.R, b.t))
+    assert utils.graph_replays > replays + len(scans)
+
+
+def test_pipelined_system_graphed_equals_eager(cuda_device):
+    """12 RGB-D frames with pipelined tracking (the both-radii stage A, the
+    pinned read), graphed and eager: every frame tracked, trajectories and
+    maps bitwise equal."""
+    poses, frames = _rgbd_frames()
+    cfg = SystemConfig(orb=ORBConfig(max_features=1000),
+                       tracking=TrackingConfig(pipelined=True))
+    runs = []
+    for eager in (False, True):
+        s = SlamSystem(CAM, cfg, device=cuda_device)
+        with cache.disable_graphs() if eager else contextlib.nullcontext():
+            tracked = sum(s.track_depth(*f) is not None for f in frames)
+            runs.append((s.get_trajectory(), s.store.kf_R.copy(), s.store.kf_t.copy(),
+                         s.store.lm_pos.copy()))
+        assert tracked == len(frames) and s.tracker.cfg.pipelined
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_the_pinned_read_equals_to_host(cuda_device):
+    """`to_host_async` + `wait_host` (the step's read) gives `to_host`'s
+    arrays, one counted read each, also with work queued after the copy."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    packed_i = torch.randint(-5, 2000, (3, 2048), dtype=torch.int32, device=cuda_device,
+                             generator=g)
+    packed_f = torch.randn(17, device=cuda_device, generator=g)
+    want = utils.to_host(packed_i, packed_f)
+    r0 = utils.host_reads
+    copy = utils.to_host_async(packed_i, packed_f)
+    big = torch.randn(4096, 4096, device=cuda_device, generator=g)
+    for _ in range(8):  # queued after the copy; the read does not wait for it
+        big = big @ big * 1e-3
+    got = utils.wait_host(copy)
+    assert utils.host_reads == r0 + 1
+    assert all(isinstance(a, np.ndarray) for a in got)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert copy.tensors[0].is_pinned()
+    torch.cuda.synchronize()
