@@ -48,14 +48,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      the GBA and read just after; the ATE at each stage (drift, essential
      graph, GBA) must lie within 1e-3 m of 0.5363 / 0.1349 / 0.0951, chi2
      must fall, K2 and K3 must launch, and a second GBA from the same store
-     must give bitwise-equal poses and landmarks;
+     must give bitwise-equal poses and landmarks. The essential graph and
+     the GBA each run graphed (the first call captures: one Gauss-Newton
+     step a graph; one LM iteration a graph), graphed again (replays only)
+     and eagerly (`disable_graphs`): seconds, captures, replays and host
+     reads of each, the memory the first call's captures keep
+     (`memory_reserved` after `empty_cache`), and the three bitwise equal;
   9. the loop path end to end: `SlamSystem(..., loop_detection=True)` over
      the ring scene of tests/test_e2e_loop.py (ring_world(7, 2500), the
      first 148 of its 160 frames at frac 1.3, 240x320, 600 features, default
      LoopClosingConfig). Counters zeroed just before and read just after;
      all but 2 frames tracked,
      >= 1 loop closed, >= 20 landmarks fused, ATE < 0.3 m, K3 launched
-     inside the loop's global BA.
+     inside the loop's global BA. The frame that commits the loop is split
+     by the loop corrector's calls, each bracketed by synchronizes:
+     detection, Sim3, `correct_loop` (the essential graph, the fuse and, in
+     sync mode, the GBA). Then the same ring with the loop corrector's calls
+     run eagerly (`disable_graphs` around each) and the same split,
+     reported beside it (not gated).
  10. camera+LiDAR fusion at KITTI size: `SlamSystem.track_fusion` over 28
      frames of the street circuit of eval/planeworld.py
      (street_circuit_world(seed=0), circuit_trajectory(step=0.8) from 54 m
@@ -109,7 +119,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      feature extraction and alignment, CUDA launches, device ms and idle
      share per scan graphed and eager, and the padded scan sizes; then
      `backend_for_loop` with the true first-to-last relative pose must cut
-     the end drift below 0.3 x.
+     the end drift below 0.3 x: graphed (one Gauss-Newton step a graph;
+     the first call captures), again and eagerly from the same chain, the
+     three bitwise equal (`backend_ms`: the first call).
  15. the KITTI runner (`python -m sqrtlm_slam_tpu_torch.run_kitti`): 20
      frames of `eval/kitti_synth.generate` (1226x370, the street circuit
      from its start) in a directory under build/, the velodyne scans
@@ -188,7 +200,15 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      stage A as three graphs with the inlier read between them (sync mode)
      and as one graph running both radii with a `torch.where` select
      (pipelined mode): wall and CUDA-event ms per step, with and without
-     the retry, both bitwise equal to the eager step.
+     the retry, both bitwise equal to the eager step; (e) the loop
+     correction's graphs (a Gauss-Newton step of the essential graph at
+     600 keyframes and at the ring's loop, the three graphs of global BA's
+     LM iteration on phase 8's and the ring's problems, a step of phase
+     14's LiDAR pose graph) replayed against their eager runs as in (a),
+     and global BA's two PCG designs ((a) all 100 PCG iterations in one
+     graph of the whole LM iteration, no read, built here; (b) the port's,
+     a read every 10) timed in turns on the ring's and phase 8's problems,
+     bitwise equal.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
@@ -204,6 +224,7 @@ from seeds with numpy. Needs `torch.cuda.is_available()`.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -685,6 +706,31 @@ def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") ->
     return runs
 
 
+def kept_bytes() -> int:
+    """The device memory the process keeps: `memory_reserved` after
+    `empty_cache` (the captured graphs' pools, live tensors)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def run_counted(fn):
+    """(fn(), dict(s, graph_captures, graph_replays, host_reads)) of one call
+    ended by a synchronize; the counters are zeroed just before it."""
+    import torch
+    from sqrtlm_slam_tpu_torch import utils
+
+    utils.graph_captures = utils.graph_replays = utils.host_reads = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(s=time.perf_counter() - t, graph_captures=utils.graph_captures,
+                     graph_replays=utils.graph_replays, host_reads=utils.host_reads)
+
+
 def wall_ms(fn, n: int = 3, warm: int = 1) -> float:
     """Median host time of one call of `fn` in ms, each call ended by a
     synchronize (for calls of many kernels and host work)."""
@@ -1138,7 +1184,167 @@ def max_abs_diff(a, b) -> float:
     return 0.0
 
 
-def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda") -> dict:
+def make_loop_inputs(device: str = "cuda") -> dict:
+    """Phase 18's loop-correction inputs when it runs alone: phase 8's
+    600-keyframe store (its GBA problem and essential graph), a 69-keyframe
+    ring store in place of the ring's (the same step, 17,000 landmarks) and
+    a 28-pose chain with a loop edge (phase 14's backend graph)."""
+    import torch
+    from sqrtlm_slam_tpu_torch.eval import synthetic
+    from sqrtlm_slam_tpu_torch.eval.scale import make_scale_store
+    from sqrtlm_slam_tpu_torch.geometry import se3, sim3
+    from sqrtlm_slam_tpu_torch.lidar import backend
+    from sqrtlm_slam_tpu_torch.loop import LoopCloser, LoopClosingConfig
+    from sqrtlm_slam_tpu_torch.loop.closing import gather_global_problem_bucketed
+
+    out = {}
+    for tag, n_kf, n_lm in (("600kf", 600, 120_000), ("ring", 69, 17_000)):
+        store, _, _ = make_scale_store(n_kf=n_kf, n_lm=n_lm, obs_per_lm=5, drift=4e-4,
+                                       radius=80.0 * n_kf / 600)
+        K = store.num_kf
+        lc = LoopCloser(store, synthetic.DEFAULT_CAM, cfg=LoopClosingConfig(edge_cap=16384),
+                        device=device)
+        ones = np.ones(K, np.float32)
+        R, t = store.kf_R[:K].copy(), store.kf_t[:K].copy()
+        S12 = sim3.Sim3(torch.tensor(1.0), torch.eye(3), torch.zeros(3))
+        out[f"pg_{tag}"] = lc._build_pose_graph(K - 1, 0, S12, ones, R, t, ones.copy(),
+                                                R.copy(), t.copy())
+        out[f"p_{tag}"] = gather_global_problem_bucketed(store, device)[0]
+    rng = np.random.RandomState(0)
+    chain = [se3.SE3(torch.eye(3, device=device),
+                     torch.as_tensor(rng.normal(size=3).astype(np.float32), device=device))
+             for _ in range(28)]
+    out["chain"] = backend.build_chain_graph(chain, [(0, 27, chain[3])])
+    return out
+
+
+def loop_graph_calls(loop_inputs: dict, cam) -> list:
+    """(row name, graphed function, args, kwargs) of the loop correction's
+    graphs on `loop_inputs` (phase 8's, the ring's, phase 14's): a
+    Gauss-Newton step of the essential graph and of the LiDAR pose graph,
+    and the three graphs of global BA's LM iteration, each at its first
+    iteration's state."""
+    import torch
+    from sqrtlm_slam_tpu_torch.lidar import backend
+    from sqrtlm_slam_tpu_torch.loop import essential_graph
+    from sqrtlm_slam_tpu_torch.optim import schur_bucketed
+
+    delta = 2.447  # global BA's Huber threshold, sqrt(CHI2_2DOF)
+    rows = []
+    for tag in ("600kf", "ring"):
+        pg = loop_inputs[f"pg_{tag}"]
+        rows.append((f"essential_graph_step_{tag}", essential_graph._gn_step_jit,
+                     (pg, *essential_graph._step_plans(pg), 1e-6), {}))
+        p = loop_inputs[f"p_{tag}"]
+        act, plan = p.obs_valid, schur_bucketed.pose_plan(p, p.obs_valid)
+        mu = torch.full((), 1e-3, device=p.points.device)
+        nu = torch.full((), 2.0, device=p.points.device)
+        chi2 = schur_bucketed.chi2_only(p, cam, act, delta)
+        head = schur_bucketed._cg_head(p, act, mu, plan, cam, delta, 1e-2)
+        lm = dict(cam=cam, robust_delta=delta)
+        rows += [
+            (f"gba_cg_head_{tag}", schur_bucketed._cg_head_jit, (p, act, mu, plan),
+             dict(lm, tol=1e-2)),
+            (f"gba_pcg_chunk_{tag}", schur_bucketed._pcg_chunk_jit,
+             (head.ctx, head.Mp, p.obs_cam, p.pose_fixed, plan, head.pcg),
+             dict(steps=schur_bucketed.PCG_CHECK_EVERY)),
+            (f"gba_lm_tail_{tag}", schur_bucketed._lm_tail_jit,
+             (p, head.ctx, head.pcg.x, chi2, mu, nu, act), lm),
+        ]
+    g = loop_inputs["chain"]
+    rows.append(("se3_graph_step_chain28", backend._gn_step_jit,
+                 (g, *backend._step_plans(g), 1e-6), {}))
+    return rows
+
+
+def _pcg_in_graph_lm_iteration(problem, chi2, mu, nu, active, plan, cam, robust_delta,
+                               cg_iters: int):
+    """PCG design (a), timed against the port's design (b): one LM iteration
+    of `ba_iterate_cg` as one function (one graph), its PCG running all
+    `cg_iters` iterations under the done mask, with no read."""
+    from sqrtlm_slam_tpu_torch.optim import schur_bucketed as sb
+
+    head = sb._cg_head(problem, active, mu, plan, cam, robust_delta, 1e-2)
+    s = sb._pcg_chunk(head.ctx, head.Mp, problem.obs_cam, problem.pose_fixed, plan, head.pcg,
+                      cg_iters)
+    return sb._lm_tail(problem, head.ctx, s.x, chi2, mu, nu, active, cam, robust_delta)
+
+
+def pcg_designs(problem, cam, iters: int = 10) -> dict:
+    """Global BA's two PCG designs on one problem (`iters` LM iterations of
+    `ba_iterate_cg` from its start): (a) one graph an LM iteration, every
+    PCG iteration under the done mask, no read (`_pcg_in_graph_lm_iteration`
+    in `ba_iterate_cg`'s loop); (b) the port's three graphs, the done flag
+    read every `PCG_CHECK_EVERY` iterations. Timed in turns a, b, b, a after
+    a warm-up that captures; ms per LM iteration to a synchronize, host
+    reads per call, the PCG iterations of the first LM iteration, whether
+    the two give the same bits, and the memory (a)'s capture keeps
+    (`memory_reserved` after `empty_cache`, before and after its first run,
+    with that run's outputs)."""
+    import torch
+    from sqrtlm_slam_tpu_torch import utils
+    from sqrtlm_slam_tpu_torch.optim import schur_bucketed
+    from sqrtlm_slam_tpu_torch.utils import cache
+
+    delta = 2.447
+    act = problem.obs_valid
+    lm_iteration = cache.graphed(_pcg_in_graph_lm_iteration,
+                                 static_argnames=("cam", "robust_delta", "cg_iters"))
+
+    def run_a():
+        chi2 = schur_bucketed.chi2_only(problem, cam, act, delta)
+        mu = torch.full((), 1e-3, dtype=chi2.dtype, device=chi2.device)
+        nu = torch.full((), 2.0, dtype=chi2.dtype, device=chi2.device)
+        n_acc = torch.zeros((), dtype=torch.int32, device=chi2.device)
+        plan = schur_bucketed.pose_plan(problem, act)
+        prob = problem
+        for _ in range(iters):
+            s = lm_iteration(prob, chi2, mu, nu, act, plan, cam=cam, robust_delta=delta,
+                             cg_iters=100)
+            prob = prob._replace(pose_R=s.pose_R, pose_t=s.pose_t, points=s.points)
+            chi2, mu, nu = s.chi2, s.mu, s.nu
+            n_acc = n_acc + s.accept.to(torch.int32)
+        return prob, chi2, n_acc
+
+    def run_b():
+        return schur_bucketed.ba_iterate_cg(problem, cam, act, iters, robust_delta=delta)
+
+    def kept():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    runs = {"a": run_a, "b": run_b}
+    outs, times, reads = {}, {"a": [], "b": []}, {}
+    mem0 = kept()
+    outs["a"] = run_a()  # captures (a)'s graph
+    a_graph_memory_mb = (kept() - mem0) / 2**20
+    for design in ("a", "b", "b", "a"):
+        if design not in outs:
+            outs[design] = runs[design]()  # captures
+        out, rec = run_counted(runs[design])
+        times[design].append(1e3 * rec["s"] / iters)
+        reads[design] = rec["host_reads"]
+        if not same_bits(out, outs[design]):
+            raise AssertionError(f"PCG design {design}: two runs differ")
+    # PCG iterations of the first LM iteration (the eager count).
+    plan = schur_bucketed.pose_plan(problem, act)
+    mu = torch.full((), 1e-3, device=problem.points.device)
+    head = schur_bucketed._cg_head(problem, act, mu, plan, cam, delta, 1e-2)
+    s = schur_bucketed._pcg_run(
+        lambda st, k: schur_bucketed._pcg_chunk(head.ctx, head.Mp, problem.obs_cam,
+                                                problem.pose_fixed, plan, st, k),
+        head.pcg, 100, schur_bucketed.PCG_CHECK_EVERY)
+    return dict(lm_iterations=iters, a_ms_per_lm_iteration=float(np.median(times["a"])),
+                b_ms_per_lm_iteration=float(np.median(times["b"])), a_ms_turns=times["a"],
+                b_ms_turns=times["b"], a_host_reads=reads["a"], b_host_reads=reads["b"],
+                pcg_iterations_first_lm_iteration=int(utils.to_host(s.n)),
+                bitwise_equal=same_bits(outs["a"], outs["b"]),
+                a_graph_memory_mb=a_graph_memory_mb)
+
+
+def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
+                 device: str = "cuda") -> dict:
     """18. The captured CUDA graphs of the entry points (`utils.cache`), also
     callable alone. `kitti` is phase 4's (frames, poses), `street` phase
     10's (frames (image, scan), T_cam_lidar, right images), `rgbd_system`
@@ -1162,7 +1368,12 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
     three graphs with the inlier read between them (sync mode) and one
     graph that runs stage A at both radii and selects by `torch.where` (no
     read; pipelined mode): wall and CUDA-event ms per step, with and
-    without the retry, both bitwise equal to the eager step.
+    without the retry, both bitwise equal to the eager step;
+    (e) the loop correction's graphs (`loop_inputs`: phase 8's 600-keyframe
+    problem and essential graph, the ring's at its loop, phase 14's chain;
+    `make_loop_inputs` when absent): each replayed against its eager run as
+    in (a), and global BA's two PCG designs timed on the two problems
+    (`pcg_designs`).
     Returns K1 / K2 launches of (b)'s graphed runs."""
     import contextlib
 
@@ -1409,6 +1620,42 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, device: str = "cuda"
              note="sync mode runs design a, pipelined mode design b; ms = wall per step to a "
                   "synchronize; event_ms = CUDA events around the step (device time plus, "
                   "for a, the read's gap); 'retry' forces the widened second stage A")
+
+    # (e) the loop correction's graphs and global BA's two PCG designs -------
+    if dev.type == "cuda":
+        from sqrtlm_slam_tpu_torch.optim import schur_bucketed
+
+        if loop_inputs is None:
+            loop_inputs = make_loop_inputs()
+        bench_cam = synthetic.DEFAULT_CAM
+        for name, fn, a, k in loop_graph_calls(loop_inputs, bench_cam):
+            with cache.disable_graphs():
+                want = fn(*a, **k)
+                eager_ms = wall_ms(lambda: fn(*a, **k), n=3)
+            r0 = utils.graph_replays
+            got = fn(*a, **k)
+            sync()
+            if utils.graph_replays != r0 + 1:
+                raise AssertionError(f"{name}: the graphed call did not replay a graph")
+            replay_ms = wall_ms(lambda: fn(*a, **k), n=10)
+            err = max_abs_diff(got, want)
+            replay[name] = dict(bitwise_equal=same_bits(got, want), max_abs_err=err,
+                                eager_ms=eager_ms, replay_ms=replay_ms,
+                                graph_memory_mb=pool_mb(fn, a, k))
+            emit("graphs_replay_vs_eager", function=name, **replay[name])
+            if not replay[name]["bitwise_equal"]:
+                raise AssertionError(f"{name}: the replay differs from the eager run "
+                                     f"(max |d| {err})")
+        for tag in ("ring", "600kf"):
+            rec = pcg_designs(loop_inputs[f"p_{tag}"], bench_cam)
+            emit("graphs_pcg_designs", problem=tag,
+                 shape=list(loop_inputs[f"p_{tag}"].obs_cam.shape), **rec,
+                 note="a: one graph an LM iteration, all 100 PCG iterations under the done "
+                      "mask, no read (built by the smoke); b: the port's three graphs, the "
+                      f"done flag read every {schur_bucketed.PCG_CHECK_EVERY} PCG "
+                      "iterations; turns a, b, b, a")
+            if not rec["bitwise_equal"]:
+                raise AssertionError(f"PCG designs differ on the {tag} problem")
     return dict(hamming=k1, ba_assembly=k2)
 
 
@@ -1744,47 +1991,70 @@ def main() -> None:
                               store.kf_t[:Kf].copy(), ones.copy(), store.kf_R[:Kf].copy(),
                               store.kf_t[:Kf].copy())
     eg_build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pg_out, eg_chi2 = essential_graph.optimize_pose_graph(pg, num_iters=30)
-    torch.cuda.synchronize()
-    eg_opt_s = time.perf_counter() - t0
+    # The essential graph graphed (the first call captures the step), again
+    # (replays only) and eagerly (`disable_graphs`): bitwise equal.
+    mem0 = kept_bytes()
+    (pg_out, eg_chi2), eg_graphed = run_counted(
+        lambda: essential_graph.optimize_pose_graph(pg, num_iters=30))
+    eg_memory_mb = (kept_bytes() - mem0) / 2**20
+    eg_again_out, eg_again = run_counted(
+        lambda: essential_graph.optimize_pose_graph(pg, num_iters=30))
+    with cache.disable_graphs():
+        eg_eager_out, eg_eager = run_counted(
+            lambda: essential_graph.optimize_pose_graph(pg, num_iters=30))
+
+    def eg_bits(out):
+        return (out[0].s, out[0].R, out[0].t, out[1])
+
+    eg_equal = (same_bits(eg_bits((pg_out, eg_chi2)), eg_bits(eg_eager_out))
+                and same_bits(eg_bits(eg_again_out), eg_bits(eg_eager_out)))
+    eg_opt_s = eg_graphed["s"]
     lc._apply_pose_graph(pg_out, Kf)
     ate_eg = store_ate(store, true_R, true_t)
     p0, _ = gather_global_problem_bucketed(store, dev)
     chi2_before = float(schur_bucketed.chi2_only(p0, cam_bench, p0.obs_valid, None))
     n_edges = int(p0.obs_valid.sum())
-    del p0
+    loop_inputs = dict(p_600kf=p0, pg_600kf=pg)  # phase 18's inputs at this size
     snapshot = copy.deepcopy(store)
+    snapshot_eager = copy.deepcopy(store)
     hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
-    utils.host_reads = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gba_ok = lc.run_global_ba()
-    torch.cuda.synchronize()
-    gba_s = time.perf_counter() - t0
+    mem0 = kept_bytes()
+    gba_ok, gba_graphed = run_counted(lc.run_global_ba)
+    gba_memory_mb = (kept_bytes() - mem0) / 2**20
     gba_launches = {"ba_assembly": assembly.launch_count,
                     "ba_chi2": assembly.chi2_launch_count}
-    gba_reads = utils.host_reads
+    gba_s, gba_reads = gba_graphed["s"], gba_graphed["host_reads"]
     ate_gba = store_ate(store, true_R, true_t)
     p1, _ = gather_global_problem_bucketed(store, dev)
     chi2_after = float(schur_bucketed.chi2_only(p1, cam_bench, p1.obs_valid, None))
     del p1
     lc2 = LoopCloser(snapshot, cam_bench, cfg=gba_cfg, device=dev)
-    t0 = time.perf_counter()
-    gba2_ok = lc2.run_global_ba()
-    torch.cuda.synchronize()
-    gba2_s = time.perf_counter() - t0
+    gba2_ok, gba_again = run_counted(lc2.run_global_ba)
+    lc3 = LoopCloser(snapshot_eager, cam_bench, cfg=gba_cfg, device=dev)
+    with cache.disable_graphs():
+        gba3_ok, gba_eager = run_counted(lc3.run_global_ba)
+    store_fields = ("kf_R", "kf_t", "lm_pos", "lm_obs_kf")
     repeat_equal = all(np.array_equal(getattr(store, f), getattr(snapshot, f))
-                       for f in ("kf_R", "kf_t", "lm_pos", "lm_obs_kf"))
+                       for f in store_fields)
+    gba_eager_equal = all(np.array_equal(getattr(store, f), getattr(snapshot_eager, f))
+                          for f in store_fields)
     emit("gba_at_scale", kfs=600, landmarks=120_000, edges=n_edges, gba_iters=10,
          store_build_s=build_store_s, essential_graph_build_s=eg_build_s,
          essential_graph_opt_s=eg_opt_s, essential_graph_edges=int(pg.e_valid.sum()),
-         essential_graph_chi2=float(eg_chi2), gba_s=gba_s, gba_repeat_s=gba2_s,
+         essential_graph_chi2=float(eg_chi2), gba_s=gba_s, gba_repeat_s=gba_again["s"],
          gba_completed=bool(gba_ok), ate_drift_m=ate_drift, ate_after_loop_m=ate_eg,
          ate_after_gba_m=ate_gba, chi2_before=chi2_before, chi2_after=chi2_after,
          launches=gba_launches, host_reads=gba_reads, repeat_bitwise_equal=repeat_equal,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    if not (gba_ok and gba2_ok):
+         essential_graph=dict(graphed=eg_graphed, graphed_again=eg_again, eager=eg_eager,
+                              graph_memory_mb=eg_memory_mb, bitwise_equal=eg_equal),
+         gba=dict(graphed=gba_graphed, graphed_again=gba_again, eager=gba_eager,
+                  graph_memory_mb=gba_memory_mb, bitwise_equal=gba_eager_equal),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         note="graphed: the first call (it captures), graphed_again: the same call "
+              "replaying only, eager: under disable_graphs; s to a synchronize; "
+              "graph_memory_mb: memory_reserved after empty_cache, before and after the "
+              "first call; gba_s is graphed.s, host_reads graphed.host_reads")
+    if not (gba_ok and gba2_ok and gba3_ok):
         raise AssertionError("global BA at scale did not complete")
     stages = (ate_drift, ate_eg, ate_gba)
     if not all(abs(a - b) <= GBA_ATE_TOL for a, b in zip(stages, GBA_ATE_STAGES)):
@@ -1796,7 +2066,14 @@ def main() -> None:
         raise AssertionError(f"a kernel of global BA never launched: {gba_launches}")
     if not repeat_equal:
         raise AssertionError("a second GBA from the same store gave different results")
-    del store, snapshot, lc, lc2, pg, pg_out
+    if not (eg_equal and gba_eager_equal):
+        raise AssertionError(f"graphed and eager differ: essential graph {eg_equal}, "
+                             f"global BA {gba_eager_equal}")
+    if not (eg_graphed["graph_captures"] >= 1 and gba_graphed["graph_captures"] >= 1
+            and eg_again["graph_captures"] == 0 and gba_again["graph_captures"] == 0):
+        raise AssertionError(f"captures: essential graph {eg_graphed}, {eg_again}; "
+                             f"GBA {gba_graphed}, {gba_again}")
+    del store, snapshot, snapshot_eager, lc, lc2, lc3, pg_out
 
     # 9. The loop path end to end -----------------------------------------
     ring = synthetic.ring_world(seed=7, n_points=2500)
@@ -1804,38 +2081,110 @@ def main() -> None:
     # 132-136 (the smoke's time, PERF.md section 4).
     ring_poses = synthetic.ring_trajectory(160, frac=1.3)[:148]
     ring_frames = [ring.render(T, cam_bench) for T in ring_poses]
-    loop_sys = SlamSystem(cam_bench, SystemConfig(orb=ORBConfig(max_features=600),
-                                                  loop_detection=True),
-                          device=dev, loop_cfg=LoopClosingConfig())
-    lc = loop_sys.loop_closer
-    gba_runs = []
-    run_gba = lc.run_global_ba
 
-    def counted_gba(generation=None):
-        c2, c3 = assembly.launch_count, assembly.chi2_launch_count
-        t = time.perf_counter()
-        ok = run_gba(generation)
-        torch.cuda.synchronize()
-        gba_runs.append(dict(ok=ok, s=time.perf_counter() - t, kfs=loop_sys.num_keyframes(),
-                             ba_assembly=assembly.launch_count - c2,
-                             ba_chi2=assembly.chi2_launch_count - c3))
-        return ok
+    def ring_run(eager: bool):
+        """The ring through `track_depth` (graphed), its loop corrector graphed
+        or, with `eager`, under `disable_graphs`: (system, seconds per frame,
+        GBA runs, the loop corrector's calls bracketed by synchronizes:
+        (frame, name, ms, result))."""
+        loop_sys = SlamSystem(cam_bench, SystemConfig(orb=ORBConfig(max_features=600),
+                                                      loop_detection=True),
+                              device=dev, loop_cfg=LoopClosingConfig())
+        lc = loop_sys.loop_closer
+        gba_runs, calls, frame = [], [], [0]
+        harness_s = {}  # frame -> seconds of the smoke's own work inside it
+        run_gba = lc.run_global_ba
 
-    lc.run_global_ba = counted_gba
+        def counted_gba(generation=None):
+            if "p_ring" not in loop_inputs:  # phase 18's GBA problem at this size
+                t = time.perf_counter()
+                loop_inputs["p_ring"] = gather_global_problem_bucketed(lc.store, dev)[0]
+                torch.cuda.synchronize()
+                harness_s[frame[0]] = (harness_s.get(frame[0], 0.0)
+                                       + time.perf_counter() - t)
+            c2, c3 = assembly.launch_count, assembly.chi2_launch_count
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = run_gba(generation)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t
+            calls.append((frame[0], "run_global_ba", 1e3 * s, ok))
+            gba_runs.append(dict(ok=ok, s=s, kfs=loop_sys.num_keyframes(),
+                                 ba_assembly=assembly.launch_count - c2,
+                                 ba_chi2=assembly.chi2_launch_count - c3))
+            return ok
+
+        def bracket(obj, attr, name):
+            fn = getattr(obj, attr)
+
+            def call(*a, **k):
+                if name == "essential_graph":
+                    loop_inputs.setdefault("pg_ring", a[0])
+                torch.cuda.synchronize()
+                h0 = harness_s.get(frame[0], 0.0)
+                t = time.perf_counter()
+                with cache.disable_graphs() if eager else contextlib.nullcontext():
+                    out = fn(*a, **k)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t - (harness_s.get(frame[0], 0.0) - h0)
+                calls.append((frame[0], name, 1e3 * s, out))
+                return out
+            setattr(obj, attr, call)
+            return fn
+
+        lc.run_global_ba = counted_gba
+        for attr in ("detect_loop", "compute_sim3", "correct_loop"):
+            bracket(lc, attr, attr)
+        optimize = bracket(essential_graph, "optimize_pose_graph", "essential_graph")
+        secs = []
+        try:
+            for i, (img, depth) in enumerate(ring_frames):
+                frame[0] = i
+                t = time.perf_counter()
+                pose = loop_sys.track_depth(img, depth)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t - harness_s.get(i, 0.0))
+                if pose is None:
+                    secs[-1] = -secs[-1]  # untracked: kept apart below
+            loop_sys.shutdown()
+        finally:
+            essential_graph.optimize_pose_graph = optimize
+        return loop_sys, secs, gba_runs, calls
+
+    def loop_frames(secs, calls):
+        """Per frame that committed a loop: its ms and the split."""
+        out = []
+        for f in sorted({f for f, n, _, ok in calls if n == "correct_loop" and ok is True}):
+            ms = {n: 0.0 for n in ("detect_loop", "compute_sim3", "correct_loop",
+                                   "essential_graph", "run_global_ba")}
+            for fi, n, t, _ in calls:
+                if fi == f:
+                    ms[n] += t
+            total = 1e3 * abs(secs[f])
+            out.append(dict(frame=f, total_ms=total, detect_loop_ms=ms["detect_loop"],
+                            compute_sim3_ms=ms["compute_sim3"],
+                            correct_loop_ms=ms["correct_loop"],
+                            essential_graph_ms=ms["essential_graph"],
+                            gba_ms=ms["run_global_ba"],
+                            fuse_and_rest_of_correct_loop_ms=(
+                                ms["correct_loop"] - ms["essential_graph"]
+                                - ms["run_global_ba"]),
+                            tracking_and_mapping_ms=(total - ms["detect_loop"]
+                                                     - ms["compute_sim3"]
+                                                     - ms["correct_loop"])))
+        return out
+
     hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
     utils.host_reads = 0
-    ring_secs, ring_tracked = [], 0
     t0 = time.perf_counter()
-    for img, depth in ring_frames:
-        t = time.perf_counter()
-        pose = loop_sys.track_depth(img, depth)
-        torch.cuda.synchronize()
-        ring_secs.append(time.perf_counter() - t)
-        ring_tracked += pose is not None
-    loop_sys.shutdown()
+    loop_sys, ring_secs, gba_runs, ring_calls = ring_run(eager=False)
     ring_wall = time.perf_counter() - t0
+    ring_reads = utils.host_reads
     loop_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count,
                      "ba_chi2": assembly.chi2_launch_count}
+    lc = loop_sys.loop_closer
+    ring_tracked = sum(t > 0 for t in ring_secs)
+    ring_secs = [abs(t) for t in ring_secs]
     est = loop_sys.get_trajectory()
     ring_ate, _ = ate_rmse(est, gt_cam_to_world(ring_poses[: len(est)]))
     k3_in_gba = sum(r["ba_chi2"] for r in gba_runs)
@@ -1845,7 +2194,12 @@ def main() -> None:
          last_fused=lc.last_fused, gba_completed=lc.num_gba_completed, gba_runs=gba_runs,
          launches=loop_launches, ate_m=ring_ate,
          median_ms=1e3 * float(np.median(ring_secs)), max_ms=1e3 * float(np.max(ring_secs)),
-         host_reads_per_frame=utils.host_reads / len(ring_frames), wall_s=ring_wall)
+         loop_frames=loop_frames(ring_secs, ring_calls),
+         host_reads_per_frame=ring_reads / len(ring_frames), wall_s=ring_wall,
+         note="graphed (the entry point's default); loop_frames: the frames that committed "
+              "a loop, split by the loop corrector's calls bracketed by synchronizes "
+              "(correct_loop holds the essential graph and, in sync mode, the GBA); the "
+              "smoke's own gather of phase 18's problem is left out of every time")
     if ring_tracked < len(ring_frames) - 2:
         raise AssertionError(f"ring: tracked {ring_tracked}/{len(ring_frames)}")
     if lc.num_loops_closed < 1 or lc.last_fused < 20:
@@ -1854,6 +2208,23 @@ def main() -> None:
         raise AssertionError(f"ring ATE {ring_ate} m >= 0.3 m")
     if k3_in_gba <= 0 or min(loop_launches.values()) <= 0:
         raise AssertionError(f"ring: a kernel never launched: {loop_launches}, {gba_runs}")
+    # The same ring with its loop corrector eager (`disable_graphs` around
+    # detection, Sim3 and the correction), for its loop frame's split.
+    t0 = time.perf_counter()
+    eager_sys, eager_secs, eager_gba, eager_calls = ring_run(eager=True)
+    eager_wall = time.perf_counter() - t0
+    eager_est = eager_sys.get_trajectory()
+    emit("loop_path_ring_eager", frames=len(ring_frames),
+         tracked=sum(t > 0 for t in eager_secs), keyframes=eager_sys.num_keyframes(),
+         loops_closed=eager_sys.loop_closer.num_loops_closed, gba_runs=eager_gba,
+         median_ms=1e3 * float(np.median(np.abs(eager_secs))),
+         max_ms=1e3 * float(np.max(np.abs(eager_secs))),
+         loop_frames=loop_frames(eager_secs, eager_calls), wall_s=eager_wall,
+         trajectory_equal_to_graphed=bool(len(eager_est) == len(est)
+                                          and np.array_equal(eager_est, est)),
+         note="tracking and mapping graphed; detect_loop, compute_sim3 and correct_loop "
+              "(with the essential graph and the GBA) under disable_graphs")
+    del loop_sys, eager_sys
 
     # 10. Camera+LiDAR fusion at KITTI size --------------------------------
     from sqrtlm_slam_tpu_torch.eval import planeworld
@@ -2309,10 +2680,23 @@ def main() -> None:
     drift_before = float(np.linalg.norm(l_est[-1][:3, 3] - l_gt[-1][:3, 3]))
     T_ji = se3_mod.SE3(torch.as_tensor(T_last_first[:3, :3], dtype=torch.float32, device=dev),
                        torch.as_tensor(T_last_first[:3, 3], dtype=torch.float32, device=dev))
-    t0 = time.perf_counter()
-    chain = odo.backend_for_loop(0, K - 1, T_ji)
-    torch.cuda.synchronize()
-    backend_ms = 1e3 * (time.perf_counter() - t0)
+    # The backend graphed (the first call captures the step), again
+    # (replays only) and eagerly, each from the same recorded chain.
+    from sqrtlm_slam_tpu_torch.lidar import backend as backend_mod
+
+    recorded = list(odo._chain)
+    loop_inputs["chain"] = backend_mod.build_chain_graph(recorded, [(0, K - 1, T_ji)])
+    mem0 = kept_bytes()
+    chain, backend_graphed = run_counted(lambda: odo.backend_for_loop(0, K - 1, T_ji))
+    backend_memory_mb = (kept_bytes() - mem0) / 2**20
+    backend_ms = 1e3 * backend_graphed["s"]
+    odo._chain = list(recorded)
+    chain_again, backend_again = run_counted(lambda: odo.backend_for_loop(0, K - 1, T_ji))
+    odo._chain = list(recorded)
+    with cache.disable_graphs():
+        chain_eager, backend_eager = run_counted(lambda: odo.backend_for_loop(0, K - 1, T_ji))
+    backend_equal = all(same_bits((a.R, a.t), (b.R, b.t)) and same_bits((a.R, a.t), (c.R, c.t))
+                        for a, b, c in zip(chain, chain_again, chain_eager))
     c_last = sensor_to_world(chain[-1:])[0]
     drift_after = float(np.linalg.norm(c_last[:3, 3] - l_gt[-1][:3, 3]))
     emit("lidar_odometry", scans=len(scans), points_per_scan=int(np.mean([len(p) for p in scans])),
@@ -2335,7 +2719,11 @@ def main() -> None:
          host_reads_per_scan=l_reads / len(scans), **l_graphs,
          graphed_rerun_bitwise_equal=l_rerun_equal, rerun_bitwise_equal=l_equal,
          yaw_turned_deg=yaw_turned, end_drift_before_m=drift_before,
-         end_drift_after_backend_m=drift_after, backend_ms=backend_ms, wall_s=odo_wall,
+         end_drift_after_backend_m=drift_after, backend_ms=backend_ms,
+         backend=dict(graphed=backend_graphed, graphed_again=backend_again,
+                      eager=backend_eager, graph_memory_mb=backend_memory_mb,
+                      bitwise_equal=backend_equal),
+         wall_s=odo_wall,
          note="the first run graphed (ms per scan, captures, reads), the second graphed with "
               "the stages bracketed by synchronizes (stage_ms_median), the third eager and "
               "bracketed (eager_*); launches, device ms and idle share from torch.profiler "
@@ -2353,6 +2741,8 @@ def main() -> None:
         raise AssertionError(f"align_scan captured {l_graphs['align_scan_captures']} graphs")
     if not drift_after < 0.3 * drift_before:
         raise AssertionError(f"backend_for_loop: end drift {drift_before} -> {drift_after} m")
+    if not backend_equal:
+        raise AssertionError("backend_for_loop: graphed and eager chains differ")
     del odo, odo2, odo_g
 
     # 15. The KITTI runner ------------------------------------------------
@@ -2369,7 +2759,7 @@ def main() -> None:
 
     # 18. The captured CUDA graphs against the eager port --------------------
     graph_launches = graphs_phase(kitti=(frames, poses), street=(f_frames[:16], T_cl, rights),
-                                  rgbd_system=system)
+                                  rgbd_system=system, loop_inputs=loop_inputs)
 
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line

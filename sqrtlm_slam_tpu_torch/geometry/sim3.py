@@ -116,7 +116,9 @@ def log(S: Sim3) -> torch.Tensor:
     sigma = torch.log(torch.clamp(S.s, min=_EPS))
     phi = so3.log(S.R)
     W = _W_matrix(phi, sigma)
-    rho = torch.linalg.solve(W, S.t[..., None])[..., 0]
+    # `solve_ex`: `solve`'s bits without its host error check (the essential
+    # graph's step runs this inside a captured CUDA graph).
+    rho = torch.linalg.solve_ex(W, S.t[..., None])[0][..., 0]
     return torch.cat([rho, phi, sigma[..., None]], dim=-1)
 
 

@@ -11,6 +11,13 @@ which on CUDA would add with atomics in no fixed order: two runs on the card
 give the same poses bit for bit. The Cholesky factorisation is
 `cholesky_ex` (no error check, so no host read per iteration), and matrix
 products run in full float32 (TF32 off while the graph is optimised).
+
+The JAX package jits the whole loop. Here one Gauss-Newton step
+(`_gn_step`) is a captured CUDA graph (`utils.cache.graphed`, captured with
+TF32 off), replayed `num_iters` times; its plans are built once per call,
+outside the graph. The chain grows between calls, so only the newest
+capture is kept (`max_entries=1`). `build_chain_graph` stays on the host,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 from ..factors import pose_graph
 from ..geometry import se3
 from ..optim import segment
-from ..utils import to_host
+from ..utils import cache, to_host
 
 
 class Se3Graph(NamedTuple):
@@ -128,49 +135,68 @@ def optimize_se3_graph(g: Se3Graph, num_iters: int = 20, mu: float = 1e-6
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _optimize(g: Se3Graph, num_iters: int, mu: float):
+def _gn_step(g: Se3Graph, h_plan: segment.SegmentPlan, b_plan: segment.SegmentPlan,
+             pin: torch.Tensor, free: torch.Tensor, mu: float):
+    """One damped Gauss-Newton step of `optimize_se3_graph`: the new (R, t).
+    No host read."""
+    K = g.R.shape[0]
+    ai = g.a_idx.long()
+    dtype = g.t.dtype
+    w = g.e_info * g.e_valid.to(dtype)
+    wa = g.a_info * g.a_valid.to(dtype)
+    r, J_i, J_j = pose_graph.se3_relative_residual_jac(*_edge_args(g))
+    Hii = torch.einsum("eki,e,ekj->eij", J_i, w, J_i)
+    Hjj = torch.einsum("eki,e,ekj->eij", J_j, w, J_j)
+    Hij = torch.einsum("eki,e,ekj->eij", J_i, w, J_j)
+    bi = torch.einsum("eki,e,ek->ei", J_i, w, r)
+    bj = torch.einsum("eki,e,ek->ei", J_j, w, r)
+    # Sensor-centre anchors: r = C - p with C = -R^T t; for the left
+    # update T <- exp(d) T, d C / d [rho, phi] = [-R^T | 0].
+    Ra = g.R[ai]
+    ra = -torch.einsum("aji,aj->ai", Ra, g.t[ai]) - g.a_pos
+    Ja = torch.cat([-Ra.transpose(-1, -2), torch.zeros_like(Ra)], dim=-1)  # (A, 3, 6)
+    Ha = torch.einsum("aki,a,akj->aij", Ja, wa, Ja)
+    ba = torch.einsum("aki,a,ak->ai", Ja, wa, ra)
+
+    H = segment.segment_sum(h_plan, torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2), Ha]))
+    b = segment.segment_sum(b_plan, torch.cat([bi, bj, ba]))
+    Hd = H.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
+    bd = b.reshape(-1)
+    Hd = torch.where(pin[:, None] | pin[None, :], torch.zeros_like(Hd), Hd)
+    Hd = Hd + torch.diag(pin.to(dtype)) + mu * torch.eye(K * 6, dtype=dtype, device=Hd.device)
+    bd = torch.where(pin, torch.zeros_like(bd), bd)
+    L = torch.linalg.cholesky_ex(Hd)[0]
+    dx = torch.cholesky_solve(-bd[:, None], L)[:, 0].reshape(K, 6)
+    new = se3.retract(se3.SE3(g.R, g.t), dx)
+    return torch.where(free[:, None, None], new.R, g.R), torch.where(free[:, None], new.t, g.t)
+
+
+# One step per capture, the newest key only (see the module docstring).
+_gn_step_jit = cache.graphed(_gn_step, static_argnames=("mu",), max_entries=1)
+
+
+def _step_plans(g: Se3Graph):
+    """`_gn_step`'s loop-constant inputs besides the graph: the plans of the
+    block sums (block (row, col) keys of the edges' four endpoint blocks and
+    the anchors' diagonal blocks; vertex keys of the gradient blocks; one
+    host read each) and the pinned tangent rows and free poses."""
     K = g.R.shape[0]
     ei, ej, ai = g.e_i.long(), g.e_j.long(), g.a_idx.long()
     ev, av = g.e_valid, g.a_valid
-    dtype = g.t.dtype
-    # Block (row, col) keys of the edges' four endpoint blocks and the
-    # anchors' diagonal blocks; vertex keys of the gradient blocks.
     h_plan = segment.segment_plan(
         torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei, ai * K + ai]), K * K,
         keep=torch.cat([ev.repeat(4), av]))
     b_plan = segment.segment_plan(torch.cat([ei, ej, ai]), K, keep=torch.cat([ev, ev, av]))
     pin = torch.repeat_interleave(g.fixed | ~g.valid, 6)
-    free = ~(g.fixed | ~g.valid)
-    eye = torch.eye(K * 6, dtype=dtype, device=g.t.device)
-    w = g.e_info * ev.to(dtype)
-    wa = g.a_info * av.to(dtype)
-    for _ in range(num_iters):
-        r, J_i, J_j = pose_graph.se3_relative_residual_jac(*_edge_args(g))
-        Hii = torch.einsum("eki,e,ekj->eij", J_i, w, J_i)
-        Hjj = torch.einsum("eki,e,ekj->eij", J_j, w, J_j)
-        Hij = torch.einsum("eki,e,ekj->eij", J_i, w, J_j)
-        bi = torch.einsum("eki,e,ek->ei", J_i, w, r)
-        bj = torch.einsum("eki,e,ek->ei", J_j, w, r)
-        # Sensor-centre anchors: r = C - p with C = -R^T t; for the left
-        # update T <- exp(d) T, d C / d [rho, phi] = [-R^T | 0].
-        Ra = g.R[ai]
-        ra = -torch.einsum("aji,aj->ai", Ra, g.t[ai]) - g.a_pos
-        Ja = torch.cat([-Ra.transpose(-1, -2), torch.zeros_like(Ra)], dim=-1)  # (A, 3, 6)
-        Ha = torch.einsum("aki,a,akj->aij", Ja, wa, Ja)
-        ba = torch.einsum("aki,a,ak->ai", Ja, wa, ra)
+    return h_plan, b_plan, pin, ~(g.fixed | ~g.valid)
 
-        H = segment.segment_sum(h_plan, torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2), Ha]))
-        b = segment.segment_sum(b_plan, torch.cat([bi, bj, ba]))
-        Hd = H.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
-        bd = b.reshape(-1)
-        Hd = torch.where(pin[:, None] | pin[None, :], torch.zeros_like(Hd), Hd)
-        Hd = Hd + torch.diag(pin.to(dtype)) + mu * eye
-        bd = torch.where(pin, torch.zeros_like(bd), bd)
-        L = torch.linalg.cholesky_ex(Hd)[0]
-        dx = torch.cholesky_solve(-bd[:, None], L)[:, 0].reshape(K, 6)
-        new = se3.retract(se3.SE3(g.R, g.t), dx)
-        g = g._replace(R=torch.where(free[:, None, None], new.R, g.R),
-                       t=torch.where(free[:, None], new.t, g.t))
+
+def _optimize(g: Se3Graph, num_iters: int, mu: float):
+    plans = _step_plans(g)
+    for _ in range(num_iters):
+        R, t = _gn_step_jit(g, *plans, float(mu))
+        g = g._replace(R=R, t=t)
     r = pose_graph.se3_relative_residual(*_edge_args(g))
-    chi2 = torch.sum(torch.where(ev, g.e_info * torch.sum(r * r, dim=-1), torch.zeros_like(w)))
+    chi2 = torch.sum(torch.where(g.e_valid, g.e_info * torch.sum(r * r, dim=-1),
+                                 torch.zeros_like(g.e_info)))
     return g, chi2

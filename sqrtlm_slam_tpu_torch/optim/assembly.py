@@ -280,6 +280,11 @@ def chi2_plain(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.C
 # the block of a launch that finishes last sums the tile partials and
 # resets its stream's counter. Launches on one stream run in order; each
 # stream has its own counter, so launches on two streams never share one.
+# A launch captured into a CUDA graph takes a counter of its own instead,
+# from the graph's pool and zeroed by the graph before the launch at every
+# replay: a graph replays on its caller's stream, not on the stream it was
+# captured on, so two graphs captured on one stream may replay at once on
+# two streams (two threads), and a stream's counter would be shared.
 _tickets: dict = {}
 
 
@@ -317,7 +322,10 @@ def chi2_cuda(pose_R, pose_t, points, obs_cam, obs_uvr, w_active, cam: reproj.Ca
     robust = robust_delta is not None
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        ticket = _ticket(stream)
+        if torch.cuda.is_current_stream_capturing():
+            ticket = torch.zeros((), dtype=torch.int32, device=device)
+        else:
+            ticket = _ticket(stream)
         rc = lib.ba_chi2_launch(
             pose_R.data_ptr(), pose_t.data_ptr(), points.data_ptr(), obs_cam.data_ptr(),
             obs_uvr.data_ptr(), w_active.data_ptr(), P, L, K,

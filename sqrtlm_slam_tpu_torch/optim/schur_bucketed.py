@@ -22,6 +22,19 @@ system matrix-free inside a block-Jacobi PCG, with the context built from
 K2's `AssemblyOut` and the LM candidate test on K3 (`chi2_only`) at both
 ends. Camera-keyed sums go through `segment.segment_sum` (fixed order, no
 atomics), so global BA is bitwise repeatable on the card.
+
+On the card each LM iteration of global BA runs as three captured CUDA
+graphs (`utils.cache.graphed`; the JAX package compiles the whole
+`lax.scan`, `_global_ba_cg_jit`): K2's context and the preconditioner, a
+chunk of `PCG_CHECK_EVERY` PCG iterations, and the update with K3 at the
+candidate and the gain-ratio test. They are replayed for every iteration of
+every `global_ba_cg` call of one run (the camera plan, whose build reads the
+device once, is made per call outside the graphs). The PCG stops as the JAX
+package's `while_loop` does: a done mask freezes its iterates, and the host
+reads the done flag between chunks to leave early.
+The preconditioner's block inverses are `torch.linalg.inv_ex` (`inv`'s
+bits without its host error check): nothing on this path checks a
+factorisation on the host.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import torch
 
 from ..factors import reprojection as reproj
 from ..geometry import se3
-from ..utils import to_host
+from ..utils import cache, to_host
 from . import assembly
 from . import loss as losses
 from . import segment
@@ -495,8 +508,69 @@ def _schur_matvec(v, ctx: CGContext, obs_cam, pose_fixed, plan: segment.SegmentP
 
 
 # Host checks of the PCG stop flag: every this many iterations (read at
-# call time).
+# call time). On the card global BA's PCG runs this many iterations a
+# graph replay, with the flag read between replays; the alternative, all
+# `cg_iters` iterations under the done mask in the LM iteration's graph
+# with no read, gives the same bits and was 7-12 % slower at 600 keyframes
+# on the H100; at 69 its replays were faster, but its larger capture cost
+# more than they gained in a loop closure's global BA (PERF.md section 6).
 PCG_CHECK_EVERY = 10
+
+
+class PCGState(NamedTuple):
+    """The PCG's iterates; `done` freezes x, r, p and rz once the stop test
+    holds, so further iterations leave them as the while loop leaves them."""
+
+    x: torch.Tensor  # (P, 6)
+    r: torch.Tensor  # (P, 6)
+    p: torch.Tensor  # (P, 6)
+    rz: torch.Tensor  # ()
+    done: torch.Tensor  # () bool
+    n: torch.Tensor  # () int32 iterations run before done
+    limit: torch.Tensor  # () tol^2 ||b||^2
+
+
+def _pcg_start(b, Minv_blocks, pose_fixed, tol: float) -> PCGState:
+    b = torch.where(pose_fixed[:, None], torch.zeros_like(b), b)
+    z = torch.einsum("pij,pj->pi", Minv_blocks, b)
+    r = b
+    limit = tol * tol * torch.clamp(torch.sum(b * b), min=1e-20)
+    return PCGState(x=torch.zeros_like(b), r=r, p=z, rz=torch.sum(r * z),
+                    done=~(torch.sum(r * r) > limit),
+                    n=torch.zeros((), dtype=torch.int32, device=b.device), limit=limit)
+
+
+def _pcg_iterations(matvec, Minv_blocks, s: PCGState, steps: int) -> PCGState:
+    """`steps` masked PCG iterations from `s`, with no read."""
+    x, r, p, rz, done, n, limit = s
+    for _ in range(steps):
+        Ap = matvec(p)
+        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z = torch.einsum("pij,pj->pi", Minv_blocks, r_n)
+        rz_n = torch.sum(r_n * z)
+        beta = rz_n / torch.clamp(rz, min=1e-20)
+        p_n = z + beta * p
+        x = torch.where(done, x, x_n)
+        r = torch.where(done, r, r_n)
+        p = torch.where(done, p, p_n)
+        rz = torch.where(done, rz, rz_n)
+        n = n + (~done).to(torch.int32)
+        done = done | ~(torch.sum(r * r) > limit)
+    return PCGState(x, r, p, rz, done, n, limit)
+
+
+def _pcg_run(chunk, s: PCGState, max_iters: int, check_every: int) -> PCGState:
+    """Run `chunk(state, steps)` up to `max_iters` iterations in all, reading
+    the done flag before each chunk of `check_every` (one counted host read
+    each)."""
+    k = 0
+    while k < max_iters and not bool(to_host(s.done)):
+        steps = min(check_every, max_iters - k)
+        s = chunk(s, steps)
+        k += steps
+    return s
 
 
 def _pcg(matvec, b, Minv_blocks, pose_fixed, max_iters: int, tol: float):
@@ -508,38 +582,53 @@ def _pcg(matvec, b, Minv_blocks, pose_fixed, max_iters: int, tol: float):
     the iterates are exactly the while loop's; the host reads the flag only
     every `PCG_CHECK_EVERY` iterations to leave the loop early (one host
     read per check, counted by `utils.host_reads`). Returns (x, iterations)."""
-    check_every = PCG_CHECK_EVERY
-    b = torch.where(pose_fixed[:, None], torch.zeros_like(b), b)
+    s = _pcg_run(lambda st, steps: _pcg_iterations(matvec, Minv_blocks, st, steps),
+                 _pcg_start(b, Minv_blocks, pose_fixed, tol), max_iters, PCG_CHECK_EVERY)
+    return s.x, s.n
 
-    def precond(r):
-        return torch.einsum("pij,pj->pi", Minv_blocks, r)
 
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z)
-    limit = tol * tol * torch.clamp(torch.sum(b * b), min=1e-20)
-    done = ~(torch.sum(r * r) > limit)
-    n = torch.zeros((), dtype=torch.int32, device=b.device)
-    for k in range(max_iters):
-        if k % check_every == 0 and bool(to_host(done)):
-            break
-        Ap = matvec(p)
-        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
-        x_n = x + alpha * p
-        r_n = r - alpha * Ap
-        z = precond(r_n)
-        rz_n = torch.sum(r_n * z)
-        beta = rz_n / torch.clamp(rz, min=1e-20)
-        p_n = z + beta * p
-        x = torch.where(done, x, x_n)
-        r = torch.where(done, r, r_n)
-        p = torch.where(done, p, p_n)
-        rz = torch.where(done, rz, rz_n)
-        n = n + (~done).to(torch.int32)
-        done = done | ~(torch.sum(r * r) > limit)
-    return x, n
+class CGHead(NamedTuple):
+    """An LM iteration's matrix-free system, ready for the PCG."""
+
+    ctx: CGContext
+    Mp: torch.Tensor  # (P, 6, 6) block-Jacobi preconditioner
+    pcg: PCGState  # the PCG's start
+
+
+def _cg_head(problem: BucketedBAProblem, active, mu, plan: segment.SegmentPlan,
+             cam: reproj.Camera, robust_delta, tol: float) -> CGHead:
+    """K2's context, the right-hand side and the preconditioner of one
+    damped step. `torch.linalg.inv_ex` gives `inv`'s bits without its host
+    error check. The first of the three graphs of global BA's LM iteration
+    (`_lm_step`)."""
+    ctx = _cg_context(problem, cam, active, robust_delta, mu, plan)
+    dtype, dev = ctx.bp.dtype, ctx.bp.device
+    # rhs = -(bp - W Hll_d^{-1} bl), slot-wise.
+    y = _apply_Ainv(ctx.Minv, ctx.bl)
+    Uy = torch.einsum("lkij,lj->lki", ctx.U, y)
+    rhs = -(ctx.bp - _pose_accumulate(plan, Uy))
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    diag_ok = problem.pose_valid & ~problem.pose_fixed
+    M = torch.where(diag_ok[:, None, None], ctx.Hpp_d, eye6)
+    Mp = torch.linalg.inv_ex(M + 1e-8 * eye6)[0]
+    return CGHead(ctx=ctx, Mp=Mp, pcg=_pcg_start(rhs, Mp, problem.pose_fixed, tol))
+
+
+def _pcg_chunk(ctx: CGContext, Mp, obs_cam, pose_fixed, plan: segment.SegmentPlan,
+               s: PCGState, steps: int) -> PCGState:
+    """`steps` PCG iterations on the system of `ctx` (global BA's second
+    graph)."""
+    return _pcg_iterations(lambda v: _schur_matvec(v, ctx, obs_cam, pose_fixed, plan), Mp, s,
+                           steps)
+
+
+def _cg_back_substitute(problem: BucketedBAProblem, ctx: CGContext, x):
+    """(dxp, dxl) from the PCG's pose step."""
+    dxp = torch.where(problem.pose_fixed[:, None], torch.zeros_like(x), x)
+    Wt_dxp = torch.einsum("lkij,lki->lj", ctx.U, _pose_gather(problem.obs_cam, dxp))
+    dxl = _apply_Ainv(ctx.Minv, -ctx.bl - Wt_dxp)
+    dxl = torch.where(problem.point_valid[:, None], dxl, torch.zeros_like(dxl))
+    return dxp, dxl
 
 
 def cg_reduce_and_solve(problem: BucketedBAProblem, cam: reproj.Camera, active,
@@ -552,53 +641,89 @@ def cg_reduce_and_solve(problem: BucketedBAProblem, cam: reproj.Camera, active,
     Returns (dxp (P,6), dxl (L,3), chi2 (K2's), bp, bl, cg_n)."""
     if plan is None:
         plan = pose_plan(problem, active)
-    ctx = _cg_context(problem, cam, active, robust_delta, mu, plan)
-    dtype, dev = ctx.bp.dtype, ctx.bp.device
+    head = _cg_head(problem, active, mu, plan, cam, robust_delta, cg_tol)
+    s = _pcg_run(lambda st, steps: _pcg_chunk(head.ctx, head.Mp, problem.obs_cam,
+                                              problem.pose_fixed, plan, st, steps),
+                 head.pcg, cg_iters, PCG_CHECK_EVERY)
+    dxp, dxl = _cg_back_substitute(problem, head.ctx, s.x)
+    return dxp, dxl, head.ctx.chi2, head.ctx.bp, head.ctx.bl, s.n
 
-    # rhs = -(bp - W Hll_d^{-1} bl), slot-wise.
-    y = _apply_Ainv(ctx.Minv, ctx.bl)
-    Uy = torch.einsum("lkij,lj->lki", ctx.U, y)
-    rhs = -(ctx.bp - _pose_accumulate(plan, Uy))
 
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    diag_ok = problem.pose_valid & ~problem.pose_fixed
-    M = torch.where(diag_ok[:, None, None], ctx.Hpp_d, eye6)
-    Mp = torch.linalg.inv(M + 1e-8 * eye6)
+class LMState(NamedTuple):
+    """The carry of global BA's LM loop after one iteration."""
 
-    dxp, cg_n = _pcg(lambda v: _schur_matvec(v, ctx, problem.obs_cam, problem.pose_fixed,
-                                             plan),
-                     rhs, Mp, problem.pose_fixed, cg_iters, cg_tol)
-    dxp = torch.where(problem.pose_fixed[:, None], torch.zeros_like(dxp), dxp)
-    Wt_dxp = torch.einsum("lkij,lki->lj", ctx.U, _pose_gather(problem.obs_cam, dxp))
-    dxl = _apply_Ainv(ctx.Minv, -ctx.bl - Wt_dxp)
-    dxl = torch.where(problem.point_valid[:, None], dxl, torch.zeros_like(dxl))
-    return dxp, dxl, ctx.chi2, ctx.bp, ctx.bl, cg_n
+    pose_R: torch.Tensor
+    pose_t: torch.Tensor
+    points: torch.Tensor
+    chi2: torch.Tensor  # K3's chi2 at the kept state
+    mu: torch.Tensor
+    nu: torch.Tensor
+    accept: torch.Tensor  # () bool
+
+
+def _lm_tail(problem: BucketedBAProblem, ctx: CGContext, x, chi2, mu, nu, active,
+             cam: reproj.Camera, robust_delta) -> LMState:
+    """Back-substitution, the candidate, K3 at the candidate and the gain-ratio
+    test (global BA's third graph)."""
+    dxp, dxl = _cg_back_substitute(problem, ctx, x)
+    candidate = _apply_update(problem, dxp, dxl)
+    chi2_c = chi2_only(candidate, cam, active, robust_delta)
+    accept, prob, mu, nu = _lm_accept(problem, candidate, chi2, chi2_c, dxp, dxl, ctx.bp,
+                                      ctx.bl, mu, nu)
+    return LMState(prob.pose_R, prob.pose_t, prob.points, torch.where(accept, chi2_c, chi2),
+                   mu, nu, accept)
+
+
+# Global BA's graphs (`utils.cache`). The problem's shapes change with every
+# loop closure, and one run of global BA has one key a graph: only the
+# newest capture is kept.
+_cg_head_jit = cache.graphed(_cg_head, static_argnames=("cam", "robust_delta", "tol"),
+                             max_entries=1)
+_pcg_chunk_jit = cache.graphed(_pcg_chunk, static_argnames=("steps",), max_entries=1)
+_lm_tail_jit = cache.graphed(_lm_tail, static_argnames=("cam", "robust_delta"),
+                             max_entries=1)
+
+
+def _lm_step(problem: BucketedBAProblem, chi2, mu, nu, active, plan: segment.SegmentPlan,
+             cam: reproj.Camera, robust_delta, cg_iters: int, graphed: bool) -> LMState:
+    """One LM iteration of global BA with the forcing term 1e-2: K2 (through
+    `_cg_context`), the PCG, the update, K3 at the candidate and the
+    gain-ratio test. The counterpart of one step of the `lax.scan` that the
+    JAX package's `_global_ba_cg_jit` (`optim/schur_bucketed.py`) compiles.
+    With `graphed`, three graphs (eager on the CPU): `_cg_head_jit`,
+    `_pcg_chunk_jit` replayed once every `PCG_CHECK_EVERY` PCG iterations
+    until the done flag reads true, and `_lm_tail_jit`."""
+    head_fn, chunk_fn, tail_fn = ((_cg_head_jit, _pcg_chunk_jit, _lm_tail_jit) if graphed
+                                  else (_cg_head, _pcg_chunk, _lm_tail))
+    head = head_fn(problem, active, mu, plan, cam=cam, robust_delta=robust_delta, tol=1e-2)
+    s = _pcg_run(lambda st, steps: chunk_fn(head.ctx, head.Mp, problem.obs_cam,
+                                            problem.pose_fixed, plan, st, steps=steps),
+                 head.pcg, cg_iters, PCG_CHECK_EVERY)
+    return tail_fn(problem, head.ctx, s.x, chi2, mu, nu, active, cam=cam,
+                   robust_delta=robust_delta)
 
 
 def ba_iterate_cg(problem: BucketedBAProblem, cam: reproj.Camera, active, num_iters: int,
-                  robust_delta: Optional[float], cg_iters: int = 100
+                  robust_delta: Optional[float], cg_iters: int = 100, graphed: bool = True
                   ) -> Tuple[BucketedBAProblem, torch.Tensor, torch.Tensor]:
     """LM loop on the matrix-free PCG step (whole-map scale). One K2 launch
     per iteration builds the step; the accept test compares K3's chi2 at
-    the candidate with K3's chi2 at the current state."""
+    the candidate with K3's chi2 at the current state. The camera plan is
+    built once per call (one host read); each iteration is `_lm_step`,
+    through global BA's graphs unless `graphed` is False."""
     chi2 = chi2_only(problem, cam, active, robust_delta)
     dtype, dev = chi2.dtype, chi2.device
-    mu = torch.tensor(1e-3, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    mu = torch.full((), 1e-3, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
     n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     plan = pose_plan(problem, active)
     prob = problem
     for _ in range(num_iters):
-        # Inexact-Newton forcing term: the LM gate bounds step quality.
-        dxp, dxl, _, bp, bl, _ = cg_reduce_and_solve(prob, cam, active, robust_delta, mu,
-                                                     cg_iters=cg_iters, cg_tol=1e-2,
-                                                     plan=plan)
-        candidate = _apply_update(prob, dxp, dxl)
-        chi2_c = chi2_only(candidate, cam, active, robust_delta)
-        accept, prob, mu, nu = _lm_accept(prob, candidate, chi2, chi2_c, dxp, dxl, bp, bl,
-                                          mu, nu)
-        chi2 = torch.where(accept, chi2_c, chi2)
-        n_acc = n_acc + accept.to(torch.int32)
+        # Inexact-Newton forcing term 1e-2: the LM gate bounds step quality.
+        s = _lm_step(prob, chi2, mu, nu, active, plan, cam, robust_delta, cg_iters, graphed)
+        prob = prob._replace(pose_R=s.pose_R, pose_t=s.pose_t, points=s.points)
+        chi2, mu, nu = s.chi2, s.mu, s.nu
+        n_acc = n_acc + s.accept.to(torch.int32)
     return prob, chi2, n_acc
 
 

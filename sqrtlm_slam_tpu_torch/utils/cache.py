@@ -10,13 +10,25 @@ gives the eager function's bits.
 
 * Cache key: the static arguments (`static_argnames`, by value: the JAX
   function's static arguments), the nesting of the other arguments (tuples,
-  NamedTuples, lists, dicts), their non-tensor values, and every tensor's
-  shape and dtype. A value that is neither a tensor nor hashable (a numpy
-  array) raises `TypeError`: convert it to a tensor first.
-* First call of a key: the inputs are copied into static buffers, `fn` runs
-  once eagerly on a side stream (kernels built at first use, the kernels'
-  one-time `cudaFuncSetAttribute` calls and per-stream scratch such as K3's
-  counter all happen outside the capture), then it is captured on that
+  NamedTuples, lists, dicts), their non-tensor values, every tensor's
+  shape, strides and dtype, and whether cuBLAS may use TF32 (a graph keeps
+  the math mode of its capture). A value that is neither a tensor nor hashable (a
+  numpy array) raises `TypeError`: convert it to a tensor first.
+* `max_entries`: a function whose shapes change with every call of its
+  caller keeps only its newest captures. The loop correction's programs
+  (the essential graph, global BA, the LiDAR pose graph) get new shapes at
+  every loop closure; with `max_entries=1` the capture of a new key drops
+  the previous one, whose memory pool goes back to the caching allocator
+  (released to the device at its next `empty_cache`, or when an allocation
+  would otherwise fail). Device memory then holds one capture per program,
+  however many loops a run closes.
+* First call of a key: the inputs are copied into static buffers of their
+  own strides (the layout of a tensor can choose the kernel that reads it,
+  and with it the bits: a solver's column-major result), `fn` runs
+  once eagerly on a side stream (kernels built at first use and the
+  kernels' one-time `cudaFuncSetAttribute` calls happen outside the
+  capture; K3 takes a counter of the graph's own inside it, `optim/
+  assembly.py`), then it is captured on that
   stream and replayed. A capture that fails raises; nothing falls back to
   the eager function.
 * Every call: inputs are copied into the static buffers, the graph is
@@ -47,7 +59,7 @@ import functools
 import inspect
 import sys
 import threading
-from typing import Callable, Iterable, NamedTuple
+from typing import Callable, Iterable, NamedTuple, Optional
 
 import torch
 
@@ -157,9 +169,10 @@ class Graphed:
     """`fn` behind the graph cache (see the module docstring). Call it as
     `fn`; `.eager` is `fn` itself."""
 
-    def __init__(self, fn: Callable, static_argnames=()):
+    def __init__(self, fn: Callable, static_argnames=(), max_entries: Optional[int] = None):
         self.eager = fn
         self.static_argnames = tuple(static_argnames)
+        self.max_entries = max_entries
         self._sig = inspect.signature(fn)
         self._entries: dict = {}
         functools.update_wrapper(self, fn)
@@ -211,10 +224,17 @@ class Graphed:
             entry = self._entries.get(key)
             if entry is not None:  # another thread captured it meanwhile
                 return entry
+            if self.max_entries is not None:
+                # Oldest first, before the new pool is taken; a replay in
+                # flight keeps its entry alive until it returns.
+                with _lock:
+                    while len(self._entries) >= max(self.max_entries, 1):
+                        del self._entries[next(iter(self._entries))]
             with torch.cuda.device(device):
                 current = torch.cuda.current_stream()
-                inputs = [torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
-                          for t in leaves]
+                # The inputs' own strides: a layout (a solver's column-major
+                # result) can choose another kernel, with other bits.
+                inputs = [torch.empty_like(t).copy_(t) for t in leaves]
                 stream = _capture_stream(device)
                 stream.wait_stream(current)
                 graph = torch.cuda.CUDAGraph()
@@ -259,7 +279,8 @@ _UTILS = __name__.rsplit(".", 1)[0]
 
 
 def _key(statics, spec, leaves) -> tuple:
-    return (statics, spec, tuple((tuple(t.shape), t.dtype) for t in leaves))
+    return (statics, spec, tuple((tuple(t.shape), t.stride(), t.dtype) for t in leaves),
+            torch.backends.cuda.matmul.allow_tf32)
 
 
 def _leaves(x) -> list:
@@ -277,7 +298,8 @@ def _end_failed_capture(graph) -> None:
         pass
 
 
-def graphed(fn: Callable, static_argnames=()) -> Graphed:
+def graphed(fn: Callable, static_argnames=(), max_entries: Optional[int] = None) -> Graphed:
     """Put `fn` behind the graph cache (see the module docstring): the
-    counterpart of `jax.jit(fn, static_argnames=...)`."""
-    return Graphed(fn, static_argnames)
+    counterpart of `jax.jit(fn, static_argnames=...)`. `max_entries` bounds
+    the captures kept (the newest; None keeps every one)."""
+    return Graphed(fn, static_argnames, max_entries)

@@ -22,7 +22,9 @@ the CPU), so here:
     an array): a CUDA graph cannot capture one. Besides the per-frame
     programs: pipelined mode's stage A at both radii, `align_scan` and the
     odometry's SE(3) bookkeeping around it, `match_and_triangulate`,
-    `_project_and_match` and `_project_and_match_many`;
+    `_project_and_match` and `_project_and_match_many`, and the loop
+    correction's: a Gauss-Newton step of the essential graph and of the
+    LiDAR pose graph, and the three graphs of global BA's LM iteration;
   * the both-radii stage A (pipelined mode) gives the bits of stage A with
     the read and the widened retry, without and with the retry;
   * the port reads its vocabulary from its own copy of the asset.
@@ -46,10 +48,16 @@ from sqrtlm_slam_tpu.lidar import features as j_feat
 from sqrtlm_slam_tpu.pipeline import frame as j_frame
 from sqrtlm_slam_tpu_torch import convert, utils
 from sqrtlm_slam_tpu_torch.eval import planeworld as t_planeworld
+from sqrtlm_slam_tpu_torch.eval import scale as t_scale
 from sqrtlm_slam_tpu_torch.eval import synthetic as t_synth
 from sqrtlm_slam_tpu_torch.frontend import vocab as t_vocab
+from sqrtlm_slam_tpu_torch.geometry import se3 as t_se3
+from sqrtlm_slam_tpu_torch.geometry import sim3 as t_sim3
+from sqrtlm_slam_tpu_torch.lidar import backend as t_backend
 from sqrtlm_slam_tpu_torch.lidar import features as t_feat
 from sqrtlm_slam_tpu_torch.lidar import odometry as t_odo
+from sqrtlm_slam_tpu_torch.loop import closing as t_closing
+from sqrtlm_slam_tpu_torch.loop import essential_graph as t_eg
 from sqrtlm_slam_tpu_torch.optim import schur_bucketed
 from sqrtlm_slam_tpu_torch.pipeline import frame as t_frame
 from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking, triangulation
@@ -400,6 +408,43 @@ def _graphed_calls(images, scan):
          (torch.eye(3).expand(B, 3, 3), torch.zeros(B, 3), *lms, *many_kp, cam, 3.0), {}),
         ("odometry_retract", t_odo._retract_jit, (pose_a, torch.full((6,), 0.01)), {}),
         ("odometry_local_delta", t_odo._local_delta_jit, (pose_a, pose), {}),
+    ] + _loop_graphed_calls()
+
+
+def _loop_graphed_calls():
+    """The loop correction's graphs: one Gauss-Newton step of the essential
+    graph and of the LiDAR pose graph, and the three graphs of global BA's
+    LM iteration (the context, a PCG chunk, the candidate test)."""
+    cam = t_synth.DEFAULT_CAM
+    flat, _ = t_synth.make_ba_problem(seed=3, P=10, L=384, stereo_frac=0.6, obs_per_landmark=5)
+    p = schur_bucketed.from_flat(flat, 5, device="cpu")
+    act, plan = p.obs_valid, schur_bucketed.pose_plan(p, p.obs_valid)
+    mu, nu = torch.full((), 1e-3), torch.full((), 2.0)
+    chi2 = schur_bucketed.chi2_only(p, cam, act, 2.447)
+    head = schur_bucketed._cg_head(p, act, mu, plan, cam, 2.447, 1e-2)
+    lm = dict(cam=cam, robust_delta=2.447)
+
+    store, _, _ = t_scale.make_scale_store(n_kf=48, n_lm=600, obs_per_lm=5,
+                                           radius=80.0 * 48 / 600)
+    K = store.num_kf
+    ones = np.ones(K, np.float32)
+    lc = t_closing.LoopCloser(store, cam, device="cpu")
+    S12 = t_sim3.Sim3(torch.tensor(1.0), torch.eye(3), torch.zeros(3))
+    R, t = store.kf_R[:K].copy(), store.kf_t[:K].copy()
+    pg = lc._build_pose_graph(K - 1, 0, S12, ones, R, t, ones.copy(), R.copy(), t.copy())
+
+    rng = np.random.RandomState(0)
+    chain = [t_se3.SE3(torch.eye(3), T(rng.normal(size=3).astype(np.float32)))
+             for _ in range(12)]
+    g = t_backend.build_chain_graph(chain, [(0, 11, chain[3])], anchors=[(4, np.ones(3))])
+    return [
+        ("essential_graph_step", t_eg._gn_step_jit, (pg, *t_eg._step_plans(pg), 1e-6), {}),
+        ("gba_cg_head", schur_bucketed._cg_head_jit, (p, act, mu, plan), dict(lm, tol=1e-2)),
+        ("gba_pcg_chunk", schur_bucketed._pcg_chunk_jit,
+         (head.ctx, head.Mp, p.obs_cam, p.pose_fixed, plan, head.pcg), dict(steps=10)),
+        ("gba_lm_tail", schur_bucketed._lm_tail_jit,
+         (p, head.ctx, head.pcg.x, chi2, mu, nu, act), lm),
+        ("se3_graph_step", t_backend._gn_step_jit, (g, *t_backend._step_plans(g), 1e-6), {}),
     ]
 
 
@@ -408,7 +453,7 @@ def graphed_calls(images, scan):
     return _graphed_calls(images, scan)
 
 
-@pytest.mark.parametrize("which", range(16))
+@pytest.mark.parametrize("which", range(21))
 def test_graphed_functions_issue_no_device_read(graphed_calls, which):
     name, fn, args, kwargs = graphed_calls[which]
     fn(*args, **kwargs)  # first use: the per-device tables a warm-up would make

@@ -1,13 +1,20 @@
 """The captured CUDA graphs of the port (`utils.cache`) on the card: every
 graphed function replays its eager run bit for bit (the per-frame programs,
 pipelined mode's both-radii stage A, `align_scan`, `match_and_triangulate`,
-`_project_and_match` and `_project_and_match_many`), outputs survive later
-replays, replays count the kernels they launch, a capture that fails
-raises, and two threads capture and replay at once. Whole runs: one
-`align_scan` capture serves every scan of an odometry run in its three
-modes, and a LiDAR odometry run and a pipelined `SlamSystem` run equal
-their eager reruns; the pinned read of a step's results (`to_host_async` +
-`wait_host`) gives `to_host`'s arrays.
+`_project_and_match` and `_project_and_match_many`, and the loop
+correction's: a Gauss-Newton step of the essential graph and of the LiDAR
+pose graph, and the three graphs of global BA's LM iteration), outputs survive later replays, replays count the kernels they launch,
+a capture that fails raises, and two threads capture and replay at once.
+Whole runs: one `align_scan` capture serves every scan of an odometry run
+in its three modes, and a LiDAR odometry run and a pipelined `SlamSystem`
+run equal their eager reruns; the pinned read of a step's results
+(`to_host_async` + `wait_host`) gives `to_host`'s arrays. The loop
+correction: `LoopCloser.run_global_ba` at the ring's size graphed equals
+its eager run, called directly and on its own thread
+(`async_gba`); two graphs holding K3, captured on one stream, replay at
+once on two threads' streams as they do alone; device memory after three
+loop closures of different shapes stays within one capture per program of
+its level after the first.
 
 Marked `cuda`: each test skips where no CUDA device exists. The file
 imports neither JAX nor the JAX package (the card has no JAX):
@@ -26,11 +33,14 @@ import pytest
 import torch
 
 from sqrtlm_slam_tpu_torch import utils
-from sqrtlm_slam_tpu_torch.eval import planeworld, synthetic
+from sqrtlm_slam_tpu_torch.eval import planeworld, scale, synthetic
 from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse
 from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+from sqrtlm_slam_tpu_torch.geometry import se3, sim3
+from sqrtlm_slam_tpu_torch.lidar import backend
 from sqrtlm_slam_tpu_torch.lidar import features as lidar_features
 from sqrtlm_slam_tpu_torch.lidar import odometry
+from sqrtlm_slam_tpu_torch.loop import closing, essential_graph
 from sqrtlm_slam_tpu_torch.ops import hamming
 from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
 from sqrtlm_slam_tpu_torch.pipeline import frame as frame_mod
@@ -181,13 +191,69 @@ def _programs(dev):
         ("odometry_retract", odometry._retract_jit, (pose_a, torch.full((6,), 0.01, device=dev)),
          {}),
         ("odometry_local_delta", odometry._local_delta_jit, (pose_a, pose), {}),
+    ] + _loop_programs(dev)
+
+
+def _ring_store(n_kf, n_lm, seed=0):
+    """tests/test_torch_gba.py's drifted ring store at `n_kf` keyframes, the
+    ring's radius cut with it (the 600-keyframe step)."""
+    store, _, _ = scale.make_scale_store(n_kf=n_kf, n_lm=n_lm, obs_per_lm=5, drift=4e-4,
+                                         radius=80.0 * n_kf / 600, seed=seed)
+    return store
+
+
+def _pose_graph(store, dev):
+    """The essential graph of a loop from the store's last keyframe to its
+    first, as `LoopCloser.correct_loop` builds it."""
+    K = store.num_kf
+    lc = closing.LoopCloser(store, CAM, device=dev)
+    ones = np.ones(K, np.float32)
+    R, t = store.kf_R[:K].copy(), store.kf_t[:K].copy()
+    S12 = sim3.Sim3(torch.tensor(1.0), torch.eye(3), torch.zeros(3))
+    return lc._build_pose_graph(K - 1, 0, S12, ones, R, t, ones.copy(), R.copy(), t.copy())
+
+
+def _chain_graph(n, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    chain = [se3.SE3(torch.eye(3, device=dev),
+                     torch.as_tensor(rng.normal(size=3).astype(np.float32), device=dev))
+             for _ in range(n)]
+    return backend.build_chain_graph(chain, [(0, n - 1, chain[3])], anchors=[(4, np.ones(3))])
+
+
+def _loop_programs(dev):
+    """The loop correction's graphs on ring-sized inputs: a Gauss-Newton step
+    of the essential graph and of the LiDAR pose graph, and the three graphs
+    of global BA's LM iteration."""
+    store = _ring_store(69, 6000)
+    prob, _ = closing.gather_global_problem_bucketed(store, dev)
+    act, plan = prob.obs_valid, schur_bucketed.pose_plan(prob, prob.obs_valid)
+    mu = torch.full((), 1e-3, device=dev)
+    nu = torch.full((), 2.0, device=dev)
+    chi2 = schur_bucketed.chi2_only(prob, CAM, act, 2.447)
+    head = schur_bucketed._cg_head(prob, act, mu, plan, CAM, 2.447, 1e-2)
+    lm = dict(cam=CAM, robust_delta=2.447)
+
+    pg = _pose_graph(store, dev)
+    g = _chain_graph(28, dev)
+    return [
+        ("essential_graph_step", essential_graph._gn_step_jit,
+         (pg, *essential_graph._step_plans(pg), 1e-6), {}),
+        ("gba_cg_head", schur_bucketed._cg_head_jit, (prob, act, mu, plan), dict(lm, tol=1e-2)),
+        ("gba_pcg_chunk", schur_bucketed._pcg_chunk_jit,
+         (head.ctx, head.Mp, prob.obs_cam, prob.pose_fixed, plan, head.pcg), dict(steps=10)),
+        ("gba_lm_tail", schur_bucketed._lm_tail_jit,
+         (prob, head.ctx, head.pcg.x, chi2, mu, nu, act), lm),
+        ("se3_graph_step", backend._gn_step_jit, (g, *backend._step_plans(g), 1e-6), {}),
     ]
 
 
 NAMES = ["build_frame_rgbd", "build_frame_mono", "build_frame_fusion", "build_frame_stereo",
          "extract_features", "stage_a", "stages_bc", "stages_bc_fused", "local_ba",
          "stage_a_both", "align_scan", "match_and_triangulate", "project_and_match",
-         "project_and_match_many", "odometry_retract", "odometry_local_delta"]
+         "project_and_match_many", "odometry_retract", "odometry_local_delta",
+         "essential_graph_step", "gba_cg_head", "gba_pcg_chunk", "gba_lm_tail",
+         "se3_graph_step"]
 
 
 @pytest.mark.parametrize("which", NAMES)
@@ -410,3 +476,124 @@ def test_the_pinned_read_equals_to_host(cuda_device):
         np.testing.assert_array_equal(a, b)
     assert copy.tensors[0].is_pinned()
     torch.cuda.synchronize()
+
+
+def _store_state(store):
+    return [getattr(store, f).copy() for f in ("kf_R", "kf_t", "lm_pos", "lm_obs_kf")]
+
+
+@pytest.mark.parametrize("mode", ["sync", "async_gba"])
+def test_loop_closer_gba_graphed_equals_eager(cuda_device, mode):
+    """`run_global_ba` (20 LM iterations in chunks of 5) on a 69-keyframe
+    ring store (the ring run's size at its loop): graphed, its map is the
+    eager run's bit for bit; K2 and K3 launch once per LM iteration inside
+    the graphs, as eagerly (plus once each in a capture's eager warm-up)."""
+    runs = []
+    captures = utils.graph_captures
+    for eager in (False, True):
+        store = _ring_store(69, 17000)
+        lc = closing.LoopCloser(store, CAM, device=cuda_device)
+        c2, c3 = assembly.launch_count, assembly.chi2_launch_count
+        with cache.disable_graphs() if eager else contextlib.nullcontext():
+            if mode == "sync":
+                assert lc.run_global_ba() is True
+            else:
+                lc.async_gba = True
+                lc._gba_thread = threading.Thread(target=lc.run_global_ba,
+                                                  args=(lc.gba_generation,), daemon=True)
+                lc._gba_thread.start()
+                lc.wait_gba()
+                assert lc.num_gba_completed == 1
+        torch.cuda.synchronize()
+        runs.append((_store_state(store), assembly.launch_count - c2,
+                     assembly.chi2_launch_count - c3))
+    (graphed, k2_g, k3_g), (eager, k2_e, k3_e) = runs
+    for a, b in zip(graphed, eager):
+        np.testing.assert_array_equal(a, b)
+    warm_ups = int(utils.graph_captures > captures)  # K2 and K3 sit in one graph each
+    assert k2_e == 20 and k3_e == 24 and k2_g == 20 + warm_ups and k3_g == 24 + warm_ups
+
+
+def test_two_threads_replay_graphs_holding_k3_at_once(cuda_device):
+    """Two captures of global BA's last graph (K3 at the candidate inside),
+    made on one stream, replayed together from two threads on two streams:
+    each gives what it gives alone, every time. A graph cache of its own,
+    without `_lm_tail_jit`'s bound of one capture."""
+    fn = cache.graphed(schur_bucketed._lm_tail, static_argnames=("cam", "robust_delta"))
+    calls, want = [], []
+    for n_kf, n_lm in ((48, 3000), (60, 4000)):
+        prob, _ = closing.gather_global_problem_bucketed(_ring_store(n_kf, n_lm), cuda_device)
+        act, plan = prob.obs_valid, schur_bucketed.pose_plan(prob, prob.obs_valid)
+        chi2 = schur_bucketed.chi2_only(prob, CAM, act, 2.447)
+        mu = torch.full((), 1e-3, device=cuda_device)
+        head = schur_bucketed._cg_head(prob, act, mu, plan, CAM, 2.447, 1e-2)
+        args = (prob, head.ctx, head.pcg.p, chi2, mu, torch.full((), 2.0, device=cuda_device),
+                act)
+        kw = dict(cam=CAM, robust_delta=2.447)
+        with cache.disable_graphs():
+            want.append(fn(*args, **kw))
+        fn(*args, **kw)  # captured here, on this thread's capture stream
+        calls.append((args, kw))
+    torch.cuda.synchronize()
+    got, errors = {0: [], 1: []}, []
+    barrier = threading.Barrier(2)
+
+    def replayer(i):
+        try:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            barrier.wait(timeout=60)
+            with torch.cuda.stream(stream):
+                for _ in range(20):
+                    got[i].append(fn(*calls[i][0], **calls[i][1]))
+            stream.synchronize()
+        except Exception as e:  # reported in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=replayer, args=(i,)) for i in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    assert not any(th.is_alive() for th in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        assert len(got[i]) == 20
+        for out in got[i]:
+            assert _same_bits(out, want[i])
+
+
+def test_memory_stays_within_one_capture_per_program_over_three_closures(cuda_device):
+    """Three loop closures of different shapes (essential graph, global BA,
+    the LiDAR pose graph): the device memory kept after the third is within
+    one capture per program of the memory kept after the first (memory
+    reserved after `empty_cache`)."""
+    programs = [essential_graph._gn_step_jit, backend._gn_step_jit,
+                schur_bucketed._cg_head_jit, schur_bucketed._pcg_chunk_jit,
+                schur_bucketed._lm_tail_jit]
+    for fn in programs:
+        fn._entries.clear()  # earlier tests' captures
+
+    def kept():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(cuda_device)
+
+    def closure(n_kf, n_lm, n_chain):
+        store = _ring_store(n_kf, n_lm)
+        essential_graph.optimize_pose_graph(_pose_graph(store, cuda_device), num_iters=3)
+        lc = closing.LoopCloser(store, CAM, cfg=closing.LoopClosingConfig(gba_iters=2,
+                                                                         gba_chunk=2),
+                                device=cuda_device)
+        assert lc.run_global_ba() is True
+        backend.optimize_se3_graph(_chain_graph(n_chain, cuda_device), num_iters=3)
+
+    r0 = kept()
+    closure(72, 12000, 30)
+    r1 = kept()
+    closure(60, 10000, 26)
+    closure(66, 11000, 28)
+    r3 = kept()
+    assert r1 > r0
+    assert r3 - r1 <= r1 - r0, (r0, r1, r3)
+    assert all(fn.num_entries() <= fn.max_entries for fn in programs)
