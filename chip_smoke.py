@@ -63,9 +63,15 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      inside the loop's global BA. The frame that commits the loop is split
      by the loop corrector's calls, each bracketed by synchronizes:
      detection, Sim3, `correct_loop` (the essential graph, the fuse and, in
-     sync mode, the GBA). Then the same ring with the loop corrector's calls
-     run eagerly (`disable_graphs` around each) and the same split,
-     reported beside it (not gated).
+     sync mode, the GBA), with the Sim3 verification's graph captures,
+     replays and host reads. Then the same ring with the loop corrector's
+     calls run eagerly (`disable_graphs` around each) and the same split;
+     its trajectory, keyframe poses and landmarks must equal the graphed
+     ring's bit for bit. The loop frame's last `compute_sim3` call is run
+     again on the final store, graphed and eagerly, three times each and
+     then under torch.profiler (ms, CUDA launches, device ms, host reads),
+     and the further `compute_sim3` calls after which the ring's graphed
+     Sim3 total (its captures included) drops to the eager ring's.
  10. camera+LiDAR fusion at KITTI size: `SlamSystem.track_fusion` over 28
      frames of the street circuit of eval/planeworld.py
      (street_circuit_world(seed=0), circuit_trajectory(step=0.8) from 54 m
@@ -88,8 +94,16 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      associations on every steady frame, the LiDAR stage of local BA run
      at least once, K1 and K2 launched, and the three runs' trajectories,
      keyframe poses and landmarks bitwise equal;
- 11. relocalisation on the same sequence: one `recover_pose_no_prior` timed
-     cold and warm; the map saved, `SlamSystem.load`ed on the card and a
+ 11. relocalisation on the same sequence: `recover_pose_no_prior` six
+     times from one generator graphed (the first call captures, unless the
+     run captured it before) and six times eagerly (`disable_graphs`), each
+     timed to its read: ms cold and warm, captures, replays and host reads
+     per recovery, CUDA launches and device ms of one more of each under
+     torch.profiler, the graphed poses and counts bitwise equal to the
+     eager ones, and the further recoveries after which the capture has
+     paid for itself (K1's launches and the host reads of the eager and
+     profiled comparison runs are left out of the path's counts); the map
+     saved, `SlamSystem.load`ed on the card and a
      frame of the sequence fed in localisation mode (it must relocalise
      within 0.5 m of the ground truth and insert no keyframe); then, in the
      running system (> 5 keyframes), two frames with a blank image -> LOST
@@ -204,11 +218,15 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      correction's graphs (a Gauss-Newton step of the essential graph at
      600 keyframes and at the ring's loop, the three graphs of global BA's
      LM iteration on phase 8's and the ring's problems, a step of phase
-     14's LiDAR pose graph) replayed against their eager runs as in (a),
-     and global BA's two PCG designs ((a) all 100 PCG iterations in one
-     graph of the whole LM iteration, no read, built here; (b) the port's,
-     a read every 10) timed in turns on the ring's and phase 8's problems,
-     bitwise equal.
+     14's LiDAR pose graph) and relocalisation's and the Sim3
+     verification's (`recover_pose_no_prior`'s core on phase 11's last
+     call; `ransac_sim3`'s core, `optimize_sim3`, `project_match` and
+     `guided_sim3_match` on the ring's last calls in phase 9, with their
+     CUDA launches per call replayed and eager) replayed against their
+     eager runs as in (a), and global BA's two PCG designs ((a) all 100 PCG
+     iterations in one graph of the whole LM iteration, no read, built
+     here; (b) the port's, a read every 10) timed in turns on the ring's
+     and phase 8's problems, bitwise equal.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
@@ -308,15 +326,19 @@ def device_ms(fn, n: int = 20, warm: int = 3, by_kernel: bool = False):
     """Device time of one call of `fn` in ms: the summed time of the kernels
     (and copies) it runs on the card, from torch.profiler, over `n` calls.
     Host dispatch gaps between them are not counted. With `by_kernel`, also
-    {kernel name: ms per call}."""
+    {kernel name: ms per call}.
+
+    The tracer now and then returns a window without any device row, mostly
+    for windows of a few microsecond kernels and several windows in a row.
+    Such a window is taken again after a pause; if five in a row hold none,
+    the call is timed with CUDA events (`cuda_ms`, host gaps included) and
+    no per-kernel split is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
-    # The tracer now and then returns a window without any device row; such a
-    # window is taken again (three in a row fail the run).
-    for attempt in range(3):
+    for attempt in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -329,8 +351,12 @@ def device_ms(fn, n: int = 20, warm: int = 3, by_kernel: bool = False):
         if us > 0:
             break
         print(json.dumps({"phase": "profiler_window_empty", "attempt": attempt}), flush=True)
+        time.sleep(0.1 * (attempt + 1))
     else:
-        raise AssertionError("torch.profiler recorded no device time in three windows")
+        ms = cuda_ms(fn, n, warm=0)
+        print(json.dumps({"phase": "profiler_window_empty", "timed_with": "cuda_events",
+                          "ms": ms}), flush=True)
+        return (ms, {}) if by_kernel else ms
     if by_kernel:
         return us / 1e3 / n, {e.key[:60]: e.self_device_time_total / 1e3 / n for e in rows}
     return us / 1e3 / n
@@ -1184,6 +1210,81 @@ def max_abs_diff(a, b) -> float:
     return 0.0
 
 
+# Relocalisation's and the Sim3 verification's graphs: (module, attribute,
+# phase 18's row) of each graphed name whose last call phases 9 and 11
+# record for phase 18.
+VERIFICATION_GRAPHS = (
+    ("sqrtlm_slam_tpu_torch.loop.sim3_solver", "_ransac_sim3_jit", "ransac_sim3"),
+    ("sqrtlm_slam_tpu_torch.loop.sim3_solver", "optimize_sim3", "optimize_sim3"),
+    ("sqrtlm_slam_tpu_torch.loop.closing", "project_match", "project_match"),
+    ("sqrtlm_slam_tpu_torch.loop.closing", "guided_sim3_match", "guided_sim3_match"),
+    ("sqrtlm_slam_tpu_torch.pipeline.tracking", "_recover_pose_jit", "recover_pose"),
+)
+VERIFICATION_ROWS = {attr: row for _, attr, row in VERIFICATION_GRAPHS}
+
+
+@contextlib.contextmanager
+def recording_last_calls(targets, calls: dict):
+    """Inside the block, each graphed `module.attribute` of `targets`
+    (`VERIFICATION_GRAPHS` entries) keeps its last call made outside a
+    capture in `calls[attribute]` as (graphed function, args, kwargs)."""
+    import importlib
+
+    from sqrtlm_slam_tpu_torch.utils import cache
+
+    saved = []
+    for mod_name, attr, _ in targets:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, attr)
+
+        def call(*a, _fn=fn, _attr=attr, **k):
+            if not getattr(cache._local, "busy", False):
+                calls[_attr] = (_fn, a, k)
+            return _fn(*a, **k)
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, call)
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def calls_to_repay(graphed_total_ms: float, eager_total_ms: float, graphed_ms: float,
+                   eager_ms: float):
+    """Further calls after which the graphed run's total time drops to the
+    eager run's: the graphed run's extra time so far (its captures) over
+    what each replay saves against an eager call. 0 where the graphs are
+    ahead already, None where a replay saves nothing."""
+    extra, saved = graphed_total_ms - eager_total_ms, eager_ms - graphed_ms
+    if extra <= 0:
+        return 0
+    return int(np.ceil(extra / saved)) if saved > 0 else None
+
+
+def same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    """Bitwise equality of two host arrays."""
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint8), np.ascontiguousarray(b).view(np.uint8))
+
+
+def make_verification_calls(frames, cam, device: str = "cuda") -> dict:
+    """Phase 18's relocalisation and Sim3-verification inputs when it runs
+    alone (phases 9 and 11 record them otherwise): `eval/verification.py`'s
+    on a KITTI-size RGB-D frame (a local map of `local_map_capacity` rows
+    from its depth keypoints, `match_cap` 3D-3D matches under a known Sim3,
+    the loop group padded to `loop_points_cap`)."""
+    import torch
+    from sqrtlm_slam_tpu_torch.eval.verification import verification_calls
+    from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch.pipeline import frame as frame_mod
+
+    dev = torch.device(device)
+    img, depth = (torch.as_tensor(a, device=dev) for a in frames[0])
+    f = frame_mod.build_frame(img, cam, ORBConfig(max_features=2000), depth_img=depth)
+    return verification_calls(f, cam, torch.Generator(device=dev).manual_seed(0))
+
+
 def make_loop_inputs(device: str = "cuda") -> dict:
     """Phase 18's loop-correction inputs when it runs alone: phase 8's
     600-keyframe store (its GBA problem and essential graph), a 69-keyframe
@@ -1344,7 +1445,7 @@ def pcg_designs(problem, cam, iters: int = 10) -> dict:
 
 
 def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
-                 device: str = "cuda") -> dict:
+                 verification_calls=None, device: str = "cuda") -> dict:
     """18. The captured CUDA graphs of the entry points (`utils.cache`), also
     callable alone. `kitti` is phase 4's (frames, poses), `street` phase
     10's (frames (image, scan), T_cam_lidar, right images), `rgbd_system`
@@ -1371,9 +1472,12 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
     without the retry, both bitwise equal to the eager step;
     (e) the loop correction's graphs (`loop_inputs`: phase 8's 600-keyframe
     problem and essential graph, the ring's at its loop, phase 14's chain;
-    `make_loop_inputs` when absent): each replayed against its eager run as
-    in (a), and global BA's two PCG designs timed on the two problems
-    (`pcg_designs`).
+    `make_loop_inputs` when absent) and relocalisation's and the Sim3
+    verification's (`verification_calls`: the last calls of phases 9 and
+    11; `make_verification_calls` when absent): each replayed against its
+    eager run as in (a), the latter with their CUDA launches per call
+    replayed and eager (torch.profiler), and global BA's two PCG designs
+    timed on the two problems (`pcg_designs`).
     Returns K1 / K2 launches of (b)'s graphed runs."""
     import contextlib
 
@@ -1628,7 +1732,11 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
         if loop_inputs is None:
             loop_inputs = make_loop_inputs()
         bench_cam = synthetic.DEFAULT_CAM
-        for name, fn, a, k in loop_graph_calls(loop_inputs, bench_cam):
+        if verification_calls is None:
+            verification_calls = make_verification_calls(frames, kcam)
+        verification = [(VERIFICATION_ROWS[attr], fn, a, k)
+                        for attr, (fn, a, k) in verification_calls.items()]
+        for name, fn, a, k in loop_graph_calls(loop_inputs, bench_cam) + verification:
             with cache.disable_graphs():
                 want = fn(*a, **k)
                 eager_ms = wall_ms(lambda: fn(*a, **k), n=3)
@@ -1642,6 +1750,14 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
             replay[name] = dict(bitwise_equal=same_bits(got, want), max_abs_err=err,
                                 eager_ms=eager_ms, replay_ms=replay_ms,
                                 graph_memory_mb=pool_mb(fn, a, k))
+            if name in VERIFICATION_ROWS.values():
+                with cache.disable_graphs():
+                    w_eager = profile_window(lambda: fn(*a, **k))
+                w_replay = profile_window(lambda: fn(*a, **k))
+                replay[name].update(
+                    launches_replay=w_replay["cuda_launches"],
+                    launches_eager=w_eager["cuda_launches"],
+                    device_ms_replay=w_replay["device_ms"], device_ms_eager=w_eager["device_ms"])
             emit("graphs_replay_vs_eager", function=name, **replay[name])
             if not replay[name]["bitwise_equal"]:
                 raise AssertionError(f"{name}: the replay differs from the eager run "
@@ -1948,7 +2064,8 @@ def main() -> None:
                 k2_t = timed_ms(lambda: assembly.assemble(*k2_args, groups=groups))
                 k2_here = dict(k2_at_this_shape=dict(
                     **k2_t, landmark_pass_ms=sum(
-                        v for n, v in k2_t["per_kernel_ms"].items() if "ba_landmark_kernel" in n),
+                        v for n, v in k2_t["per_kernel_ms"].items() if "ba_landmark_kernel" in n)
+                    if k2_t["per_kernel_ms"] else None,
                     max_slots_per_camera=int((groups.offsets[1:] - groups.offsets[:-1]).max()),
                     **k2_bound(P, L, K, n_active)))
                 if P == 600:
@@ -2093,6 +2210,7 @@ def main() -> None:
         lc = loop_sys.loop_closer
         gba_runs, calls, frame = [], [], [0]
         harness_s = {}  # frame -> seconds of the smoke's own work inside it
+        sim3_counts = {}  # frame -> the Sim3 verification's captures, replays, reads
         run_gba = lc.run_global_ba
 
         def counted_gba(generation=None):
@@ -2122,12 +2240,20 @@ def main() -> None:
                     loop_inputs.setdefault("pg_ring", a[0])
                 torch.cuda.synchronize()
                 h0 = harness_s.get(frame[0], 0.0)
+                c0 = (utils.graph_captures, utils.graph_replays, utils.host_reads)
                 t = time.perf_counter()
                 with cache.disable_graphs() if eager else contextlib.nullcontext():
                     out = fn(*a, **k)
                 torch.cuda.synchronize()
                 s = time.perf_counter() - t - (harness_s.get(frame[0], 0.0) - h0)
                 calls.append((frame[0], name, 1e3 * s, out))
+                if name == "compute_sim3":
+                    acc = sim3_counts.setdefault(frame[0], dict(
+                        calls=0, graph_captures=0, graph_replays=0, host_reads=0, args=[]))
+                    acc["calls"] += 1
+                    acc["args"].append(a)
+                    for key, n0 in zip(("graph_captures", "graph_replays", "host_reads"), c0):
+                        acc[key] += getattr(utils, key) - n0
                 return out
             setattr(obj, attr, call)
             return fn
@@ -2149,10 +2275,11 @@ def main() -> None:
             loop_sys.shutdown()
         finally:
             essential_graph.optimize_pose_graph = optimize
-        return loop_sys, secs, gba_runs, calls
+        return loop_sys, secs, gba_runs, calls, sim3_counts
 
-    def loop_frames(secs, calls):
-        """Per frame that committed a loop: its ms and the split."""
+    def loop_frames(secs, calls, sim3_counts):
+        """Per frame that committed a loop: its ms and the split, with the
+        Sim3 verification's graph captures, replays and host reads."""
         out = []
         for f in sorted({f for f, n, _, ok in calls if n == "correct_loop" and ok is True}):
             ms = {n: 0.0 for n in ("detect_loop", "compute_sim3", "correct_loop",
@@ -2171,13 +2298,17 @@ def main() -> None:
                                 - ms["run_global_ba"]),
                             tracking_and_mapping_ms=(total - ms["detect_loop"]
                                                      - ms["compute_sim3"]
-                                                     - ms["correct_loop"])))
+                                                     - ms["correct_loop"]),
+                            compute_sim3={k: v for k, v in sim3_counts.get(f, {}).items()
+                                          if k != "args"}))
         return out
 
     hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
     utils.host_reads = 0
     t0 = time.perf_counter()
-    loop_sys, ring_secs, gba_runs, ring_calls = ring_run(eager=False)
+    verification_calls = {}  # phase 18's inputs: the last calls of phases 9 and 11
+    with recording_last_calls(VERIFICATION_GRAPHS, verification_calls):
+        loop_sys, ring_secs, gba_runs, ring_calls, ring_sim3 = ring_run(eager=False)
     ring_wall = time.perf_counter() - t0
     ring_reads = utils.host_reads
     loop_launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count,
@@ -2194,7 +2325,7 @@ def main() -> None:
          last_fused=lc.last_fused, gba_completed=lc.num_gba_completed, gba_runs=gba_runs,
          launches=loop_launches, ate_m=ring_ate,
          median_ms=1e3 * float(np.median(ring_secs)), max_ms=1e3 * float(np.max(ring_secs)),
-         loop_frames=loop_frames(ring_secs, ring_calls),
+         loop_frames=loop_frames(ring_secs, ring_calls, ring_sim3),
          host_reads_per_frame=ring_reads / len(ring_frames), wall_s=ring_wall,
          note="graphed (the entry point's default); loop_frames: the frames that committed "
               "a loop, split by the loop corrector's calls bracketed by synchronizes "
@@ -2211,19 +2342,67 @@ def main() -> None:
     # The same ring with its loop corrector eager (`disable_graphs` around
     # detection, Sim3 and the correction), for its loop frame's split.
     t0 = time.perf_counter()
-    eager_sys, eager_secs, eager_gba, eager_calls = ring_run(eager=True)
+    eager_sys, eager_secs, eager_gba, eager_calls, eager_sim3 = ring_run(eager=True)
     eager_wall = time.perf_counter() - t0
-    eager_est = eager_sys.get_trajectory()
+
+    def ring_state(s):
+        st = s.store
+        return (s.get_trajectory(), st.kf_R[:st.num_kf], st.kf_t[:st.num_kf],
+                st.lm_pos[:st.num_lm], st.lm_valid[:st.num_lm])
+
+    ring_equal = [same_bytes(a, b) for a, b in zip(ring_state(loop_sys), ring_state(eager_sys))]
+    # The loop frame's Sim3 verification again on its store, graphed (replays
+    # only) and eagerly, under the profiler: CUDA launches and device ms.
+    loop_f = max((f for f, n, _, ok in ring_calls if n == "correct_loop" and ok is True),
+                 default=None)
+    sim3_profile = {}
+    if loop_f is not None:
+        a = ring_sim3[loop_f]["args"][-1]
+        for label, ctx in (("graphed", contextlib.nullcontext), ("eager", cache.disable_graphs)):
+            with ctx():
+                warm = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    lc.compute_sim3(*a)
+                    torch.cuda.synchronize()
+                    warm.append(1e3 * (time.perf_counter() - t))
+            utils.graph_captures = utils.graph_replays = utils.host_reads = 0
+            with ctx():
+                w = profile_window(lambda: lc.compute_sim3(*a))
+            sim3_profile[label] = dict(
+                ms=1e3 * w["wall_s"], cuda_launches=w["cuda_launches"],
+                kernel_launches=w["kernel_launches"], graph_launches=w["graph_launches"],
+                device_ms=w["device_ms"], graph_captures=utils.graph_captures,
+                graph_replays=utils.graph_replays, host_reads=utils.host_reads,
+                accepted=bool(w["out"][0]), unprofiled_ms=warm)
+        # compute_sim3 over the whole ring: its captures against what a
+        # replay saves.
+        sim3_totals = [sum(t for _, n, t, _ in c if n == "compute_sim3")
+                       for c in (ring_calls, eager_calls)]
+        sim3_profile["ring_compute_sim3_ms"] = dict(zip(("graphed", "eager"), sim3_totals))
+        sim3_profile["calls_to_repay_the_captures"] = calls_to_repay(
+            *sim3_totals, float(np.median(sim3_profile["graphed"]["unprofiled_ms"])),
+            float(np.median(sim3_profile["eager"]["unprofiled_ms"])))
     emit("loop_path_ring_eager", frames=len(ring_frames),
          tracked=sum(t > 0 for t in eager_secs), keyframes=eager_sys.num_keyframes(),
          loops_closed=eager_sys.loop_closer.num_loops_closed, gba_runs=eager_gba,
          median_ms=1e3 * float(np.median(np.abs(eager_secs))),
          max_ms=1e3 * float(np.max(np.abs(eager_secs))),
-         loop_frames=loop_frames(eager_secs, eager_calls), wall_s=eager_wall,
-         trajectory_equal_to_graphed=bool(len(eager_est) == len(est)
-                                          and np.array_equal(eager_est, est)),
+         loop_frames=loop_frames(eager_secs, eager_calls, eager_sim3), wall_s=eager_wall,
+         bitwise_equal_to_graphed=dict(zip(("trajectory", "kf_R", "kf_t", "lm_pos", "lm_valid"),
+                                           ring_equal)),
+         sim3_at_the_loop_frame=dict(frame=loop_f, **sim3_profile),
          note="tracking and mapping graphed; detect_loop, compute_sim3 and correct_loop "
-              "(with the essential graph and the GBA) under disable_graphs")
+              "(with the essential graph and the GBA) under disable_graphs; "
+              "sim3_at_the_loop_frame: the loop frame's last compute_sim3 call again on the "
+              "final store, graphed and eager, 3 times each (unprofiled_ms), then under "
+              "torch.profiler; calls_to_repay_the_captures: further compute_sim3 calls "
+              "after which the graphed ring's compute_sim3 total drops to the eager ring's, "
+              "at the median unprofiled ms")
+    if not all(ring_equal):
+        raise AssertionError(f"the graphed ring and the ring with its loop corrector eager "
+                             f"differ: {ring_equal}")
     del loop_sys, eager_sys
 
     # 10. Camera+LiDAR fusion at KITTI size --------------------------------
@@ -2403,15 +2582,46 @@ def main() -> None:
         torch.as_tensor(img_r, device=dev), kcam, f_cfg.orb,
         cloud_lidar=torch.as_tensor(pts_r, device=dev), T_cam_lidar=T_cl, lidar_cfg=f_cfg.lidar)
     buf_r = fus.tracker._gather_local_map()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    recover_ms = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        pose_r, n_r = tracking.recover_pose_no_prior(buf_r, frame_r, kcam, generator=gen)
-        n_r = int(n_r)
-        recover_ms.append(1e3 * (time.perf_counter() - t))
-    recover_err = float(np.linalg.norm(camera_center(pose_r) - f_gt_rel[20][:3, 3]))
+
+    def recoveries(eager: bool):
+        """Six recoveries drawing from one generator (seed 0), each timed to
+        its read of the pose and the inlier count (one read): ms, the host
+        arrays, and graph captures, replays and host reads."""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ms, outs = [], []
+        c0 = (utils.graph_captures, utils.graph_replays, utils.host_reads)
+        with cache.disable_graphs() if eager else contextlib.nullcontext():
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                pose, n = tracking.recover_pose_no_prior(buf_r, frame_r, kcam, generator=gen)
+                outs.append(utils.to_host(pose.R, pose.t, n))
+                ms.append(1e3 * (time.perf_counter() - t))
+        counts = {k: (getattr(utils, k) - n0) / 6 for k, n0 in zip(
+            ("graph_captures", "graph_replays", "host_reads"), c0)}
+        return ms, outs, counts
+
+    with recording_last_calls(VERIFICATION_GRAPHS[-1:], verification_calls):
+        recover_ms, rec_out, rec_counts = recoveries(eager=False)
+    # The eager and the profiled recoveries are comparisons, not the path:
+    # K1's launches and the host reads are put back after them.
+    path_counts = (hamming.launch_count, utils.host_reads)
+    eager_ms, eager_out, eager_counts = recoveries(eager=True)
+    recover_equal = all(same_bytes(a, b) for x, y in zip(rec_out, eager_out)
+                        for a, b in zip(x, y))
+    gen_p = torch.Generator(device=dev).manual_seed(0)
+    rec_prof = {}
+    for label, ctx in (("graphed", contextlib.nullcontext), ("eager", cache.disable_graphs)):
+        with ctx():
+            w = profile_window(lambda: utils.to_host(*tracking.recover_pose_no_prior(
+                buf_r, frame_r, kcam, generator=gen_p)[1:]))
+        rec_prof[label] = dict(cuda_launches=w["cuda_launches"], device_ms=w["device_ms"],
+                               ms=1e3 * w["wall_s"])
+    hamming.launch_count, utils.host_reads = path_counts
+    R_r, t_r, n_r = rec_out[-1]
+    n_r = int(n_r)
+    recover_err = float(np.linalg.norm(camera_center(synthetic.Pose(R_r, t_r))
+                                       - f_gt_rel[20][:3, 3]))
 
     map_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                             "chip_smoke_map.npz")
@@ -2443,12 +2653,24 @@ def main() -> None:
     last_err = float(np.linalg.norm(camera_center(fus.tracker.pose) - f_gt_rel[-1][:3, 3]))
     emit("relocalisation", recover_pose_no_prior_ms_cold=recover_ms[0],
          recover_pose_no_prior_ms_warm=float(np.median(recover_ms[1:])),
+         recover_eager_ms_cold=eager_ms[0], recover_eager_ms_warm=float(np.median(eager_ms[1:])),
+         recover_per_call=dict(graphed=dict(rec_counts, **rec_prof["graphed"]),
+                               eager=dict(eager_counts, **rec_prof["eager"])),
+         recover_bitwise_equal_to_eager=recover_equal,
+         recover_calls_to_repay_the_capture=calls_to_repay(
+             sum(recover_ms), sum(eager_ms), float(np.median(recover_ms[1:])),
+             float(np.median(eager_ms[1:]))),
          recover_inliers=n_r, recover_err_m=recover_err, resume=resume,
          keyframes_before_occlusion=kfs_before, occlusion=occl,
          pose_err_after_recovery_m=last_err, hamming_launches=hamming.launch_count,
          host_reads=utils.host_reads)
     if n_r < 30 or not recover_err < 0.5:
         raise AssertionError(f"recover_pose_no_prior: {n_r} inliers, {recover_err} m off")
+    if not recover_equal:
+        raise AssertionError("recover_pose_no_prior: the graphed poses differ from the eager")
+    if rec_counts["graph_replays"] != 1 or rec_counts["graph_captures"] > 1 / 6 \
+            or eager_counts["graph_replays"]:
+        raise AssertionError(f"recover_pose_no_prior: graphed {rec_counts}, eager {eager_counts}")
     if start_state != TrackState.LOST or resume["state"] != TrackState.OK \
             or not resume_err < 0.5 or resume["keyframes_after"] != kfs_loaded:
         raise AssertionError(f"resume from the saved map failed: {resume}")
@@ -2759,7 +2981,8 @@ def main() -> None:
 
     # 18. The captured CUDA graphs against the eager port --------------------
     graph_launches = graphs_phase(kitti=(frames, poses), street=(f_frames[:16], T_cl, rights),
-                                  rgbd_system=system, loop_inputs=loop_inputs)
+                                  rgbd_system=system, loop_inputs=loop_inputs,
+                                  verification_calls=verification_calls)
 
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line

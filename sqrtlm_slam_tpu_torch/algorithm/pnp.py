@@ -11,9 +11,13 @@ computation over H hypotheses with no host round trip:
     row-weighted DLT refit on the consensus set and five Gauss-Newton steps.
 
 Verification is the reprojection chi2 gate (9.21), and the refit is kept
-when it has at least as many inliers. The minimal sets come from an explicit
-`torch.Generator` (`sim3_solver.minimal_sets`); `sel` takes them from the
-caller instead, which lets a parity test feed the JAX package's own draws.
+when it has at least as many inliers. The SVDs are `geometry/jacobi.py`'s
+and the solves `solve_ex`: nothing reads the device, so both banks run
+inside `tracking.recover_pose_no_prior`'s captured graph. The minimal sets
+are a masked Gumbel top-k (`ransac.top_k_sets`) of uniform draws taken
+from an explicit `torch.Generator` before any graph; `sel` takes the sets
+from the caller instead, which lets a parity test feed the JAX package's own
+draws.
 """
 
 from __future__ import annotations
@@ -24,10 +28,11 @@ import torch
 
 from ..factors import reprojection as reproj
 from ..factors.reprojection import Camera
-from ..geometry import align, se3
-from ..loop.sim3_solver import minimal_sets
+from ..geometry import align, jacobi, se3
+from .ransac import minimal_sets, row
 
 CHI2_PNP = 9.210  # PnP / Sim3 inlier gate (chi2, 2 dof, at 0.01)
+NUM_HYPOTHESES = 256  # minimal sets a bank
 
 
 class PnPResult(NamedTuple):
@@ -53,14 +58,13 @@ def _dlt_pose(X_w: torch.Tensor, uv_n: torch.Tensor, row_w: Optional[torch.Tenso
         r1 = r1 * row_w[..., None]
         r2 = r2 * row_w[..., None]
     A = torch.cat([r1, r2], dim=-2)  # (..., 2N, 12)
-    _, _, Vt = torch.linalg.svd(A, full_matrices=False)
-    Pm = Vt[..., -1, :].reshape(A.shape[:-2] + (3, 4))
+    Pm = jacobi.null_vector(A).reshape(A.shape[:-2] + (3, 4))
     # P and -P project identically: take det(M) > 0, so that the nearest
     # orthonormal factor is a proper rotation.
-    sgn = torch.sign(torch.linalg.det(Pm[..., :3]))
+    sgn = torch.sign(jacobi.det3(Pm[..., :3]))
     Pm = Pm * torch.where(sgn == 0, torch.ones_like(sgn), sgn)[..., None, None]
-    U, D, Vt2 = torch.linalg.svd(Pm[..., :3])
-    R = U @ Vt2
+    U, D, V2 = jacobi.svd3(Pm[..., :3])
+    R = U @ V2.mT
     scale = 3.0 / torch.clamp(torch.sum(D, dim=-1), min=1e-12)
     return R, Pm[..., 3] * scale[..., None]
 
@@ -79,7 +83,7 @@ def _select(use: torch.Tensor, a: se3.SE3, b: se3.SE3, in_a, in_b) -> PnPResult:
 
 
 def ransac_pnp_2d3d(points_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
-                    inv_sigma2: torch.Tensor, cam: Camera, num_hypotheses: int = 256,
+                    inv_sigma2: torch.Tensor, cam: Camera, num_hypotheses: int = NUM_HYPOTHESES,
                     generator: Optional[torch.Generator] = None,
                     sel: Optional[torch.Tensor] = None) -> PnPResult:
     """2D-3D RANSAC resection (no depth needed). points_w (N, 3) landmark
@@ -96,7 +100,7 @@ def ransac_pnp_2d3d(points_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tenso
     finite = torch.isfinite(Rs).all(dim=-1).all(dim=-1) & torch.isfinite(ts).all(dim=-1)
     counts = torch.where(finite, counts, torch.full_like(counts, -1))
     best = torch.argmax(counts)  # first maximum
-    inliers = ok[best]
+    inliers = row(ok, best)
 
     # Consensus refit: row-weighted DLT, then a short Gauss-Newton polish
     # (the DLT's algebraic error is biased).
@@ -115,12 +119,12 @@ def ransac_pnp_2d3d(points_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tenso
     in_f = _gate(pose_f.R, pose_f.t, points_w, uv, valid, inv_sigma2, cam)
     use_f = ((torch.sum(in_f) >= torch.sum(inliers)) & torch.isfinite(pose_f.R).all()
              & torch.isfinite(pose_f.t).all())
-    return _select(use_f, pose_f, se3.SE3(Rs[best], ts[best]), in_f, inliers)
+    return _select(use_f, pose_f, se3.SE3(row(Rs, best), row(ts, best)), in_f, inliers)
 
 
 def ransac_pose_3d3d(points_w: torch.Tensor, points_c: torch.Tensor, uv: torch.Tensor,
                      valid: torch.Tensor, inv_sigma2: torch.Tensor, cam: Camera,
-                     num_hypotheses: int = 256,
+                     num_hypotheses: int = NUM_HYPOTHESES,
                      generator: Optional[torch.Generator] = None,
                      sel: Optional[torch.Tensor] = None) -> PnPResult:
     """Estimate T_cw with points_c ~ T_cw * points_w: batched-hypothesis
@@ -132,11 +136,11 @@ def ransac_pose_3d3d(points_w: torch.Tensor, points_c: torch.Tensor, uv: torch.T
     T_h = align.umeyama(points_w[sel], points_c[sel], with_scale=False)
     ok = _gate(T_h.R, T_h.t, points_w, uv, valid, inv_sigma2, cam)
     best = torch.argmax(torch.sum(ok, dim=-1))  # first maximum
-    inliers = ok[best]
+    inliers = row(ok, best)
 
     T_fit = align.umeyama(points_w, points_c, weights=inliers.to(points_w.dtype),
                           with_scale=False)
     in_f = _gate(T_fit.R, T_fit.t, points_w, uv, valid, inv_sigma2, cam)
     use_fit = torch.sum(in_f) >= torch.sum(inliers)
-    return _select(use_fit, se3.SE3(T_fit.R, T_fit.t), se3.SE3(T_h.R[best], T_h.t[best]),
-                   in_f, inliers)
+    return _select(use_fit, se3.SE3(T_fit.R, T_fit.t),
+                   se3.SE3(row(T_h.R, best), row(T_h.t, best)), in_f, inliers)

@@ -2,7 +2,9 @@
 
 Counterpart of `sqrtlm_slam_tpu/geometry/align.py`: weighted Umeyama with
 an optional scale, batched over leading dimensions (the whole Sim3 RANSAC
-hypothesis bank is one batched 3x3 SVD).
+hypothesis bank is one batched 3x3 SVD). The SVD and the determinant are
+`geometry/jacobi.py`'s (fixed sweeps, closed form), which read nothing back
+from the device: the RANSAC banks run inside captured graphs.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from . import jacobi
 from .se3 import SE3
 from .sim3 import Sim3
 
@@ -33,8 +36,9 @@ def umeyama(src: torch.Tensor, dst: torch.Tensor, weights: Optional[torch.Tensor
     dst_c = dst - mu_dst[..., None, :]
     cov = torch.einsum("...ni,...n,...nj->...ij", dst_c, w, src_c)
 
-    U, D, Vt = torch.linalg.svd(cov)
-    det = torch.linalg.det(U @ Vt)
+    U, D, V = jacobi.svd3(cov)
+    Vt = V.mT
+    det = jacobi.det3(U @ Vt)
     ones = torch.ones(src.shape[:-2] + (2,), dtype=src.dtype, device=src.device)
     S = torch.cat([ones, torch.sign(det)[..., None]], dim=-1)
     R = U @ (S[..., :, None] * Vt)

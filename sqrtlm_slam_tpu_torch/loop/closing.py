@@ -20,8 +20,15 @@ Counterpart of `sqrtlm_slam_tpu/loop/closing.py` (the reference's
 The map lives in the shared numpy `MapStore`; descriptor matching (kernel
 K1), RANSAC, the Sim3 refinement, the essential graph and global BA (K2, K3)
 run on the closer's device, small pose algebra on CPU tensors. The JAX
-package's jitted `_project_match_kernel` and `_guided_sim3_kernel` are plain
-functions here, sized to the landmarks present.
+package's jitted programs of the Sim3 verification are captured CUDA graphs
+on the card (`utils.cache`): `project_match` (`_project_match_kernel`, the
+loop landmark group padded to `loop_points_cap` as the JAX package pads it,
+so one capture serves every loop), `guided_sim3_match`
+(`_guided_sim3_kernel`, the two keyframes' keypoint slots), and
+`sim3_solver`'s `ransac_sim3` (its uniforms drawn before the graph) and
+`optimize_sim3`. `compute_sim3` reads the host between them, as the JAX
+package's does: the pairs, the RANSAC count, the growth, the refined count,
+the total. Detection (BoW, the keyframe database) stays on the host.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from ..frontend import matching, vocab
 from ..geometry import se3, sim3
 from ..mapstore import MapStore
 from ..optim import schur, schur_bucketed
-from ..utils import desc_to_torch, to_host
+from ..utils import cache, desc_to_torch, to_host
 from . import essential_graph, sim3_solver
 from .database import KeyFrameDatabase
 
@@ -78,10 +85,15 @@ class LoopMatches(NamedTuple):
     n_total: int  # distinct current-KF keypoints matched to loop landmarks
 
 
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 0-dim tensor made on the device by a fill (no host copy,
+    which a captured graph cannot hold)."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
 def _pow12(octave: torch.Tensor) -> torch.Tensor:
     """1.2 ** octave in float32."""
-    return torch.pow(torch.tensor(1.2, dtype=torch.float32, device=octave.device),
-                     octave.to(torch.float32))
+    return torch.pow(_f32(1.2, octave), octave.to(torch.float32))
 
 
 def project_match(cam: Camera, S_cw: sim3.Sim3, lm_pos, lm_desc, lm_valid, lm_normal,
@@ -100,7 +112,7 @@ def project_match(cam: Camera, S_cw: sim3.Sim3, lm_pos, lm_desc, lm_valid, lm_no
     nrm = lm_normal / torch.clamp(torch.linalg.norm(lm_normal, dim=-1, keepdim=True), min=1e-9)
     view_ok = torch.sum(po * nrm, dim=-1) > 0.5 * dist  # < 60 deg viewing angle
     ratio = torch.clamp(lm_maxd, min=1e-6) / torch.clamp(dist, min=1e-6)
-    log12 = torch.log(torch.tensor(1.2, dtype=torch.float32, device=ratio.device))
+    log12 = torch.log(_f32(1.2, ratio))
     octv = torch.clamp(torch.ceil(torch.log(ratio) / log12), 0, 7).to(torch.int32)
     window = matching.projection_window_mask(uv, kp_xy, radius * _pow12(octv),
                                              octave_pred=octv, octave_kp=kp_octave,
@@ -132,6 +144,12 @@ def guided_sim3_match(cam: Camera, S12: sim3.Sim3, x1, v1, desc1, xy1, oct1, x2,
     iA = torch.arange(x1.shape[0], device=x1.device)
     agree = resA.valid & resB.valid[idxA] & (resB.idx.long()[idxA] == iA)
     return resA.idx, agree
+
+
+# The JAX package's two jitted matchers as captured CUDA graphs (static
+# `cam` and `radius`).
+project_match = cache.graphed(project_match, static_argnames=("cam", "radius"))
+guided_sim3_match = cache.graphed(guided_sim3_match, static_argnames=("cam", "radius"))
 
 
 def _cpu_sim3(S: sim3.Sim3) -> sim3.Sim3:
@@ -315,21 +333,36 @@ class LoopCloser:
     def _project_loop_points(self, kf: int, S_cw: sim3.Sim3, loop_lms: np.ndarray,
                              radius: float):
         """Match the loop landmark group into keyframe `kf` under pose S_cw.
+        The group is padded to `loop_points_cap` rows as in the JAX package
+        (zero positions and descriptors, normal (0, 0, 1), maximum distance
+        1e6, invalid: pad rows never match), so one graph serves every loop.
         Returns (kp_idx, valid) aligned with loop_lms (numpy)."""
         store = self.store
-        lms = loop_lms[: self.cfg.loop_points_cap]
+        cap = self.cfg.loop_points_cap
+        m = min(len(loop_lms), cap)
+        lms = loop_lms[:m]
+        pos = np.zeros((cap, 3), np.float32)
+        desc = np.zeros((cap, 8), np.uint32)
+        normal = np.tile(np.array([0, 0, 1], np.float32), (cap, 1))
+        mind = np.zeros(cap, np.float32)
+        maxd = np.full(cap, 1e6, np.float32)
+        valid = np.zeros(cap, bool)
+        pos[:m] = store.lm_pos[lms]
+        desc[:m] = store.lm_desc[lms]
+        normal[:m] = store.lm_normal[lms]
+        mind[:m] = store.lm_min_dist[lms]
+        maxd[:m] = np.minimum(store.lm_max_dist[lms], 1e6)
+        valid[:m] = store.lm_valid[lms]
         dev = self.device
         idx, ok = project_match(
-            self.cam, self._to_device(S_cw),
-            self._t(store.lm_pos[lms]), desc_to_torch(store.lm_desc[lms], dev),
-            self._t(store.lm_valid[lms], torch.bool), self._t(store.lm_normal[lms]),
-            self._t(store.lm_min_dist[lms]), self._t(np.minimum(store.lm_max_dist[lms], 1e6)),
+            self.cam, self._to_device(S_cw), self._t(pos), desc_to_torch(desc, dev),
+            self._t(valid, torch.bool), self._t(normal), self._t(mind), self._t(maxd),
             self._t(store.kf_xy[kf]), desc_to_torch(store.kf_desc[kf], dev),
             self._t(store.kf_octave[kf], torch.int32), self._t(store.kf_kp_valid[kf], torch.bool),
             radius,
         )
         idx, ok = to_host(idx, ok)
-        return idx.astype(np.int64), ok.astype(bool)
+        return idx[:len(loop_lms)].astype(np.int64), ok[:len(loop_lms)].astype(bool)
 
     def compute_sim3(self, kf1: int, kf2: int):
         """RANSAC + SearchBySim3 growth + refinement + guided-projection

@@ -7,10 +7,20 @@ the most inliers -> one refit on its inliers), and `optimize_sim3` is the
 Gauss-Newton refinement with mutual reprojection residuals through S12 and
 S21, Huber-weighted, scale frozen for stereo/RGB-D.
 
-The minimal sets are a masked Gumbel top-k drawn from an explicit
-`torch.Generator`; `jax.random` cannot be reproduced in torch, so
-`ransac_sim3` also takes the minimal sets themselves (`sel`), which lets a
-parity test feed the JAX package's own draws.
+The minimal sets are a masked Gumbel top-k of uniform draws from an
+explicit `torch.Generator` (`algorithm/ransac.py`); `jax.random` cannot be
+reproduced in torch, so `ransac_sim3` also takes the minimal sets
+themselves (`sel`), which lets a parity test feed the JAX package's own
+draws.
+
+On the card both programs are captured CUDA graphs (`utils.cache`, the
+JAX package's jit). A graph cannot advance a generator: `ransac_sim3` draws
+its (H, N) uniforms from the caller's generator, then replays
+`_ransac_sim3_jit`, which takes the top-k sets inside the graph, so it
+consumes the generator stream that the eager call consumes. `optimize_sim3`
+is the graphed function under its own name (`.eager` the body). The SVDs
+are `geometry/jacobi.py`'s and the solve `solve_ex`: nothing inside reads
+the device.
 """
 
 from __future__ import annotations
@@ -21,8 +31,10 @@ from typing import NamedTuple, Optional
 import torch
 from torch.func import jacfwd
 
+from ..algorithm.ransac import row, top_k_sets
 from ..factors.reprojection import Camera
 from ..geometry import align, sim3
+from ..utils import cache
 
 CHI2_SIM3 = 9.210  # 2-dof chi2 at 0.01 (the Sim3Solver inlier threshold)
 
@@ -31,17 +43,6 @@ class Sim3RansacResult(NamedTuple):
     S12: sim3.Sim3  # best hypothesis: maps KF2-camera-frame points to KF1
     inliers: torch.Tensor  # (N,) bool
     num_inliers: torch.Tensor  # ()
-
-
-def minimal_sets(valid: torch.Tensor, num_hypotheses: int,
-                 generator: Optional[torch.Generator] = None, k: int = 3) -> torch.Tensor:
-    """(H, k) distinct valid indices per hypothesis: masked Gumbel top-k."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand((num_hypotheses, valid.shape[0]), generator=generator,
-                   device=valid.device).clamp(min=tiny)
-    g = -torch.log(-torch.log(u))
-    g = torch.where(valid[None, :], g, torch.full_like(g, -math.inf))
-    return torch.topk(g, k, dim=-1).indices
 
 
 def _inlier_errors(S: sim3.Sim3, x1, x2, uv1, uv2, is2_1, is2_2, cam: Camera):
@@ -62,9 +63,24 @@ def ransac_sim3(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
     """Batched-hypothesis RANSAC for S12 (x1 ~ S12 * x2). x1, x2: (N, 3)
     matched landmarks in each keyframe's camera frame; `sel` (H, 3) replaces
     the random minimal sets when given."""
-    H = num_hypotheses if sel is None else sel.shape[0]
     if sel is None:
-        sel = minimal_sets(valid, H, generator)
+        u = torch.rand((num_hypotheses, valid.shape[0]), generator=generator,
+                       device=valid.device)
+        return _ransac_sim3_jit(x1, x2, valid, inv_sigma2_1, inv_sigma2_2, u, cam, fix_scale)
+    return _ransac_sim3_on_sets(x1, x2, valid, inv_sigma2_1, inv_sigma2_2, sel, cam, fix_scale)
+
+
+def _ransac_sim3_drawn(x1, x2, valid, inv_sigma2_1, inv_sigma2_2, u, cam: Camera,
+                       fix_scale: bool) -> Sim3RansacResult:
+    """`ransac_sim3` on the uniforms u (H, N): the minimal sets and the
+    bank (the graphed core)."""
+    return _ransac_sim3_on_sets(x1, x2, valid, inv_sigma2_1, inv_sigma2_2,
+                                top_k_sets(u, valid), cam, fix_scale)
+
+
+def _ransac_sim3_on_sets(x1, x2, valid, inv_sigma2_1, inv_sigma2_2, sel, cam: Camera,
+                         fix_scale: bool) -> Sim3RansacResult:
+    H = sel.shape[0]
     sel = sel.long()
     S_h = align.umeyama(x2[sel], x1[sel], with_scale=not fix_scale)
 
@@ -81,8 +97,8 @@ def ransac_sim3(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor,
     counts = torch.where(finite, counts, torch.full_like(counts, -1))
 
     best = torch.argmax(counts)  # first maximum, as jnp.argmax
-    S_best = sim3.index(S_h, best)
-    inliers = ok[best]
+    S_best = sim3.Sim3(*(row(a, best) for a in S_h))
+    inliers = row(ok, best)
 
     # Final refit on all inliers of the best hypothesis.
     S_refit = align.umeyama(x2, x1, weights=inliers.to(x1.dtype),
@@ -141,12 +157,11 @@ def optimize_sim3(S12: sim3.Sim3, x1: torch.Tensor, x2: torch.Tensor, valid: tor
         H = H1 + H2 + 1e-6 * eye7
         b = b1 + b2
         if fix_scale:
-            pin = torch.zeros(7, dtype=torch.bool, device=dev)
-            pin[6] = True
+            pin = torch.arange(7, device=dev) == 6
             H = torch.where(pin[:, None] | pin[None, :], torch.zeros_like(H), H)
             H = H + torch.diag(pin.to(dtype))
             b = torch.where(pin, torch.zeros_like(b), b)
-        return sim3.retract(S, -torch.linalg.solve(H, b))
+        return sim3.retract(S, -torch.linalg.solve_ex(H, b)[0])
 
     n1 = max(num_iters // 2, 1)
     for _ in range(n1):
@@ -157,3 +172,11 @@ def optimize_sim3(S12: sim3.Sim3, x1: torch.Tensor, x2: torch.Tensor, valid: tor
     e1, e2 = errors(S12)
     inliers = valid & (e1 < CHI2_SIM3) & (e2 < CHI2_SIM3)
     return S12, inliers, torch.sum(inliers)
+
+
+# The JAX package's jitted programs as captured CUDA graphs (static `cam`,
+# `fix_scale` and the iteration settings): one capture per match buffer
+# shape (`LoopClosingConfig.match_cap`) serves every loop candidate.
+_ransac_sim3_jit = cache.graphed(_ransac_sim3_drawn, static_argnames=("cam", "fix_scale"))
+optimize_sim3 = cache.graphed(optimize_sim3, static_argnames=(
+    "cam", "num_iters", "fix_scale", "huber_delta"))

@@ -21,7 +21,7 @@ alike. Singular homography hypotheses are inverted with `inv_ex`: no error
 check (no host read), and their non-finite transfer errors fail the gates.
 
 The minimal sets are a masked Gumbel top-k drawn from an explicit
-`torch.Generator` (`sim3_solver.minimal_sets`), or given by the caller as
+`torch.Generator` (`ransac.minimal_sets`), or given by the caller as
 `sel_F` (H, 8) / `sel_H` (H, 4), which lets a parity test score the JAX
 package's own draws.
 """
@@ -32,9 +32,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..algorithm.ransac import minimal_sets
 from ..factors.reprojection import Camera
 from ..geometry import se3
-from ..loop.sim3_solver import minimal_sets
 from .triangulation import _K, _dlt_triangulate
 
 CHI2_F = 3.841  # 1-dof gate (point-line)

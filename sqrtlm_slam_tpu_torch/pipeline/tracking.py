@@ -37,7 +37,9 @@ in one graph, the result selected on the device by the inlier count (the
 JAX `lax.cond`), so dispatching a step reads nothing. The packed results
 are copied into pinned host memory right after the step is enqueued
 (`utils.to_host_async`); consuming the step waits for that copy's event
-alone, not for the work queued after it.
+alone, not for the work queued after it. `recover_pose_no_prior` (the
+fallback and relocalisation) replays one graph, `_recover_pose_jit`, its
+RANSAC uniforms drawn from the tracker's generator before it.
 
 At every keyframe insertion the system's `vocab_hook` supplies the
 keyframe's word ids and BoW vector (place recognition reads them).
@@ -70,6 +72,7 @@ import numpy as np
 import torch
 
 from ..algorithm import pnp
+from ..algorithm.ransac import top_k_sets
 from ..factors.reprojection import Camera
 from ..frontend import matching
 from ..geometry import se3
@@ -347,23 +350,50 @@ def recover_pose_no_prior(lm: LocalMapBuffer, frame: Frame, cam: Camera,
     LM cannot pull a pose in from 50+ px of initial error; this closed-form
     estimate seeds it instead. `sel3` (H, 3) / `sel2` (H, 6) replace the
     minimal sets drawn from `generator`. Returns (pose, num_inliers), both
-    on the device."""
-    res = matching.match_descriptors(lm.desc, frame.kp.desc, lm.valid, frame.kp.valid,
+    on the device.
+
+    The uniforms of the minimal sets are drawn here, outside any graph, in
+    the eager order (the 3D-3D bank's, then the 2D-3D bank's); the match,
+    the sets, both banks and the selection are one captured graph on the
+    card (`_recover_pose_jit`, the JAX package's jit). Calls given `sel3` or
+    `sel2` run eagerly."""
+    shape, dev = (pnp.NUM_HYPOTHESES, lm.desc.shape[0]), lm.desc.device
+    u3 = None if sel3 is not None else torch.rand(shape, generator=generator, device=dev)
+    u2 = None if sel2 is not None else torch.rand(shape, generator=generator, device=dev)
+    fn = _recover_pose_jit if sel3 is None and sel2 is None else _recover_pose
+    return fn(lm.pos, lm.desc, lm.valid, frame.kp.xy, frame.kp.desc, frame.kp.valid,
+              frame.depth, frame.inv_sigma2, u3, u2, sel3, sel2, cam)
+
+
+def _recover_pose(lm_pos, lm_desc, lm_valid, kp_xy, kp_desc, kp_valid, depth_kp, inv_sigma2,
+                  u3, u2, sel3, sel2, cam: Camera):
+    """`recover_pose_no_prior` on the frame's and the local map's tensors,
+    each bank's minimal sets from its uniforms (u3, u2) or given (sel3,
+    sel2)."""
+    res = matching.match_descriptors(lm_desc, kp_desc, lm_valid, kp_valid,
                                      max_dist=matching.TH_HIGH, ratio=0.9, mutual=True)
     idx = res.idx.long()
-    depth = frame.depth[idx]
-    uv = frame.kp.xy[idx]
-    is2 = frame.inv_sigma2[idx]
+    depth = depth_kp[idx]
+    uv = kp_xy[idx]
+    is2 = inv_sigma2[idx]
     pts_c = torch.stack([(uv[:, 0] - cam.cx) * depth / cam.fx,
                          (uv[:, 1] - cam.cy) * depth / cam.fy, depth], dim=-1)
-    out3 = pnp.ransac_pose_3d3d(lm.pos, pts_c, uv, res.valid & (depth > 0), is2, cam,
-                                generator=generator, sel=sel3)
-    out2 = pnp.ransac_pnp_2d3d(lm.pos, uv, res.valid, is2, cam, generator=generator,
-                               sel=sel2)
+    valid3 = res.valid & (depth > 0)
+    if sel3 is None:
+        sel3 = top_k_sets(u3, valid3, k=3)
+    if sel2 is None:
+        sel2 = top_k_sets(u2, res.valid, k=6)
+    out3 = pnp.ransac_pose_3d3d(lm_pos, pts_c, uv, valid3, is2, cam, sel=sel3)
+    out2 = pnp.ransac_pnp_2d3d(lm_pos, uv, res.valid, is2, cam, sel=sel2)
     use3 = out3.num_inliers >= out2.num_inliers
     pose = se3.SE3(torch.where(use3, out3.pose.R, out2.pose.R),
                    torch.where(use3, out3.pose.t, out2.pose.t))
     return pose, torch.maximum(out3.num_inliers, out2.num_inliers)
+
+
+# One capture per local-map capacity and keypoint count serves every
+# recovery of a run.
+_recover_pose_jit = cache.graphed(_recover_pose, static_argnames=("cam",))
 
 
 def aggregate_kf_lidar(store: MapStore, kfs, n_slots: int):

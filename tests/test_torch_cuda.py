@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from sqrtlm_slam_tpu_torch.algorithm import pnp
+from sqrtlm_slam_tpu_torch.algorithm.ransac import minimal_sets
 from sqrtlm_slam_tpu_torch.eval import planeworld, synthetic
 from sqrtlm_slam_tpu_torch.eval.scale import make_scale_store
 from sqrtlm_slam_tpu_torch.eval.synthetic import DEFAULT_CAM, make_ba_problem
@@ -21,7 +22,6 @@ from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
 from sqrtlm_slam_tpu_torch.lidar import features as lidar_features
 from sqrtlm_slam_tpu_torch.lidar import voxel_map
 from sqrtlm_slam_tpu_torch.loop import closing
-from sqrtlm_slam_tpu_torch.loop.sim3_solver import minimal_sets
 from sqrtlm_slam_tpu_torch.ops import hamming
 from sqrtlm_slam_tpu_torch.optim import assembly, facade, schur_bucketed
 from sqrtlm_slam_tpu_torch.parallel import dist_ba

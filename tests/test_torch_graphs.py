@@ -25,6 +25,9 @@ the CPU), so here:
     `_project_and_match` and `_project_and_match_many`, and the loop
     correction's: a Gauss-Newton step of the essential graph and of the
     LiDAR pose graph, and the three graphs of global BA's LM iteration;
+    relocalisation's `recover_pose_no_prior` core and the loop's Sim3
+    verification: `ransac_sim3`'s core, `optimize_sim3` (fixed and free
+    scale), `project_match` and `guided_sim3_match`;
   * the both-radii stage A (pipelined mode) gives the bits of stage A with
     the read and the widened retry, without and with the retry;
   * the port reads its vocabulary from its own copy of the asset.
@@ -50,6 +53,7 @@ from sqrtlm_slam_tpu_torch import convert, utils
 from sqrtlm_slam_tpu_torch.eval import planeworld as t_planeworld
 from sqrtlm_slam_tpu_torch.eval import scale as t_scale
 from sqrtlm_slam_tpu_torch.eval import synthetic as t_synth
+from sqrtlm_slam_tpu_torch.eval import verification
 from sqrtlm_slam_tpu_torch.frontend import vocab as t_vocab
 from sqrtlm_slam_tpu_torch.geometry import se3 as t_se3
 from sqrtlm_slam_tpu_torch.geometry import sim3 as t_sim3
@@ -301,6 +305,9 @@ _READS_THE_DEVICE = {
     "aten.masked_select.default", "aten._linalg_check_errors.default",
     "aten.repeat_interleave.Tensor", "aten.bincount.default", "aten.equal.default",
     "aten.is_nonzero.default",
+    # No error check on the CPU, but on the card its convergence is read on
+    # the host.
+    "aten._linalg_svd.default",
 }
 
 
@@ -408,7 +415,7 @@ def _graphed_calls(images, scan):
          (torch.eye(3).expand(B, 3, 3), torch.zeros(B, 3), *lms, *many_kp, cam, 3.0), {}),
         ("odometry_retract", t_odo._retract_jit, (pose_a, torch.full((6,), 0.01)), {}),
         ("odometry_local_delta", t_odo._local_delta_jit, (pose_a, pose), {}),
-    ] + _loop_graphed_calls()
+    ] + _loop_graphed_calls() + _verification_graphed_calls(frame)
 
 
 def _loop_graphed_calls():
@@ -448,12 +455,31 @@ def _loop_graphed_calls():
     ]
 
 
+def _verification_graphed_calls(frame):
+    """Relocalisation's graph (the match, both RANSAC banks on drawn
+    uniforms, the selection) and the Sim3 verification's (`ransac_sim3`'s
+    core, `optimize_sim3` at free and fixed scale, `project_match` of the
+    padded loop group, `guided_sim3_match`) on `eval/verification.py`'s
+    inputs from `_step_inputs`' frame."""
+    calls = verification.verification_calls(frame, t_synth.DEFAULT_CAM,
+                                            torch.Generator().manual_seed(0))
+    opt, args, kwargs = calls["optimize_sim3"]
+    return [
+        ("recover_pose", *calls["_recover_pose_jit"]),
+        ("ransac_sim3", *calls["_ransac_sim3_jit"]),
+        ("optimize_sim3", opt, args, dict(kwargs, fix_scale=False)),
+        ("optimize_sim3_fixed_scale", opt, args, dict(kwargs, fix_scale=True)),
+        ("project_match", *calls["project_match"]),
+        ("guided_sim3_match", *calls["guided_sim3_match"]),
+    ]
+
+
 @pytest.fixture(scope="module")
 def graphed_calls(images, scan):
     return _graphed_calls(images, scan)
 
 
-@pytest.mark.parametrize("which", range(21))
+@pytest.mark.parametrize("which", range(27))
 def test_graphed_functions_issue_no_device_read(graphed_calls, which):
     name, fn, args, kwargs = graphed_calls[which]
     fn(*args, **kwargs)  # first use: the per-device tables a warm-up would make

@@ -14,7 +14,14 @@ its eager run, called directly and on its own thread
 (`async_gba`); two graphs holding K3, captured on one stream, replay at
 once on two threads' streams as they do alone; device memory after three
 loop closures of different shapes stays within one capture per program of
-its level after the first.
+its level after the first. Relocalisation and the loop's Sim3
+verification (`recover_pose_no_prior` and `ransac_sim3` through their
+public names, drawing from a generator outside the graph; `optimize_sim3`
+with fixed and free scale; `project_match` on the loop group padded to
+`loop_points_cap`; `guided_sim3_match`): a capture and a replay equal two
+eager calls bit for bit, the second call of a shape replays without
+capturing, and a graphed call leaves the generator where the eager call
+leaves it.
 
 Marked `cuda`: each test skips where no CUDA device exists. The file
 imports neither JAX nor the JAX package (the card has no JAX):
@@ -33,14 +40,14 @@ import pytest
 import torch
 
 from sqrtlm_slam_tpu_torch import utils
-from sqrtlm_slam_tpu_torch.eval import planeworld, scale, synthetic
+from sqrtlm_slam_tpu_torch.eval import planeworld, scale, synthetic, verification
 from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse
 from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
 from sqrtlm_slam_tpu_torch.geometry import se3, sim3
 from sqrtlm_slam_tpu_torch.lidar import backend
 from sqrtlm_slam_tpu_torch.lidar import features as lidar_features
 from sqrtlm_slam_tpu_torch.lidar import odometry
-from sqrtlm_slam_tpu_torch.loop import closing, essential_graph
+from sqrtlm_slam_tpu_torch.loop import closing, essential_graph, sim3_solver
 from sqrtlm_slam_tpu_torch.ops import hamming
 from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
 from sqrtlm_slam_tpu_torch.pipeline import frame as frame_mod
@@ -597,3 +604,67 @@ def test_memory_stays_within_one_capture_per_program_over_three_closures(cuda_de
     assert r1 > r0
     assert r3 - r1 <= r1 - r0, (r0, r1, r3)
     assert all(fn.num_entries() <= fn.max_entries for fn in programs)
+
+
+def _verification_programs(dev):
+    """name -> (graphed function, call(variant) -> (outputs, generator state
+    or None)) of relocalisation and the Sim3 verification on `dev`, on
+    `eval/verification.py`'s inputs. The variant is a generator seed where
+    the entry point draws, else 0 (the inputs) or 1 (the inputs scaled by
+    1 + 1e-4)."""
+    world = synthetic.SyntheticWorld(seed=3, n_points=900)
+    T0 = synthetic.forward_trajectory(25, step=0.4)[12]
+    img, depth = (torch.as_tensor(a, device=dev) for a in world.render(T0, CAM))
+    f0 = frame_mod.build_frame(img, CAM, ORB, depth_img=depth)
+    calls = verification.verification_calls(f0, CAM, torch.Generator(device=dev).manual_seed(0))
+    pos, desc, valid = calls["_recover_pose_jit"][1][:3]
+    lm = tracking.LocalMapBuffer(ids=None, pos=pos, desc=desc, valid=valid,
+                                 max_dist=torch.full_like(pos[:, 0], float("inf")))
+    x1, x2, matched, is2 = calls["_ransac_sim3_jit"][1][:4]
+
+    def drawn(fn):
+        def call(seed):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return fn(g), g.get_state()
+        return call
+
+    def plain(name, **override):
+        fn, args, kwargs = calls[name]
+        kwargs = dict(kwargs, **override)
+
+        def call(variant):
+            a, k = (args, kwargs) if variant == 0 else (_perturbed(args), _perturbed(kwargs))
+            return fn(*a, **k), None
+        return fn, call
+
+    return {
+        "recover_pose_no_prior": (tracking._recover_pose_jit, drawn(
+            lambda g: tracking.recover_pose_no_prior(lm, f0, CAM, generator=g))),
+        "ransac_sim3": (sim3_solver._ransac_sim3_jit, drawn(
+            lambda g: sim3_solver.ransac_sim3(x1, x2, matched, is2, is2, CAM, fix_scale=False,
+                                              generator=g))),
+        "optimize_sim3": plain("optimize_sim3", fix_scale=False),
+        "optimize_sim3_fixed_scale": plain("optimize_sim3", fix_scale=True),
+        "project_match": plain("project_match"),
+        "guided_sim3_match": plain("guided_sim3_match"),
+    }
+
+
+@pytest.mark.parametrize("which", ["recover_pose_no_prior", "ransac_sim3", "optimize_sim3",
+                                   "optimize_sim3_fixed_scale", "project_match",
+                                   "guided_sim3_match"])
+def test_verification_graphs_replay_eager_bits_and_capture_once(cuda_device, which):
+    graphed, call = _verification_programs(cuda_device)[which]
+    with cache.disable_graphs():
+        want = [call(v) for v in (0, 1)]
+    c0, r0 = utils.graph_captures, utils.graph_replays
+    got0 = call(0)  # a capture (unless an earlier test made it), then a replay
+    c1 = utils.graph_captures
+    got1 = call(1)  # the same shape: a replay only
+    torch.cuda.synchronize()
+    assert c1 - c0 <= 1 and graphed.num_entries() >= 1
+    assert utils.graph_captures == c1 and utils.graph_replays == r0 + 2
+    for (out, state), (out_want, state_want) in zip((got0, got1), want):
+        assert _same_bits(out, out_want), which
+        if state is not None:  # the graphed call drew what the eager call drew
+            assert torch.equal(state, state_want), which

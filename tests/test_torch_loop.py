@@ -31,6 +31,7 @@ from sqrtlm_slam_tpu.loop import sim3_solver as j_solver
 from sqrtlm_slam_tpu.mapstore import MapStore
 from sqrtlm_slam_tpu.pipeline import frame as j_frame
 from sqrtlm_slam_tpu_torch import convert
+from sqrtlm_slam_tpu_torch.algorithm import ransac as t_ransac
 from sqrtlm_slam_tpu_torch.factors import pose_graph as t_pg
 from sqrtlm_slam_tpu_torch.frontend import vocab as t_vocab
 from sqrtlm_slam_tpu_torch.geometry import align as t_align
@@ -261,7 +262,7 @@ def test_ransac_sim3_on_jax_minimal_sets_matches(fix_scale):
     assert (_np(res_t.inliers) != np.asarray(res_j.inliers)).sum() <= 1
     # Without `sel`, an explicit generator draws the sets (distinct, valid).
     gen = torch.Generator().manual_seed(0)
-    sets = t_solver.minimal_sets(T(valid), 64, gen)
+    sets = t_ransac.minimal_sets(T(valid), 64, gen)
     assert sets.shape == (64, 3) and valid[_np(sets)].all()
     assert all(len(set(r)) == 3 for r in _np(sets).tolist())
     res_r = t_solver.ransac_sim3(T(x1), T(x2), T(valid), T(is2), T(is2), CAM,
