@@ -122,8 +122,15 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      `SlamSystem.track_monocular` (tests/test_e2e_mono.py's tracking config).
      Counters zeroed just before and read just after; >= 2 keyframes, > 80
      landmarks, >= 12/16 tracked, Sim3-aligned ATE < 0.4 m, K1 launched; the
-     initialization frame, `used_homography`, and `initialize_two_view` timed
-     cold (its first call, in the run) and warm (again on the same inputs);
+     initialization frame and its ms, `used_homography`, and
+     `initialize_two_view` timed cold (its first call, in the run: the
+     graph's warm-up, capture and replay) and warm (again on the same
+     inputs); the initializer's graph against its eager body on the same
+     inputs and draws (bitwise equal, one replay and no host read), the
+     CUDA launches and device ms of one call of each (torch.profiler), no
+     SVD kernel among them (solver kernels listed); and a fresh process that
+     runs only the monocular path up to the initialization
+     (`mono_fresh_process`): its first `initialize_two_view` ms;
  14. standalone LiDAR odometry: `LidarOdometry.process` over the 28 fusion
      scans in the LiDAR frame (the corner included), run three times
      (graphed, graphed with its stages bracketed, eagerly): ATE < 0.5 m
@@ -164,9 +171,18 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      engine in float64 on the card; the engines agree to 1e-10 in float64,
      tests/test_torch_flat.py): bucketed pose_t 5e-3 and landmarks seen from
      >= 2 cameras 2e-2, flat 0.1 / 0.5 m (it forms W Hll^-1 W^T explicitly
-     in float32); ms per call of each; and the
-     first 10 frames of phase 4 with `LocalMappingConfig(backend="flat")`
-     (every frame tracked, >= 1 local BA, ATE < 0.05 m); (b) the
+     in float32); each backend (and "cg") graphed and eagerly: ms per call,
+     captures, replays and host reads, bitwise equal, chi2 falling, the flat
+     and cg backends replaying their graphs; phase 4's frames and on along
+     its path, 40 in all, with `LocalMappingConfig(backend="flat")` and with
+     "cg" (every frame tracked, >= 4 local BA, ATE < 0.05 m; K1, K2 and K3
+     launched on the cg run; the captures of local BA's graphs in each
+     local BA, none in the second half of the run's windows); the flat `global_ba` on the ring's GBA problem and
+     `schur.global_ba_cg` (3 LM iterations) on phase 8's, graphed (first
+     call and a replayed one) against eager: chi2 falls, bitwise equal;
+     `calibrate_extrinsics` on 4096 points of phase 10's first scan from
+     T_CAM_VELO perturbed, with and without plane terms, graphed against
+     eager (bitwise equal, within 1e-3 of T_CAM_VELO); (b) the
      distributed Nielsen LM in process on the bench problem, 15 iterations,
      Huber 2.447, over 1, 2 and 4 shards on cuda:0, each run twice (bitwise
      equal), chi2 falling, 2 and 4 shards against 1 within
@@ -195,7 +211,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      entry points replay graphs by default (phases 4-17 ran graphed; each of
      phases 4, 10 and 12-14 reports its graph captures and replays). (b) the
      RGB-D, stereo, monocular, fusion and LiDAR-odometry paths over 16
-     frames (scans) each, graphed and eagerly (`disable_graphs`): ms per
+     frames (scans) each, graphed and eagerly (`disable_graphs`; the eager
+     stereo, fusion and odometry runs over 10): ms per
      frame, CUDA launches (kernel launches plus graph launches), device ms
      and idle share from torch.profiler over the last 2, graph captures,
      replays and host reads per frame; (a) every captured function (the
@@ -204,13 +221,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      mode's stage A at both radii and stages B + C plain and fused, local
      BA, `align_scan` and the odometry's graphed `retract` / `local_delta`,
      `match_and_triangulate`, `_project_and_match` and
-     `_project_and_match_many`) replayed on the KITTI-size inputs of its
-     last call in (b) against its eager run: bitwise equal, or the phase
-     raises; each with the device memory a fresh capture of it keeps
-     (`memory_reserved` after `empty_cache`, before and after), and the
-     fuse's 24-wide graph against 24 single replays; (c) phase 4's 16
-     frames graphed (phase 4's system and (b)'s) and eagerly: trajectories,
-     keyframe poses and landmarks bitwise equal; (d) the tracking step's
+     `_project_and_match_many`, the monocular initializer) replayed on the
+     KITTI-size inputs of its last call in (b) against its eager run:
+     bitwise equal, or the phase raises; each with the device memory a
+     fresh capture of it keeps (`memory_reserved` after `empty_cache`,
+     before and after), and the fuse's 24-wide graph against 24 single
+     replays; (c) phase 4's 16 frames graphed (phase 4's system and (b)'s)
+     and eagerly, and (b)'s monocular runs: trajectories, keyframe poses
+     and landmarks bitwise equal; (d) the tracking step's
      stage A as three graphs with the inlier read between them (sync mode)
      and as one graph running both radii with a `torch.where` select
      (pipelined mode): wall and CUDA-event ms per step, with and without
@@ -222,15 +240,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      verification's (`recover_pose_no_prior`'s core on phase 11's last
      call; `ransac_sim3`'s core, `optimize_sim3`, `project_match` and
      `guided_sim3_match` on the ring's last calls in phase 9, with their
-     CUDA launches per call replayed and eager) replayed against their
-     eager runs as in (a), and global BA's two PCG designs ((a) all 100 PCG
+     CUDA launches per call replayed and eager), and the flat engine's LM
+     loop (local and global captures) and three PCG graphs, the cg
+     backend's local-BA graphs (bench problem) and the calibration with and
+     without plane terms, replayed against their eager runs as in (a), and
+     global BA's two PCG designs ((a) all 100 PCG
      iterations in one graph of the whole LM iteration, no read, built
      here; (b) the port's, a read every 10) timed in turns on the ring's
      and phase 8's problems, bitwise equal.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
-first 4-shard run, `graphs_paths` from phase 18 (b)'s graphed runs; a
+first 4-shard run, `cg_local_ba` from phase 16 (a)'s KITTI-size run with
+the cg backend, `graphs_paths` from phase 18 (b)'s graphed runs; a
 captured graph adds its kernels' launches at each replay), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
@@ -266,6 +288,9 @@ GBA_ATE_TOL = 1e-3
 # The fusion window starts this far along the circuit's first 60 m straight,
 # so its 28 frames at 0.8 m (slowed to 0.36 m in the corner) turn ~35 degrees.
 FUSION_START_S = 54.0
+# Phase 16's KITTI-size RGB-D frames on the flat and cg backends: phase 4's
+# 16 and on along its path, enough keyframes for several local BA windows.
+BACKEND_FRAMES = 40
 # The least time a kernel could take: NVIDIA H100 SXM peaks (data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12  # CUDA cores, no tensor cores
@@ -495,8 +520,10 @@ class ProfiledSpan:
         graphs = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
         dev_us = sum(e.get("dur", 0) for e in events
                      if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
         return dict(kernel_launches=kernels, graph_launches=graphs,
-                    cuda_launches=kernels + graphs, device_ms=dev_us / 1e3, wall_s=self.wall)
+                    cuda_launches=kernels + graphs, device_ms=dev_us / 1e3, wall_s=self.wall,
+                    kernel_names=names)
 
 
 def profile_window(fn) -> dict:
@@ -744,15 +771,20 @@ def kept_bytes() -> int:
 
 def run_counted(fn):
     """(fn(), dict(s, graph_captures, graph_replays, host_reads)) of one call
-    ended by a synchronize; the counters are zeroed just before it."""
+    ended by a synchronize (none without a card); the counters are zeroed
+    just before it."""
     import torch
     from sqrtlm_slam_tpu_torch import utils
 
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
     utils.graph_captures = utils.graph_replays = utils.host_reads = 0
-    torch.cuda.synchronize()
+    sync()
     t = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, dict(s=time.perf_counter() - t, graph_captures=utils.graph_captures,
                      graph_replays=utils.graph_replays, host_reads=utils.host_reads)
 
@@ -821,12 +853,99 @@ def check_dist(name, got, ref, multi) -> dict:
     return d
 
 
-def flat_and_distributed_phase(kitti_frames=None, scale_problem=None,
-                               device: str = "cuda") -> dict:
+def mono_fresh_process(frames_path: str) -> None:
+    """Phase 13's fresh process: `track_monocular` over the images in
+    `frames_path` (an .npz of phase 4's first frames, up to the
+    initialization) in a process that has run nothing else; prints one JSON
+    line: each `initialize_two_view` call's ms (the first includes the
+    graph's warm-up and capture), each frame's ms, whether the map
+    initialized, and the first call's parts: a capture of a new instance
+    of the graph once every kernel is loaded, a replay and an eager call."""
+    import torch
+    from sqrtlm_slam_tpu_torch.eval import graph_calls
+    from sqrtlm_slam_tpu_torch.factors.reprojection import Camera
+    from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch.pipeline import initializer, tracking
+    from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
+    from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackingConfig
+    from sqrtlm_slam_tpu_torch.utils import cache
+
+    images = np.load(frames_path)["images"]
+    two_view, calls, last = initializer.initialize_two_view, [], []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = two_view(*a, **k)
+        torch.cuda.synchronize()
+        calls.append(1e3 * (time.perf_counter() - t))
+        last[:] = [a]
+        return out
+
+    tracking.initializer.initialize_two_view = timed
+    cfg = SystemConfig(orb=ORBConfig(max_features=2000),
+                       tracking=TrackingConfig(min_inliers_local=15))
+    system = SlamSystem(Camera(**KITTI_INTRINSICS), cfg, device="cuda")
+    frame_ms = []
+    for img in images:
+        t = time.perf_counter()
+        system.track_monocular(img)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t))
+    tracking.initializer.initialize_two_view = two_view
+    # The first call's parts, on the last call's matches and fresh draws: a
+    # capture of a new instance of the graph (warm-up, capture, replay; every
+    # kernel loaded by now), its replays and eager calls.
+    xy1, xy2, valid, cam = last[0][:4]
+    _, a, k = graph_calls.init_calls(xy1, xy2, valid, cam,
+                                     torch.Generator(device="cuda").manual_seed(0))[
+        "_initialize_jit"]
+    fresh = cache.graphed(initializer._initialize, static_argnames=("cam",))
+    parts = dict(capture_again_ms=wall_ms(lambda: fresh(*a, **k), n=1, warm=0),
+                 replay_ms=wall_ms(lambda: fresh(*a, **k), n=5, warm=0))
+    with cache.disable_graphs():
+        parts["eager_ms"] = wall_ms(lambda: fresh(*a, **k), n=3, warm=0)
+    print(json.dumps(dict(initialize_two_view_ms=calls, frame_ms=frame_ms,
+                          initialized=system.num_keyframes() >= 2, **parts)), flush=True)
+
+
+def mono_fresh_subprocess(images) -> dict:
+    """Run `mono_fresh_process` on `images` in a subprocess (its own CUDA
+    context, kernels loaded from build/kernels); its JSON line and its wall
+    seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    path = os.path.join(here, "build", f"mono_fresh_{os.getpid()}.npz")
+    np.savez(path, images=np.stack(images))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke as c; c.mono_fresh_process({path!r})"],
+            cwd=here, env=env, capture_output=True, text=True, timeout=300)
+    finally:
+        os.remove(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh monocular process failed:\n{proc.stderr[-3000:]}")
+    return dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                process_s=time.perf_counter() - t0)
+
+
+def flat_and_distributed_phase(kitti_frames=None, scale_problem=None, ring_problem=None,
+                               scan=None, device: str = "cuda") -> dict:
     """16. The flat engine and distributed BA on one card: (a) the facade's
-    flat backend against the bucketed one at the bench problem, and the
-    flat backend under the main path (`LocalMappingConfig(backend="flat")`)
-    on the first 10 KITTI-size RGB-D frames of phase 4; (b) the distributed
+    flat and cg backends against the bucketed one at the bench problem,
+    each graphed (the default) and eagerly (`disable_graphs`: bitwise
+    equal, ms, captures, host reads), and the flat and cg backends under the
+    main path (`LocalMappingConfig(backend=...)`) on `BACKEND_FRAMES`
+    KITTI-size RGB-D frames, phase 4's and on (the cg run's K1 / K2 / K3
+    launches are the `cg_local_ba` path; local BA's captures counted call
+    by call, none left in the second half of the windows); the flat engine's `global_ba` on the
+    ring's GBA problem (`ring_problem`; a 69-keyframe scale store when
+    absent) and `global_ba_cg` on phase 8's (`scale_problem`), graphed
+    against eager; `calibrate_extrinsics` graphed against eager on a LiDAR
+    scan (`scan`, sensor frame; phase 10's first when given) and
+    T_CAM_VELO perturbed; (b) the distributed
     Nielsen LM in process at the bench problem over 1, 2 and 4 shards on
     one card (each run twice, bitwise), K2 / K3 launches per shard, and
     one flat distributed step over 4 shards against the single-device flat
@@ -835,7 +954,8 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None,
     gloo on one card and 1 process x 4 shards with nccl, against (b)'s
     in-process 4 shards; (d) map scale (phase 7's 600 x 120000 problem),
     4 shards against 1, 3 iterations. Returns the launches of (b)'s first
-    4-shard run. `device="cpu"` rehearses it without a card (gloo only)."""
+    4-shard run, and (a)'s cg run's under "cg_local_ba". `device="cpu"`
+    rehearses it without a card (gloo only)."""
     import socket
 
     import torch
@@ -843,11 +963,13 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None,
     from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse
     from sqrtlm_slam_tpu_torch.factors.reprojection import Camera
     from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
+    from sqrtlm_slam_tpu_torch import utils
+    from sqrtlm_slam_tpu_torch.ops import hamming
     from sqrtlm_slam_tpu_torch.optim import assembly, facade, schur, schur_bucketed
     from sqrtlm_slam_tpu_torch.parallel import dist_ba, mp_worker
     from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMappingConfig
     from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
-    from sqrtlm_slam_tpu_torch.utils import to_host
+    from sqrtlm_slam_tpu_torch.utils import cache, to_host
 
     on_card = device == "cuda"
     dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
@@ -864,17 +986,34 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None,
     multi = multi_camera(prob)
     chi2_0 = float(schur_bucketed.chi2_only(prob, cam, prob.obs_valid, 2.447))
     local = {}
-    for backend in ("bucketed", "flat"):
+    for backend in ("bucketed", "flat", "cg"):
         opt = facade.Optimizer(backend)
-        out, surv, chi2 = opt.local_bundle_adjustment(prob, cam)
-        sync()
-        ms = wall_ms(lambda: opt.local_bundle_adjustment(prob, cam), n=3)
+        (out, surv, chi2), first = run_counted(lambda: opt.local_bundle_adjustment(prob, cam))
+        ms = wall_ms(lambda: opt.local_bundle_adjustment(prob, cam), n=3, warm=0)
+        with cache.disable_graphs():
+            want, eager = run_counted(lambda: opt.local_bundle_adjustment(prob, cam))
+        _, again = run_counted(lambda: opt.local_bundle_adjustment(prob, cam))
+        rec = dict(backend=backend, shape=[96, 8192, 5], ms_per_call=ms,
+                   eager_ms_per_call=1e3 * eager["s"], first_call=first, replayed_call=again,
+                   eager_call=eager, chi2=float(chi2),
+                   bitwise_equal_to_eager=same_bits((out, surv, chi2), want))
+        emit("local_ba_graphed_vs_eager", **rec,
+             note="first_call / replayed_call / eager_call: seconds, captures, replays and "
+                  "host reads of one call to a synchronize; the facade's bucketed backend "
+                  "runs op by op (local mapping replays its graph, _bucketed_local_ba_jit)")
+        if not (rec["bitwise_equal_to_eager"] and float(chi2) < chi2_0):
+            raise AssertionError(f"{backend} local BA: graphed differs from eager or chi2 did "
+                                 f"not fall: {rec}")
+        if on_card and backend != "bucketed" and not (again["graph_replays"] > 0
+                                                      and again["graph_captures"] == 0):
+            raise AssertionError(f"{backend} local BA did not replay its graphs: {rec}")
         local[backend] = (out, surv, float(chi2), ms)
     # The float64 optimum: the flat engine (plain PyTorch, no kernel) in
     # float64 on the same device.
     f64 = {k: v.double() for k, v in prob._asdict().items() if v.is_floating_point()}
     ref64 = facade.Optimizer("flat").local_bundle_adjustment(prob._replace(**f64), cam)[0]
     (ob, sb_, cb, msb), (of, sf, cf, msf) = local["bucketed"], local["flat"]
+    cg_chi2_rel = abs(local["cg"][2] - cb) / cb
     vs64 = {k: compare_ba(o, ref64, multi) for k, o in (("bucketed", ob), ("flat", of))}
     d = compare_ba(of, ob, multi)
     d.update(chi2_rel=abs(cf - cb) / cb, survivors_differ=int((sf != sb_).sum()))
@@ -882,7 +1021,8 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None,
                  bucketed_vs_f64=dict(pose_t=5e-3, points=2e-2),
                  flat_vs_f64=dict(pose_t=0.1, points=0.5))
     emit("flat_vs_bucketed_local_ba", shape=[96, 8192, 5], chi2_start_huber=chi2_0,
-         chi2=dict(bucketed=cb, flat=cf), ms_per_call=dict(bucketed=msb, flat=msf),
+         chi2=dict(bucketed=cb, flat=cf, cg=local["cg"][2]), cg_vs_bucketed_chi2_rel=cg_chi2_rel,
+         ms_per_call=dict(bucketed=msb, flat=msf, cg=local["cg"][3]),
          survivors=int(sf.sum()), multi_camera_landmarks=int(multi.sum()),
          flat_vs_bucketed=d, vs_float64_optimum=vs64, gates=gates,
          note="float32 engines against the flat engine run in float64 on the card; the "
@@ -903,21 +1043,119 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None,
     kcam = Camera(**KITTI_INTRINSICS)
     if kitti_frames is None:
         world = synthetic.SyntheticWorld(seed=1, n_points=3000)
-        poses = synthetic.forward_trajectory(16, step=0.3)[:10]
+        poses = synthetic.forward_trajectory(BACKEND_FRAMES, step=0.3)
         kitti_frames = [(world.render(T, kcam, H=KITTI_H, W=KITTI_W), T) for T in poses]
-    cfg = SystemConfig(orb=ORBConfig(max_features=2000),
-                       local_mapping=LocalMappingConfig(backend="flat"))
-    system, secs, tracked = run_sequence(SlamSystem, cfg, kcam, [f for f, _ in kitti_frames],
-                                         dev, time_from=3)
-    ate, _ = ate_rmse(system.get_trajectory(), gt_cam_to_world([T for _, T in kitti_frames]),
-                      align_scale=False)
-    rec = dict(frames=len(kitti_frames), tracked=tracked, keyframes=system.num_keyframes(),
-               local_ba=system.local_mapper.num_local_ba, ate_m=ate,
-               median_ms=1e3 * float(np.median(secs)))
-    emit("flat_backend_kitti_rgbd", **rec)
-    if tracked != len(kitti_frames) or rec["local_ba"] < 1 or not ate < 0.05:
-        raise AssertionError(f"flat backend on the KITTI-size frames: {rec}")
-    del system
+    cg_launches = None
+    for backend in ("flat", "cg"):
+        cfg = SystemConfig(orb=ORBConfig(max_features=2000),
+                           local_mapping=LocalMappingConfig(backend=backend))
+        # Local BA's captures, call by call: the padded plans are meant to
+        # let successive windows share captures.
+        local_graphs = ((schur._local_loop_jit,) if backend == "flat"
+                        else schur_bucketed.LOCAL_GRAPHS)
+        captures_per_call = []
+        local_ba = facade.Optimizer.local_bundle_adjustment
+
+        def counted(self, *a, **k):
+            c0 = sum(g.captures for g in local_graphs)
+            out = local_ba(self, *a, **k)
+            captures_per_call.append(sum(g.captures for g in local_graphs) - c0)
+            return out
+
+        hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
+        utils.graph_captures = utils.graph_replays = utils.host_reads = 0
+        facade.Optimizer.local_bundle_adjustment = counted
+        try:
+            system, secs, tracked = run_sequence(SlamSystem, cfg, kcam,
+                                                 [f for f, _ in kitti_frames], dev, time_from=3)
+        finally:
+            facade.Optimizer.local_bundle_adjustment = local_ba
+        kernel_launches = dict(hamming=hamming.launch_count, ba_assembly=assembly.launch_count,
+                               ba_chi2=assembly.chi2_launch_count)
+        graphs = dict(graph_captures=utils.graph_captures, graph_replays=utils.graph_replays,
+                      host_reads=utils.host_reads)
+        ate, _ = ate_rmse(system.get_trajectory(),
+                          gt_cam_to_world([T for _, T in kitti_frames]), align_scale=False)
+        n_ba = system.local_mapper.num_local_ba
+        rec = dict(backend=backend, frames=len(kitti_frames), tracked=tracked,
+                   keyframes=system.num_keyframes(), local_ba=n_ba,
+                   local_ba_captures_per_call=captures_per_call,
+                   local_graph_entries=[g.num_entries() for g in local_graphs],
+                   local_graph_max_entries=[g.max_entries for g in local_graphs],
+                   ate_m=ate, median_ms=1e3 * float(np.median(secs)), launches=kernel_launches,
+                   **graphs)
+        emit(f"{backend}_backend_kitti_rgbd", **rec,
+             note="local_ba_captures_per_call: captures of the backend's local-BA graphs "
+                  "made in each local BA of the run, in order (one key a graph: the phase "
+                  "and the padded plans' width buckets)")
+        if tracked != len(kitti_frames) or n_ba < 4 or not ate < 0.05:
+            raise AssertionError(f"{backend} backend on the KITTI-size frames: {rec}")
+        if on_card and (len(captures_per_call) != n_ba
+                        or sum(captures_per_call[n_ba // 2:]) != 0):
+            raise AssertionError(f"{backend} local BA still captured in the run's second half "
+                                 f"of windows: {rec}")
+        if backend == "cg":
+            cg_launches = kernel_launches
+            if on_card and min(kernel_launches.values()) <= 0:
+                raise AssertionError(f"a kernel never launched in the cg local BA run: {rec}")
+        del system
+
+    # The flat engine's global BA (ring) and its matrix-free global BA
+    # (phase 8's problem), graphed against eager.
+    if ring_problem is None:
+        from sqrtlm_slam_tpu_torch.eval.scale import make_scale_store
+        from sqrtlm_slam_tpu_torch.loop.closing import gather_global_problem_bucketed
+
+        store, _, _ = make_scale_store(n_kf=69, n_lm=17_000, obs_per_lm=5, drift=4e-4,
+                                       radius=80.0 * 69 / 600)
+        ring_problem = gather_global_problem_bucketed(store, "cpu")[0]
+        del store
+    gba_runs = [("flat_global_ba_ring", ring_problem,
+                 lambda p: facade.Optimizer("flat").global_bundle_adjustment(p, cam)),
+                ("flat_global_ba_cg_600kf", scale_problem,
+                 lambda p: schur.global_ba_cg(facade.bucketed_to_flat(p), cam, num_iters=3))]
+    for name, host_problem, run in gba_runs:
+        if host_problem is None:
+            continue  # phase 16 alone: (d) builds the 600-keyframe problem after this
+        p = schur_bucketed.BucketedBAProblem(*[t.to(dev) for t in host_problem])
+        c0 = float(schur_bucketed.chi2_only(p, cam, p.obs_valid, 2.447))
+        got, first = run_counted(lambda: run(p))
+        _, again = run_counted(lambda: run(p))
+        with cache.disable_graphs():
+            want, eager = run_counted(lambda: run(p))
+        chi2 = float(got[2].chi2 if hasattr(got[2], "chi2") else got[2])
+        mem = kept_bytes() if on_card else None
+        rec = dict(shape=[p.num_poses, *p.obs_cam.shape], chi2_start=c0, chi2=chi2,
+                   first_call=first, replayed_call=again, eager_call=eager,
+                   bitwise_equal_to_eager=same_bits(got, want),
+                   memory_reserved_mb=mem / 2**20 if mem is not None else None)
+        emit(name, **rec)
+        if not (rec["bitwise_equal_to_eager"] and chi2 < c0):
+            raise AssertionError(f"{name}: graphed differs from eager or chi2 did not fall: "
+                                 f"{rec}")
+        del p, got, want
+
+    # The extrinsic calibration on a LiDAR scan, T_CAM_VELO perturbed.
+    from sqrtlm_slam_tpu_torch.eval import planeworld
+    from sqrtlm_slam_tpu_torch.geometry import se3
+
+    if scan is None:
+        world_s = planeworld.street_circuit_world(seed=0)
+        T0 = planeworld.circuit_trajectory(1, step=0.8, start_s=FUSION_START_S)[0][0]
+        scan = world_s.lidar_scan(T0, planeworld.T_CAM_VELO, n_azimuth=1800, noise_seed=0)
+    calls, T_true = calibration_graph_calls(scan, dev)
+    for name, (fn, a, k) in calls.items():
+        got, first = run_counted(lambda: fn(*a, **k))
+        _, again = run_counted(lambda: fn(*a, **k))
+        with cache.disable_graphs():
+            want, eager = run_counted(lambda: fn(*a, **k))
+        err = float(torch.linalg.norm(se3.local_delta(got.T, T_true)))
+        rec = dict(points=a[1].shape[0], plane_terms=bool(k), first_call=first,
+                   replayed_call=again, eager_call=eager, error_to_truth=err,
+                   bitwise_equal_to_eager=same_bits(got, want))
+        emit(name, **rec)
+        if not (rec["bitwise_equal_to_eager"] and err < 1e-3):
+            raise AssertionError(f"{name}: {rec}")
 
     # (b) Distributed LM in one process ---------------------------------------
     iters = 15
@@ -951,7 +1189,7 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None,
             raise AssertionError(f"distributed LM over {D} shards launched K2 {k2} / K3 {k3} "
                                  f"times, expected {D * iters} / {D * (iters + 1)}")
         if D == 4:
-            launches = dict(ba_assembly=k2, ba_chi2=k3)
+            launches = dict(ba_assembly=k2, ba_chi2=k3, cg_local_ba=cg_launches)
     # One flat step (tests/test_dist_ba.py's mu and gates), beside the float32
     # error of the single-device step itself (against it in float64).
     tf = facade.bucketed_to_flat(prob)
@@ -1089,6 +1327,7 @@ def wide_k_phase(kitti_frames=None, device: str = "cuda") -> dict:
     from sqrtlm_slam_tpu_torch.loop import LoopCloser, LoopClosingConfig
     from sqrtlm_slam_tpu_torch.loop.closing import gather_global_problem_bucketed
     from sqrtlm_slam_tpu_torch.mapstore import checkpoint
+    from sqrtlm_slam_tpu_torch.ops import hamming
     from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
     from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMappingConfig
     from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
@@ -1114,14 +1353,15 @@ def wide_k_phase(kitti_frames=None, device: str = "cuda") -> dict:
         widths.append(int(args[4].shape[1]))
         return assemble(*args, **kw)
 
-    assembly.launch_count = assembly.chi2_launch_count = 0
+    assembly.launch_count = assembly.chi2_launch_count = hamming.launch_count = 0
     assembly.assemble = spy
     try:
         system, secs, tracked = run_sequence(SlamSystem, cfg, kcam,
                                              [f for f, _ in kitti_frames], dev, time_from=3)
     finally:
         assembly.assemble = assemble
-    local_launches = {"ba_assembly": assembly.launch_count, "ba_chi2": assembly.chi2_launch_count}
+    local_launches = {"ba_assembly": assembly.launch_count, "ba_chi2": assembly.chi2_launch_count,
+                      "hamming": hamming.launch_count}
     ate, _ = ate_rmse(system.get_trajectory(), gt_cam_to_world([T for _, T in kitti_frames]),
                       align_scale=False)
     rec = dict(frames=len(kitti_frames), tracked=tracked, keyframes=system.num_keyframes(),
@@ -1444,6 +1684,39 @@ def pcg_designs(problem, cam, iters: int = 10) -> dict:
                 a_graph_memory_mb=a_graph_memory_mb)
 
 
+def init_and_ba_graph_calls(cam, scan) -> list:
+    """(row name, graphed function, args, kwargs) of the flat engine's and
+    the cg backend's local-BA graphs and the flat global loop on the bench
+    problem (96, 8192, 5; `eval/graph_calls.py`, 5 LM iterations a loop),
+    and of the calibration with and without plane terms on 4096 points of
+    `scan` (sensor frame) from T_CAM_VELO perturbed."""
+    import torch
+    from sqrtlm_slam_tpu_torch.eval import graph_calls, synthetic
+    from sqrtlm_slam_tpu_torch.optim import schur_bucketed
+
+    dev = torch.device("cuda", 0)
+    flat, _ = synthetic.make_ba_problem(seed=0, P=96, L=8192, stereo_frac=0.6,
+                                        obs_per_landmark=5)
+    calls = graph_calls.ba_calls(schur_bucketed.from_flat(flat, 5, device=dev), cam)
+    calls.update(calibration_graph_calls(scan, dev)[0])
+    return [(name, fn, a, k) for name, (fn, a, k) in calls.items()]
+
+
+def calibration_graph_calls(scan, dev):
+    """(`eval/graph_calls.py`'s calibration calls on 4096 points of `scan`
+    (sensor frame) from T_CAM_VELO perturbed, T_CAM_VELO as an SE3)."""
+    import torch
+    from sqrtlm_slam_tpu_torch.eval import graph_calls, planeworld
+    from sqrtlm_slam_tpu_torch.geometry import se3
+
+    pts = np.asarray(scan, np.float32)[:, :3]
+    pts = pts[np.random.RandomState(0).choice(len(pts), 4096, replace=False)]
+    T_cv = planeworld.T_CAM_VELO
+    T_true = se3.SE3(torch.as_tensor(T_cv[:3, :3], dtype=torch.float32, device=dev),
+                     torch.as_tensor(T_cv[:3, 3], dtype=torch.float32, device=dev))
+    return graph_calls.calibration_calls(torch.as_tensor(pts, device=dev), T_true), T_true
+
+
 def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
                  verification_calls=None, device: str = "cuda") -> dict:
     """18. The captured CUDA graphs of the entry points (`utils.cache`), also
@@ -1452,10 +1725,11 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
     phase 4's graphed system; each is made here when absent.
     (b) per path (RGB-D, stereo, monocular, fusion: frames 0-15; LiDAR
     odometry: scans 0-15), a system run graphed and one eagerly
-    (`disable_graphs`): ms per frame (median of frames 4-13), then frames
-    14-15 under torch.profiler (CUDA launches = kernel launches plus
-    `cudaGraphLaunch`, device ms, idle share) with graph captures, replays
-    and host reads per frame;
+    (`disable_graphs`; stereo, fusion and odometry eagerly over frames
+    0-9 only): ms per frame (median of frames 4 to the third last), then
+    the last 2 frames under torch.profiler (CUDA launches = kernel launches
+    plus `cudaGraphLaunch`, device ms, idle share) with graph captures,
+    replays and host reads per frame;
     (a) every captured function replayed against its eager run on the
     inputs of its last call in (b)'s graphed runs (KITTI size: 1226x370,
     2000 features, 64 x 1800-ray scans, phase 4's local-BA problem, the
@@ -1474,10 +1748,13 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
     problem and essential graph, the ring's at its loop, phase 14's chain;
     `make_loop_inputs` when absent) and relocalisation's and the Sim3
     verification's (`verification_calls`: the last calls of phases 9 and
-    11; `make_verification_calls` when absent): each replayed against its
-    eager run as in (a), the latter with their CUDA launches per call
-    replayed and eager (torch.profiler), and global BA's two PCG designs
-    timed on the two problems (`pcg_designs`).
+    11; `make_verification_calls` when absent), and the flat engine's,
+    the cg backend's local BA's and the calibration's
+    (`init_and_ba_graph_calls`: the bench problem, phase 10's first scan):
+    each replayed against its eager run as in (a), the verification's with
+    their CUDA launches per call replayed and eager (torch.profiler), and
+    global BA's two PCG designs timed on the two problems (`pcg_designs`).
+    (c) also compares (b)'s graphed and eager monocular runs.
     Returns K1 / K2 launches of (b)'s graphed runs."""
     import contextlib
 
@@ -1490,7 +1767,7 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
     from sqrtlm_slam_tpu_torch.lidar import odometry as odometry_mod
     from sqrtlm_slam_tpu_torch.ops import hamming
     from sqrtlm_slam_tpu_torch.optim import assembly
-    from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking, triangulation
+    from sqrtlm_slam_tpu_torch.pipeline import initializer, local_mapping, tracking, triangulation
     from sqrtlm_slam_tpu_torch.pipeline import system as system_mod
     from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
     from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackingConfig
@@ -1536,7 +1813,8 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
                 (odometry_mod, "align_scan"), (odometry_mod, "_retract_jit"),
                 (odometry_mod, "_local_delta_jit"), (triangulation, "match_and_triangulate"),
                 (local_mapping, "_project_and_match"),
-                (local_mapping, "_project_and_match_many"), (tracking, "track_frame_step")]
+                (local_mapping, "_project_and_match_many"), (tracking, "track_frame_step"),
+                (initializer, "_initialize_jit")]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr in recorded]
 
     def recorder(key, fn):
@@ -1574,19 +1852,23 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
     }
 
     def run_path(name, eager: bool):
+        # The eager stereo, fusion and odometry runs stop at 10 frames (timed
+        # 4-7, profiled 8-9): only (c)'s RGB-D and monocular runs are compared
+        # frame for frame, and an eager frame takes ~1 s.
         make, step = paths[name]
+        n_run = n_frames if not eager or name in ("rgbd", "mono") else 10
+        n_prof = n_frames - n_warm
         secs = []
         with cache.disable_graphs() if eager else contextlib.nullcontext():
             system = make()
-            for i in range(n_warm):
+            for i in range(n_run - n_prof):
                 t = time.perf_counter()
                 step(system, i)
                 sync()
                 secs.append(time.perf_counter() - t)
             utils.graph_captures = utils.graph_replays = utils.host_reads = 0
-            w = profile_window(lambda: [step(system, i) for i in range(n_warm, n_frames)])
-        n_prof = n_frames - n_warm
-        rec = dict(ms_per_frame=1e3 * float(np.median(secs[n_timed_from:])),
+            w = profile_window(lambda: [step(system, i) for i in range(n_run - n_prof, n_run)])
+        rec = dict(frames=n_run, ms_per_frame=1e3 * float(np.median(secs[n_timed_from:])),
                    first_frame_ms=1e3 * secs[0],
                    **{k: w[k] / n_prof for k in ("kernel_launches", "graph_launches",
                                                  "cuda_launches")},
@@ -1616,8 +1898,8 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
         k1, k2 = k1 + hamming.launch_count, k2 + assembly.launch_count
         systems[(name, "eager")], eager = run_path(name, eager=True)
         per_path[name] = dict(graphed=graphed, eager=eager)
-        emit("graphs_path", path=name, frames=n_frames, timed_frames=[n_timed_from, n_warm - 1],
-             profiled_frames=[n_warm, n_frames - 1], graphed=graphed, eager=eager,
+        emit("graphs_path", path=name, timed_from=n_timed_from, profiled_frames=n_frames - n_warm,
+             graphed=graphed, eager=eager,
              launches_ratio=eager["cuda_launches"] / max(graphed["cuda_launches"], 1e-9),
              ms_ratio=eager["ms_per_frame"] / graphed["ms_per_frame"])
         if not graphed["graph_replays_per_frame"] > 0:
@@ -1655,7 +1937,7 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
                  "build_frame_stereo", "extract_features", "stage_a", "stages_bc",
                  "stages_bc_fused", "bucketed_local_ba", "stage_a_both", "align_scan",
                  "retract", "local_delta", "match_and_triangulate", "project_and_match",
-                 "project_and_match_many"):
+                 "project_and_match_many", "initialize"):
         if name not in calls:
             raise AssertionError(f"{name} was never called in the graphed runs: {sorted(calls)}")
         fn, a, k = calls[name]
@@ -1698,6 +1980,13 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
          local_ba=systems[("rgbd", "graphed")].local_mapper.num_local_ba)
     if not rgbd_equal:
         raise AssertionError("the graphed and the eager RGB-D runs differ")
+    mono_g, mono_e = systems[("mono", "graphed")], systems[("mono", "eager")]
+    mono_equal = all(np.array_equal(x, y) for x, y in zip(state(mono_g), state(mono_e)))
+    emit("graphs_mono_graphed_vs_eager", frames=n_frames, bitwise_equal=mono_equal,
+         keyframes=mono_g.num_keyframes(), landmarks=mono_g.num_landmarks(),
+         local_ba=mono_g.local_mapper.num_local_ba)
+    if not mono_equal:
+        raise AssertionError("the graphed and the eager monocular runs differ")
 
     # (d) stage A: three graphs and a read (sync mode), or stage A at both
     # radii in one graph and no read (pipelined mode) ----------------------
@@ -1736,7 +2025,8 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
             verification_calls = make_verification_calls(frames, kcam)
         verification = [(VERIFICATION_ROWS[attr], fn, a, k)
                         for attr, (fn, a, k) in verification_calls.items()]
-        for name, fn, a, k in loop_graph_calls(loop_inputs, bench_cam) + verification:
+        for name, fn, a, k in (loop_graph_calls(loop_inputs, bench_cam) + verification
+                               + init_and_ba_graph_calls(bench_cam, f_frames[0][1])):
             with cache.disable_graphs():
                 want = fn(*a, **k)
                 eager_ms = wall_ms(lambda: fn(*a, **k), n=3)
@@ -2803,14 +3093,44 @@ def main() -> None:
             two_view(*inits[0]["args"], **dict(inits[0]["kwargs"], generator=gen))
             torch.cuda.synchronize()
             warm_ms.append(1e3 * (time.perf_counter() - t))
+    # The initializer graphed (its capture made by the run's first call)
+    # against its eager body on the same inputs and draws; one call of each
+    # under torch.profiler; a fresh process that runs only the monocular
+    # path up to the initialization.
+    init_cmp, init_frame = {}, inits[0]["frame"] if inits else None
+    if inits:
+        a0, k0 = inits[0]["args"], inits[0]["kwargs"]
+
+        def init_call(seed=0):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return two_view(*a0, **dict(k0, generator=gen))
+
+        g_out, g_cnt = run_counted(init_call)
+        w_g = profile_window(init_call)
+        with cache.disable_graphs():
+            e_out, e_cnt = run_counted(init_call)
+            e_ms = wall_ms(init_call, n=5)
+            w_e = profile_window(init_call)
+        solver = sorted(n for n in w_g["kernel_names"] | w_e["kernel_names"]
+                        if any(t in n.lower() for t in ("svd", "gesdd", "syevj", "cusolver",
+                                                        "getrf", "potrf", "magma")))
+        init_cmp = dict(
+            bitwise_equal_to_eager=same_bits(g_out, e_out), replayed_call=g_cnt,
+            eager_call=e_cnt, eager_ms_warm=e_ms,
+            cuda_launches=dict(replay=w_g["cuda_launches"], eager=w_e["cuda_launches"]),
+            device_ms=dict(replay=w_g["device_ms"], eager=w_e["device_ms"]),
+            solver_kernels=solver,
+            init_frame_ms=1e3 * mono_secs[init_frame],
+            fresh_process=mono_fresh_subprocess([img for img, _ in frames[:init_frame + 1]]))
     emit("mono_kitti", frames=len(frames), tracked=mono_tracked, keyframes=mono.num_keyframes(),
          landmarks=mono.num_landmarks(), local_ba=mono.local_mapper.num_local_ba,
          init_attempts=[{k: c[k] for k in ("frame", "success", "used_homography", "ms")}
                         for c in init_calls],
-         init_frame=inits[0]["frame"] if inits else None,
+         init_frame=init_frame,
          used_homography=inits[0]["used_homography"] if inits else None,
          initialize_two_view_ms_cold=init_calls[0]["ms"] if init_calls else None,
          initialize_two_view_ms_warm=float(np.median(warm_ms)) if warm_ms else None,
+         initializer_graph=init_cmp,
          ate_sim3_m=mono_ate, median_ms=1e3 * float(np.median(mono_secs[5:])),
          max_ms=1e3 * float(np.max(mono_secs[5:])), launches=mono_launches,
          kernel_launches_per_frame={k: v / len(frames) for k, v in mono_launches.items()},
@@ -2824,6 +3144,16 @@ def main() -> None:
         raise AssertionError(f"mono Sim3-aligned ATE {mono_ate} m >= 0.4 m")
     if mono_launches["hamming"] <= 0:
         raise AssertionError("mono: K1 never launched")
+    if not init_cmp.get("bitwise_equal_to_eager"):
+        raise AssertionError(f"mono: the initializer's replay differs from its eager body: "
+                             f"{init_cmp}")
+    if init_cmp["replayed_call"]["graph_replays"] != 1 or init_cmp["replayed_call"]["host_reads"]:
+        raise AssertionError(f"mono: the initializer did not replay one graph without a read: "
+                             f"{init_cmp}")
+    if any("svd" in n.lower() or "gesdd" in n.lower() for n in init_cmp["solver_kernels"]):
+        raise AssertionError(f"mono: the initializer ran an SVD kernel: {init_cmp}")
+    if not init_cmp["fresh_process"]["initialized"]:
+        raise AssertionError(f"mono: the fresh process did not initialize: {init_cmp}")
     del mono, init_calls
 
     # 14. Standalone LiDAR odometry on the fusion scans --------------------
@@ -2972,8 +3302,12 @@ def main() -> None:
     runner_launches = runner["sync"]["launches"]
 
     # 16. The flat engine and distributed BA --------------------------------
+    backend_poses = synthetic.forward_trajectory(BACKEND_FRAMES, step=0.3)  # phase 4's, on
+    backend_frames = list(zip(frames, poses)) + [
+        (world.render(T, kcam, H=KITTI_H, W=KITTI_W), T) for T in backend_poses[len(poses):]]
     dist_launches = flat_and_distributed_phase(
-        kitti_frames=list(zip(frames[:10], poses[:10])), scale_problem=scale_problem)
+        kitti_frames=backend_frames, scale_problem=scale_problem,
+        ring_problem=loop_inputs.get("p_ring"), scan=f_frames[0][1])
     del scale_problem
 
     # 17. More than 16 slots per landmark: local BA and global BA ----------
@@ -2999,6 +3333,8 @@ def main() -> None:
                                    stereo=stereo_launches["hamming"],
                                    mono=mono_launches["hamming"],
                                    kitti_runner=runner_launches["hamming"],
+                                   cg_local_ba=dist_launches["cg_local_ba"]["hamming"],
+                                   local_ba_obs_cap_24=wide_launches["local_ba"]["hamming"],
                                    graphs_paths=graph_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
@@ -3013,6 +3349,7 @@ def main() -> None:
                                    mono=mono_launches["ba_assembly"],
                                    kitti_runner=runner_launches["ba_assembly"],
                                    dist_ba=dist_launches["ba_assembly"],
+                                   cg_local_ba=dist_launches["cg_local_ba"]["ba_assembly"],
                                    local_ba_obs_cap_24=wide_launches["local_ba"]["ba_assembly"],
                                    gba_obs_per_landmark_32=wide_launches["gba"]["ba_assembly"],
                                    graphs_paths=graph_launches["ba_assembly"]),
@@ -3026,6 +3363,7 @@ def main() -> None:
                                    ring_loop=loop_launches["ba_chi2"],
                                    kitti_runner=runner_launches["ba_chi2"],
                                    dist_ba=dist_launches["ba_chi2"],
+                                   cg_local_ba=dist_launches["cg_local_ba"]["ba_chi2"],
                                    gba_obs_per_landmark_32=wide_launches["gba"]["ba_chi2"]),
              max_abs_err=k3_err,
              **timed(k3[(600, 120000, 7, 2.447)]), library_ms=None),

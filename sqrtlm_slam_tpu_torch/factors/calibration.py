@@ -6,7 +6,11 @@ corresponding features, a LiDAR point ``p_l`` landing on its camera-frame
 target after ``x_c = T p_l``. Residuals (batched, masked):
   * point-to-point:  r = T p_l - q_c       (3,)
   * point-to-plane:  r = n . (T p_l) + d   (1,)
-Plain PyTorch: a fixed number of 6x6 normal-equation solves.
+Plain PyTorch: a fixed number of 6x6 normal-equation solves (`solve_ex`:
+`solve`'s bits without its host error check). On the card the whole
+refinement is one captured CUDA graph (`utils.cache`, the JAX package's jit
+with `num_iters` static); whether the plane terms are given is part of its
+key.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..geometry import se3, so3
+from ..utils import cache
 
 
 def _dxc_ddelta(x_c: torch.Tensor) -> torch.Tensor:
@@ -74,6 +79,12 @@ def calibrate_extrinsics(
             chi2 = chi2 + torch.sum(wp * rp * rp)
         lam = damping * torch.clamp(torch.max(torch.abs(torch.diagonal(H))), min=1e-12)
         eye = torch.eye(6, dtype=H.dtype, device=H.device)
-        dx = torch.linalg.solve(H + lam * eye, -b)
+        dx = torch.linalg.solve_ex(H + lam * eye, -b)[0]
         T = se3.retract(T, dx)
     return CalibResult(T=T, chi2=chi2)
+
+
+# One capture a point count and plane presence; a calibration is run on one
+# set of points, with or without planes: the two newest captures are kept.
+calibrate_extrinsics = cache.graphed(calibrate_extrinsics,
+                                     static_argnames=("num_iters", "damping"), max_entries=2)

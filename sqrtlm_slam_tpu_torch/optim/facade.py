@@ -97,19 +97,21 @@ class Optimizer:
 
 def _local_ba_cg(problem: schur_bucketed.BucketedBAProblem, cam, first_iters: int,
                  second_iters: int):
-    """Local-BA protocol on the matrix-free CG step (backend="cg"). It runs
-    op by op (`graphed=False`): a local window's camera plan has new shapes
-    at every call, so a capture would serve a few iterations only, and it
-    would evict global BA's captures (they keep one key a graph)."""
+    """Local-BA protocol on the matrix-free CG step (backend="cg"). Each LM
+    iteration replays local BA's own three graphs
+    (`schur_bucketed.LOCAL_GRAPHS`: global BA's captures stay), on a padded
+    camera plan (every pose of the window, a bucketed width: one capture
+    serves successive windows)."""
     delta2 = math.sqrt(losses.CHI2_2DOF)
-    problem, _, _ = schur_bucketed.ba_iterate_cg(problem, cam, problem.obs_valid, first_iters,
-                                                 robust_delta=delta2, graphed=False)
+    local = schur_bucketed.LOCAL_GRAPHS
+    problem, _, _ = schur_bucketed._ba_iterate_cg(problem, cam, problem.obs_valid, first_iters,
+                                                  delta2, 100, local)
     is_stereo = problem.obs_uvr[..., 2] >= 0.0
     gate = torch.where(is_stereo, losses.CHI2_3DOF, losses.CHI2_2DOF)
     e2, z = schur_bucketed.edge_chi2_and_depth(problem, cam)
     active = problem.obs_valid & (e2 <= gate) & (z > 0)
-    problem, chi2, _ = schur_bucketed.ba_iterate_cg(problem, cam, active, second_iters,
-                                                    robust_delta=None, graphed=False)
+    problem, chi2, _ = schur_bucketed._ba_iterate_cg(problem, cam, active, second_iters, None,
+                                                     100, local)
     e2, z = schur_bucketed.edge_chi2_and_depth(problem, cam)
     survivors = problem.obs_valid & (e2 <= gate) & (z > 0)
     return problem, survivors, chi2

@@ -31,7 +31,12 @@ candidate and the gain-ratio test. They are replayed for every iteration of
 every `global_ba_cg` call of one run (the camera plan, whose build reads the
 device once, is made per call outside the graphs). The PCG stops as the JAX
 package's `while_loop` does: a done mask freezes its iterates, and the host
-reads the done flag between chunks to leave early.
+reads the done flag between chunks to leave early. The cg backend's local
+BA (`facade.Optimizer("cg")`) replays instances of the same three graphs
+of its own (`LOCAL_GRAPHS`), and the flat engine's `schur.ba_iterate_cg`
+three graphs of its engine, through the same LM loop (`lm_cg_loop`). The
+camera plan is padded (`segment.segment_plan(..., pad=True)`), so that its
+shape depends on the pose count and the width's bucket alone.
 The preconditioner's block inverses are `torch.linalg.inv_ex` (`inv`'s
 bits without its host error check): nothing on this path checks a
 factorisation on the host.
@@ -40,7 +45,7 @@ factorisation on the host.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -448,8 +453,10 @@ def camera_groups(problem: BucketedBAProblem, active) -> segment.KeyGroups:
 def pose_plan(problem: BucketedBAProblem, active) -> segment.SegmentPlan:
     """Camera grouping of the active slots (the only slots whose U is
     nonzero), with its compressed form for K2 (`.groups`). Depends on the
-    observation graph alone: built once per LM loop (one host read)."""
-    return segment.segment_plan(problem.obs_cam, problem.num_poses, keep=active)
+    observation graph alone: built once per LM loop (one host read).
+    Padded: every camera listed, the width bucketed, so that a local
+    window's plan has the shape of the pose cap and the width's bucket."""
+    return segment.segment_plan(problem.obs_cam, problem.num_poses, keep=active, pad=True)
 
 
 def _pose_accumulate(plan: segment.SegmentPlan, X: torch.Tensor) -> torch.Tensor:
@@ -573,20 +580,6 @@ def _pcg_run(chunk, s: PCGState, max_iters: int, check_every: int) -> PCGState:
     return s
 
 
-def _pcg(matvec, b, Minv_blocks, pose_fixed, max_iters: int, tol: float):
-    """Block-Jacobi preconditioned CG on the reduced camera system; stops at
-    ||r|| <= tol ||b|| or after `max_iters`.
-
-    The JAX package runs a device-side `lax.while_loop`. Here a done flag
-    freezes x, r, p and rz on the device as soon as the stop test holds, so
-    the iterates are exactly the while loop's; the host reads the flag only
-    every `PCG_CHECK_EVERY` iterations to leave the loop early (one host
-    read per check, counted by `utils.host_reads`). Returns (x, iterations)."""
-    s = _pcg_run(lambda st, steps: _pcg_iterations(matvec, Minv_blocks, st, steps),
-                 _pcg_start(b, Minv_blocks, pose_fixed, tol), max_iters, PCG_CHECK_EVERY)
-    return s.x, s.n
-
-
 class CGHead(NamedTuple):
     """An LM iteration's matrix-free system, ready for the PCG."""
 
@@ -666,10 +659,17 @@ def _lm_tail(problem: BucketedBAProblem, ctx: CGContext, x, chi2, mu, nu, active
     """Back-substitution, the candidate, K3 at the candidate and the gain-ratio
     test (global BA's third graph)."""
     dxp, dxl = _cg_back_substitute(problem, ctx, x)
+    return lm_test(problem, dxp, dxl, chi2, mu, nu, ctx.bp, ctx.bl,
+                   lambda c: chi2_only(c, cam, active, robust_delta))
+
+
+def lm_test(problem, dxp, dxl, chi2, mu, nu, bp, bl, chi2_at: Callable) -> LMState:
+    """The candidate, its chi2 (`chi2_at(candidate)`) and the gain-ratio
+    test: the end of an LM iteration's last graph, in both engines."""
     candidate = _apply_update(problem, dxp, dxl)
-    chi2_c = chi2_only(candidate, cam, active, robust_delta)
-    accept, prob, mu, nu = _lm_accept(problem, candidate, chi2, chi2_c, dxp, dxl, ctx.bp,
-                                      ctx.bl, mu, nu)
+    chi2_c = chi2_at(candidate)
+    accept, prob, mu, nu = _lm_accept(problem, candidate, chi2, chi2_c, dxp, dxl, bp, bl,
+                                      mu, nu)
     return LMState(prob.pose_R, prob.pose_t, prob.points, torch.where(accept, chi2_c, chi2),
                    mu, nu, accept)
 
@@ -682,49 +682,108 @@ _cg_head_jit = cache.graphed(_cg_head, static_argnames=("cam", "robust_delta", "
 _pcg_chunk_jit = cache.graphed(_pcg_chunk, static_argnames=("steps",), max_entries=1)
 _lm_tail_jit = cache.graphed(_lm_tail, static_argnames=("cam", "robust_delta"),
                              max_entries=1)
+# The cg backend's local BA (`facade.Optimizer("cg")`) replays graphs of its
+# own, so that local and global BA never evict each other's captures. Its
+# windows have the shapes of `LocalMappingConfig` and a padded camera plan:
+# a key per phase (robust and not) and camera-width bucket. A 40-frame
+# KITTI-size run's 6 windows made at most 2 keys a graph, all in the first
+# window (chip_smoke.py phase 16); the bound leaves room for one bucket
+# crossing, as the flat engine's plans made in that run
+# (`schur.LOCAL_CAPTURES`).
+LOCAL_CG_CAPTURES = 4
+_local_cg_head_jit = cache.graphed(_cg_head, static_argnames=("cam", "robust_delta", "tol"),
+                                   max_entries=LOCAL_CG_CAPTURES)
+_local_pcg_chunk_jit = cache.graphed(_pcg_chunk, static_argnames=("steps",),
+                                     max_entries=LOCAL_CG_CAPTURES)
+_local_lm_tail_jit = cache.graphed(_lm_tail, static_argnames=("cam", "robust_delta"),
+                                   max_entries=LOCAL_CG_CAPTURES)
+GLOBAL_GRAPHS = (_cg_head_jit, _pcg_chunk_jit, _lm_tail_jit)
+LOCAL_GRAPHS = (_local_cg_head_jit, _local_pcg_chunk_jit, _local_lm_tail_jit)
+
+
+class CGSteps(NamedTuple):
+    """One engine's LM iteration on the PCG step as three calls, each a
+    captured graph on the card: `head(problem, mu)` builds the damped
+    system and the PCG's start (a `CGHead`), `chunk(problem, head, state,
+    steps)` runs `steps` PCG iterations, and `tail(problem, head, x, chi2,
+    mu, nu)` back-substitutes and tests the step (an `LMState`)."""
+
+    head: Callable
+    chunk: Callable
+    tail: Callable
+
+
+def lm_cg_step(steps: CGSteps, problem, chi2, mu, nu, cg_iters: int) -> LMState:
+    """One LM iteration: the head, `steps.chunk` replayed once every
+    `PCG_CHECK_EVERY` PCG iterations until the done flag reads true (or
+    `cg_iters`), and the tail."""
+    head = steps.head(problem, mu)
+    s = _pcg_run(lambda st, n: steps.chunk(problem, head, st, n), head.pcg, cg_iters,
+                 PCG_CHECK_EVERY)
+    return steps.tail(problem, head, s.x, chi2, mu, nu)
+
+
+def lm_cg_loop(steps: CGSteps, problem, chi2, num_iters: int, cg_iters: int):
+    """The LM loop on the PCG step of both engines: `num_iters` iterations
+    from `chi2` (the start's), mu = 1e-3 and nu = 2 (Nielsen). Returns
+    (problem, chi2, accepted count)."""
+    mu = torch.full_like(chi2, 1e-3)
+    nu = torch.full_like(chi2, 2.0)
+    n_acc = torch.zeros((), dtype=torch.int32, device=chi2.device)
+    for _ in range(num_iters):
+        s = lm_cg_step(steps, problem, chi2, mu, nu, cg_iters)
+        problem = problem._replace(pose_R=s.pose_R, pose_t=s.pose_t, points=s.points)
+        chi2, mu, nu = s.chi2, s.mu, s.nu
+        n_acc = n_acc + s.accept.to(torch.int32)
+    return problem, chi2, n_acc
+
+
+def _cg_steps(graphs: tuple, active, plan: segment.SegmentPlan, cam: reproj.Camera,
+              robust_delta) -> CGSteps:
+    """This engine's `CGSteps` through `graphs` (`GLOBAL_GRAPHS` or
+    `LOCAL_GRAPHS`) with the inexact-Newton forcing term 1e-2: the LM gate
+    bounds step quality."""
+    head, chunk, tail = graphs
+    return CGSteps(
+        head=lambda prob, mu: head(prob, active, mu, plan, cam=cam, robust_delta=robust_delta,
+                                   tol=1e-2),
+        chunk=lambda prob, h, s, n: chunk(h.ctx, h.Mp, prob.obs_cam, prob.pose_fixed, plan, s,
+                                          steps=n),
+        tail=lambda prob, h, x, chi2, mu, nu: tail(prob, h.ctx, x, chi2, mu, nu, active,
+                                                   cam=cam, robust_delta=robust_delta))
 
 
 def _lm_step(problem: BucketedBAProblem, chi2, mu, nu, active, plan: segment.SegmentPlan,
-             cam: reproj.Camera, robust_delta, cg_iters: int, graphed: bool) -> LMState:
+             cam: reproj.Camera, robust_delta, cg_iters: int, graphs: tuple) -> LMState:
     """One LM iteration of global BA with the forcing term 1e-2: K2 (through
     `_cg_context`), the PCG, the update, K3 at the candidate and the
-    gain-ratio test. The counterpart of one step of the `lax.scan` that the
-    JAX package's `_global_ba_cg_jit` (`optim/schur_bucketed.py`) compiles.
-    With `graphed`, three graphs (eager on the CPU): `_cg_head_jit`,
-    `_pcg_chunk_jit` replayed once every `PCG_CHECK_EVERY` PCG iterations
-    until the done flag reads true, and `_lm_tail_jit`."""
-    head_fn, chunk_fn, tail_fn = ((_cg_head_jit, _pcg_chunk_jit, _lm_tail_jit) if graphed
-                                  else (_cg_head, _pcg_chunk, _lm_tail))
-    head = head_fn(problem, active, mu, plan, cam=cam, robust_delta=robust_delta, tol=1e-2)
-    s = _pcg_run(lambda st, steps: chunk_fn(head.ctx, head.Mp, problem.obs_cam,
-                                            problem.pose_fixed, plan, st, steps=steps),
-                 head.pcg, cg_iters, PCG_CHECK_EVERY)
-    return tail_fn(problem, head.ctx, s.x, chi2, mu, nu, active, cam=cam,
-                   robust_delta=robust_delta)
+    gain-ratio test, through `graphs` (`GLOBAL_GRAPHS` or `LOCAL_GRAPHS`;
+    eager on the CPU). The counterpart of one step of the `lax.scan` that
+    the JAX package's `_global_ba_cg_jit` (`optim/schur_bucketed.py`)
+    compiles."""
+    return lm_cg_step(_cg_steps(graphs, active, plan, cam, robust_delta), problem, chi2, mu,
+                      nu, cg_iters)
 
 
 def ba_iterate_cg(problem: BucketedBAProblem, cam: reproj.Camera, active, num_iters: int,
-                  robust_delta: Optional[float], cg_iters: int = 100, graphed: bool = True
+                  robust_delta: Optional[float], cg_iters: int = 100
                   ) -> Tuple[BucketedBAProblem, torch.Tensor, torch.Tensor]:
     """LM loop on the matrix-free PCG step (whole-map scale). One K2 launch
     per iteration builds the step; the accept test compares K3's chi2 at
     the candidate with K3's chi2 at the current state. The camera plan is
-    built once per call (one host read); each iteration is `_lm_step`,
-    through global BA's graphs unless `graphed` is False."""
-    chi2 = chi2_only(problem, cam, active, robust_delta)
-    dtype, dev = chi2.dtype, chi2.device
-    mu = torch.full((), 1e-3, dtype=dtype, device=dev)
-    nu = torch.full((), 2.0, dtype=dtype, device=dev)
-    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
-    plan = pose_plan(problem, active)
-    prob = problem
-    for _ in range(num_iters):
-        # Inexact-Newton forcing term 1e-2: the LM gate bounds step quality.
-        s = _lm_step(prob, chi2, mu, nu, active, plan, cam, robust_delta, cg_iters, graphed)
-        prob = prob._replace(pose_R=s.pose_R, pose_t=s.pose_t, points=s.points)
-        chi2, mu, nu = s.chi2, s.mu, s.nu
-        n_acc = n_acc + s.accept.to(torch.int32)
-    return prob, chi2, n_acc
+    built once per call (one host read); each iteration is `lm_cg_step`
+    through global BA's graphs."""
+    return _ba_iterate_cg(problem, cam, active, num_iters, robust_delta, cg_iters,
+                          GLOBAL_GRAPHS)
+
+
+def _ba_iterate_cg(problem: BucketedBAProblem, cam: reproj.Camera, active, num_iters: int,
+                   robust_delta: Optional[float], cg_iters: int, graphs: tuple):
+    """`ba_iterate_cg` through `graphs` (the cg backend's local BA passes
+    `LOCAL_GRAPHS`)."""
+    steps = _cg_steps(graphs, active, pose_plan(problem, active), cam, robust_delta)
+    return lm_cg_loop(steps, problem, chi2_only(problem, cam, active, robust_delta), num_iters,
+                      cg_iters)
 
 
 def global_ba_cg(problem: BucketedBAProblem, cam: reproj.Camera, num_iters: int = 20):

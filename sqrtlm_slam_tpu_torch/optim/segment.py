@@ -14,6 +14,19 @@ fixed order on every device and every run.
 `key_groups` is the same grouping in compressed form, built without a host
 read: each key's rows in their order in the data, one run per key. Kernels
 that walk one key's members read it (K2's camera pass).
+
+A padded plan (`segment_plan(..., pad=True)`) lists every key and rounds
+its width up to a power of two, so that its shapes depend on the key count
+and the width's bucket alone: one captured graph then serves the local BA
+windows of successive keyframes. The pad entries add zero rows; a padded
+sum is the unpadded one but for the order of the additions (on every
+device: the eager body and its graph read the same table). The BA engines'
+plans are all padded (`schur.edge_plans`, `schur_bucketed.pose_plan`),
+local and global alike. The pose graphs' block plans (`loop/essential_graph`,
+`lidar/backend`) are not: their keys are (row, col) block pairs of K
+vertices, K * K keys of which only the edges' are present, and listing
+every one would gather K * K rows (360,000 at 600 keyframes) where the
+present ones are a few thousand.
 """
 
 from __future__ import annotations
@@ -59,15 +72,23 @@ def key_groups(keys: torch.Tensor, num_keys: int,
     return KeyGroups(offsets=offsets.to(torch.int32), members=order.to(torch.int32))
 
 
+def bucket(width: int) -> int:
+    """`width` rounded up to a power of two (at least 1)."""
+    return 1 << max(width - 1, 0).bit_length()
+
+
 def segment_plan(keys: torch.Tensor, num_keys: int,
-                 keep: Optional[torch.Tensor] = None) -> SegmentPlan:
+                 keep: Optional[torch.Tensor] = None, pad: bool = False) -> SegmentPlan:
     """Group the rows of a flat (n,) key vector; rows with keep False (or a
     key outside [0, num_keys)) belong to no key. One host read (the largest
-    group size)."""
+    group size). With `pad`, every key is listed and the width is
+    `bucket`ed (see the module docstring)."""
     k, order = _sort_keys(keys, num_keys, keep)
     n = k.shape[0]
     counts = torch.bincount(k, minlength=num_keys + 1)[:num_keys]
     width = max(int(to_host(counts.max())) if num_keys else 0, 1)
+    if pad:
+        width = bucket(width)
     starts = torch.cumsum(counts, 0) - counts
     k_sorted = k[order]
     member = k_sorted < num_keys
@@ -75,10 +96,14 @@ def segment_plan(keys: torch.Tensor, num_keys: int,
     rank = torch.arange(k_m.shape[0], device=k.device) - starts[k_m]
     table = torch.full((num_keys, width), n, dtype=torch.long, device=k.device)
     table[k_m, rank] = rows
-    present = torch.nonzero(counts > 0).reshape(-1)
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
+    groups = KeyGroups(offsets=offsets, members=order.to(torch.int32))
+    if pad:
+        return SegmentPlan(keys=torch.arange(num_keys, device=k.device), idx=table, n=n,
+                           num_keys=num_keys, groups=groups)
+    present = torch.nonzero(counts > 0).reshape(-1)
     return SegmentPlan(keys=present, idx=table[present], n=n, num_keys=num_keys,
-                       groups=KeyGroups(offsets=offsets, members=order.to(torch.int32)))
+                       groups=groups)
 
 
 def segment_sum(plan: SegmentPlan, data: torch.Tensor) -> torch.Tensor:
@@ -86,6 +111,8 @@ def segment_sum(plan: SegmentPlan, data: torch.Tensor) -> torch.Tensor:
     without members get zeros."""
     pad = torch.zeros((1,) + data.shape[1:], dtype=data.dtype, device=data.device)
     sums = torch.sum(torch.cat([data, pad])[plan.idx], dim=1)
+    if plan.keys.shape[0] == plan.num_keys:  # every key listed, in order (a padded plan)
+        return sums
     out = torch.zeros((plan.num_keys,) + data.shape[1:], dtype=data.dtype,
                       device=data.device)
     out[plan.keys] = sums

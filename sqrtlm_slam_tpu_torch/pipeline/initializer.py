@@ -14,16 +14,29 @@ matches' device:
     8 of the homography's SVD decomposition, each cheirality-checked by
     batched DLT triangulation at once.
 
-The null vector of each (8, 9) system is the last right singular vector of
-the system padded with a zero row to (9, 9) (a square batched SVD; the
-padding keeps the null space). Its sign is arbitrary, and F and -F score
-alike. Singular homography hypotheses are inverted with `inv_ex`: no error
-check (no host read), and their non-finite transfer errors fail the gates.
+The SVDs are `geometry/jacobi.py`'s, on every device (`torch.linalg.svd`
+reads its convergence on the card, and a captured graph holds no read): the
+null vector of each (8, 9) minimal system and of the tall masked refits
+(one-sided Jacobi on the system itself), and `svd3` for the rank-2
+projection and the E / H decompositions, with `det3` for their
+determinants. The refits' null vectors and the decompositions are computed
+in float64 and rounded back: in float32 the motion moved by a few ulps
+from LAPACK's, and points on the parallax gate changed sides (2 of 210 in
+tests/test_torch_mono.py's scene against the JAX package, 1 in float64,
+none with LAPACK). A null vector's sign is arbitrary, and F and -F score
+alike. Singular homography hypotheses are inverted with `inv_ex`: no
+error check (no host read), and their non-finite transfer errors fail the
+gates.
 
-The minimal sets are a masked Gumbel top-k drawn from an explicit
-`torch.Generator` (`ransac.minimal_sets`), or given by the caller as
-`sel_F` (H, 8) / `sel_H` (H, 4), which lets a parity test score the JAX
-package's own draws.
+The minimal sets are a masked Gumbel top-k of uniforms drawn from an
+explicit `torch.Generator`, or given by the caller as `sel_F` (H, 8) /
+`sel_H` (H, 4), which lets a parity test score the JAX package's own draws.
+On the card the whole initializer is one captured CUDA graph
+(`_initialize_jit`, the JAX package's jit): `initialize_two_view` draws the
+uniforms outside it, F's then H's (the eager order of `ransac.minimal_sets`,
+so a graphed call consumes the eager call's generator stream), and
+`ransac.top_k_sets` runs inside. Calls given `sel_F` or `sel_H` run
+eagerly.
 """
 
 from __future__ import annotations
@@ -32,9 +45,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..algorithm.ransac import minimal_sets
+from ..algorithm.ransac import row, top_k_sets
 from ..factors.reprojection import Camera
-from ..geometry import se3
+from ..geometry import jacobi, se3
+from ..utils import cache
 from .triangulation import _K, _dlt_triangulate
 
 CHI2_F = 3.841  # 1-dof gate (point-line)
@@ -86,16 +100,23 @@ def _h_rows(x1n, x2n):
 
 
 def _null_vector(A: torch.Tensor) -> torch.Tensor:
-    """(..., 8, 9) -> (..., 3, 3): the right singular vector of the smallest
-    singular value, from the square system padded with a zero row."""
-    A9 = torch.cat([A, torch.zeros_like(A[..., :1, :])], dim=-2)
-    return torch.linalg.svd(A9).Vh[..., -1, :].reshape(A.shape[:-2] + (3, 3))
+    """(..., m, 9) -> (..., 3, 3): the right singular vector of the smallest
+    singular value (Jacobi on A itself; no zero-row padding is needed: the
+    (8, 9) minimal systems give W a zero column)."""
+    return jacobi.null_vector(A).reshape(A.shape[:-2] + (3, 3))
+
+
+def _refit_null_vector(A: torch.Tensor) -> torch.Tensor:
+    """`_null_vector` of a tall refit system (thousands of rows), computed
+    in float64 and rounded back: the float32 system's null vector to its
+    rounding, the target LAPACK's float32 SVD nearly reaches."""
+    return _null_vector(A.double()).to(A.dtype)
 
 
 def _rank2(F: torch.Tensor) -> torch.Tensor:
-    U, D, Vh = torch.linalg.svd(F)
+    U, D, V = jacobi.svd3(F)
     D = torch.cat([D[..., :2], torch.zeros_like(D[..., 2:])], dim=-1)
-    return U @ (D[..., :, None] * Vh)
+    return U @ (D[..., :, None] * V.mT)
 
 
 def _eight_point_F(x1n, x2n):
@@ -112,15 +133,14 @@ def _four_point_H(x1n, x2n):
 def _fit_F_masked(x1n, x2n, mask):
     """LS 8-point fit over all inlier rows (masked-out rows zeroed)."""
     A = _f_rows(x1n, x2n) * mask[:, None].to(x1n.dtype)
-    Vh = torch.linalg.svd(A, full_matrices=False).Vh
-    return _rank2(Vh[-1].reshape(3, 3))
+    return _rank2(_refit_null_vector(A))
 
 
 def _fit_H_masked(x1n, x2n, mask):
     """LS DLT homography fit over all inlier rows."""
     m = mask.to(x1n.dtype)
     A = _h_rows(x1n, x2n) * torch.cat([m, m])[:, None]
-    return torch.linalg.svd(A, full_matrices=False).Vh[-1].reshape(3, 3)
+    return _refit_null_vector(A)
 
 
 def _apply(M: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
@@ -198,25 +218,30 @@ def _check_RT(R, t, x1, x2, valid, cam: Camera, sigma2=4.0):
 
 
 def _decompose_E(E):
-    """E -> 4 (R, t) candidates: (4, 3, 3), (4, 3)."""
-    U, _, Vh = torch.linalg.svd(E)
-    U = U * torch.sign(torch.linalg.det(U))
-    Vh = Vh * torch.sign(torch.linalg.det(Vh))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=E.dtype,
-                     device=E.device)
+    """E -> 4 (R, t) candidates: (4, 3, 3), (4, 3), computed in float64 and
+    rounded back to E's dtype."""
+    dtype, E = E.dtype, E.double()
+    U, _, V = jacobi.svd3(E)
+    U = U * torch.sign(jacobi.det3(U))
+    Vh = V.mT * torch.sign(jacobi.det3(V))
+    eye = torch.eye(3, dtype=E.dtype, device=E.device)
+    W = torch.stack([-eye[1], eye[0], eye[2]])  # [[0, -1, 0], [1, 0, 0], [0, 0, 1]]
     R1 = U @ W @ Vh
     R2 = U @ W.T @ Vh
     t = U[:, 2]
     t = t / torch.clamp(torch.linalg.norm(t), min=1e-9)
-    return torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
+    return torch.stack([R1, R1, R2, R2]).to(dtype), torch.stack([t, -t, t, -t]).to(dtype)
 
 
 def _decompose_H(H, K):
     """Faugeras SVD homography decomposition -> 8 (R, t) candidates:
-    (8, 3, 3), (8, 3); the d' = d2 case first, then d' = -d2."""
-    A = torch.linalg.inv_ex(K)[0] @ H @ K
-    U, w, Vh = torch.linalg.svd(A)
-    s = torch.linalg.det(U) * torch.linalg.det(Vh)
+    (8, 3, 3), (8, 3); the d' = d2 case first, then d' = -d2. K^-1 H K in
+    H's dtype, the rest in float64, rounded back."""
+    dtype = H.dtype
+    A = (torch.linalg.inv_ex(K)[0] @ H @ K).double()
+    U, w, V = jacobi.svd3(A)
+    Vh = V.mT
+    s = jacobi.det3(U) * jacobi.det3(V)
     d1, d2, d3 = w[0], w[1], w[2]
     den = torch.clamp(d1 * d1 - d3 * d3, min=1e-12)
     aux1 = torch.sqrt(torch.clamp((d1 * d1 - d2 * d2) / den, min=0.0))
@@ -224,8 +249,8 @@ def _decompose_H(H, K):
     x1s = torch.stack([aux1, aux1, -aux1, -aux1])
     x3s = torch.stack([aux3, -aux3, aux3, -aux3])
     cross = torch.sqrt(torch.clamp((d1 * d1 - d2 * d2) * (d2 * d2 - d3 * d3), min=0.0))
-    sign = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=H.dtype, device=H.device)
     zero, one = torch.zeros_like(x1s), torch.ones_like(x1s)
+    sign = torch.stack([one[0], -one[0], -one[0], one[0]])
 
     def candidates(c, sn, flip, tp):
         # Rp = [[c, 0, -flip sn], [0, flip, 0], [sn, 0, flip c]] per case.
@@ -246,7 +271,7 @@ def _decompose_H(H, K):
     cp = (d1 * d3 - d2 * d2) / den_n
     Rp_neg, tp_neg = candidates(cp, sign * cross / den_n, -1.0,
                                 (d1 + d3) * torch.stack([x1s, zero, x3s], -1))
-    return torch.cat([Rp_pos, Rp_neg]), torch.cat([tp_pos, tp_neg])
+    return torch.cat([Rp_pos, Rp_neg]).to(dtype), torch.cat([tp_pos, tp_neg]).to(dtype)
 
 
 def initialize_two_view(xy1: torch.Tensor, xy2: torch.Tensor, valid: torch.Tensor,
@@ -256,13 +281,28 @@ def initialize_two_view(xy1: torch.Tensor, xy2: torch.Tensor, valid: torch.Tenso
                         sel_H: Optional[torch.Tensor] = None) -> InitResult:
     """Two-view initialization from matched pixels xy1[i] <-> xy2[i]
     (valid rows only), on their device. `sel_F` (H, 8) / `sel_H` (H, 4)
-    replace the minimal sets drawn from `generator` (F's first, then H's)."""
+    replace the minimal sets drawn from `generator` (F's first, then H's).
+
+    The uniforms are drawn here, outside any graph; the rest is one
+    captured graph on the card (`_initialize_jit`). Calls given `sel_F` or
+    `sel_H` run eagerly."""
+    shape, dev = (num_hypotheses, valid.shape[0]), valid.device
+    u_F = None if sel_F is not None else torch.rand(shape, generator=generator, device=dev)
+    u_H = None if sel_H is not None else torch.rand(shape, generator=generator, device=dev)
+    fn = _initialize_jit if sel_F is None and sel_H is None else _initialize
+    return fn(xy1, xy2, valid, u_F, u_H, sel_F, sel_H, cam)
+
+
+def _initialize(xy1, xy2, valid, u_F, u_H, sel_F, sel_H, cam: Camera) -> InitResult:
+    """`initialize_two_view` on the minimal sets of the uniforms (u_F, u_H)
+    or given (sel_F, sel_H): both banks, the refits, the model selection and
+    the motion recovery, with no read of the device."""
     x1n, T1 = _normalize(xy1, valid)
     x2n, T2 = _normalize(xy2, valid)
     if sel_F is None:
-        sel_F = minimal_sets(valid, num_hypotheses, generator, k=8)
+        sel_F = top_k_sets(u_F, valid, k=8)
     if sel_H is None:
-        sel_H = minimal_sets(valid, num_hypotheses, generator, k=4)
+        sel_H = top_k_sets(u_H, valid, k=4)
     sel_F, sel_H = sel_F.long(), sel_H.long()
     T2inv = torch.linalg.inv_ex(T2)[0]
 
@@ -270,7 +310,7 @@ def initialize_two_view(xy1: torch.Tensor, xy2: torch.Tensor, valid: torch.Tenso
     F = T2.T @ _eight_point_F(x1n[sel_F], x2n[sel_F]) @ T1  # de-normalize
     scores_F, oks_F = _score_F(F, xy1, xy2, valid)
     b = torch.argmax(scores_F)
-    SF, F_best, inF = scores_F[b], F[b], oks_F[b]
+    SF, F_best, inF = row(scores_F, b), row(F, b), row(oks_F, b)
     F_fit = T2.T @ _fit_F_masked(x1n, x2n, inF) @ T1
     SF2, inF2 = _score_F(F_fit, xy1, xy2, valid)
     better = SF2 > SF
@@ -282,7 +322,7 @@ def initialize_two_view(xy1: torch.Tensor, xy2: torch.Tensor, valid: torch.Tenso
     Hm = T2inv @ _four_point_H(x1n[sel_H], x2n[sel_H]) @ T1
     scores_H, oks_H = _score_H(Hm, xy1, xy2, valid)
     b = torch.argmax(scores_H)
-    SH, H_best, inH = scores_H[b], Hm[b], oks_H[b]
+    SH, H_best, inH = row(scores_H, b), row(Hm, b), row(oks_H, b)
     H_fit = T2inv @ _fit_H_masked(x1n, x2n, inH) @ T1
     SH2, inH2 = _score_H(H_fit, xy1, xy2, valid)
     better = SH2 > SH
@@ -304,10 +344,15 @@ def initialize_two_view(xy1: torch.Tensor, xy2: torch.Tensor, valid: torch.Tenso
     n_good, par, Xs, goods = _check_RT(Rs, ts, xy1, xy2, inliers, cam)
     n_good = torch.where(cand_valid, n_good, torch.full_like(n_good, -1))
     best = torch.argmax(n_good)
-    nbest = n_good[best]
+    nbest = row(n_good, best)
     second = torch.sort(n_good).values[-2]
     distinct = use_H | (second < 0.75 * nbest)
     success = ((nbest >= 30) & (nbest > 0.8 * torch.sum(inliers)) & distinct
-               & (par[best] > 0.5))
-    return InitResult(success=success, T_21=se3.SE3(Rs[best], ts[best]), points_w=Xs[best],
-                      good=goods[best], used_homography=use_H)
+               & (row(par, best) > 0.5))
+    return InitResult(success=success, T_21=se3.SE3(row(Rs, best), row(ts, best)),
+                      points_w=row(Xs, best), good=row(goods, best), used_homography=use_H)
+
+
+# One capture per keypoint count serves every initialization attempt of a
+# run (the JAX package's jit, static `cam`).
+_initialize_jit = cache.graphed(_initialize, static_argnames=("cam",))

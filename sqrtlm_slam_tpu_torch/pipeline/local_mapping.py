@@ -88,7 +88,9 @@ _project_and_match_many = cache.graphed(_project_and_match_many,
 # The bucketed backend's local BA (what `facade.Optimizer("bucketed")` runs)
 # as one captured CUDA graph per problem shape, `utils.cache` (the JAX
 # package's `_ba_jit`): the caps of `LocalMappingConfig` fix the shapes. The
-# flat and cg backends run eagerly; on the CPU so does this one.
+# flat and cg backends replay graphs of their own inside the facade
+# (`schur._local_loop_jit`, one a phase; `schur_bucketed.LOCAL_GRAPHS`, three
+# an LM iteration), on plans padded to the caps. On the CPU all run eagerly.
 _bucketed_local_ba_jit = cache.graphed(
     schur_bucketed.local_ba, static_argnames=("cam", "first_iters", "second_iters"))
 

@@ -37,7 +37,8 @@ gives the eager function's bits.
 * Counts: a kernel wrapper counts its launches through `count_launch`;
   inside a capture the launch is noted for the graph, and each replay adds
   the graph's launches to the wrappers' counts. `utils.graph_captures` and
-  `utils.graph_replays` count captures and replays.
+  `utils.graph_replays` count captures and replays; a graphed function's
+  `.captures` counts its own (evicted ones too).
 * CPU: when no argument lies on a CUDA device (the caller asked for the
   CPU) the eager function runs. Inside `disable_graphs()` (the counterpart
   of `jax.disable_jit()`) every graphed function runs eagerly, in every
@@ -175,6 +176,7 @@ class Graphed:
         self.max_entries = max_entries
         self._sig = inspect.signature(fn)
         self._entries: dict = {}
+        self.captures = 0
         functools.update_wrapper(self, fn)
 
     def _split(self, args, kwargs):
@@ -260,6 +262,7 @@ class Graphed:
             entry = _Entry(graph, inputs, outputs, out_spec, launches, threading.Lock())
             with _lock:
                 self._entries[key] = entry
+                self.captures += 1
             _bump(_UTILS, "graph_captures", 1)
             return entry
 

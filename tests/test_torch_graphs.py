@@ -53,7 +53,7 @@ from sqrtlm_slam_tpu_torch import convert, utils
 from sqrtlm_slam_tpu_torch.eval import planeworld as t_planeworld
 from sqrtlm_slam_tpu_torch.eval import scale as t_scale
 from sqrtlm_slam_tpu_torch.eval import synthetic as t_synth
-from sqrtlm_slam_tpu_torch.eval import verification
+from sqrtlm_slam_tpu_torch.eval import graph_calls, verification
 from sqrtlm_slam_tpu_torch.frontend import vocab as t_vocab
 from sqrtlm_slam_tpu_torch.geometry import se3 as t_se3
 from sqrtlm_slam_tpu_torch.geometry import sim3 as t_sim3
@@ -415,7 +415,8 @@ def _graphed_calls(images, scan):
          (torch.eye(3).expand(B, 3, 3), torch.zeros(B, 3), *lms, *many_kp, cam, 3.0), {}),
         ("odometry_retract", t_odo._retract_jit, (pose_a, torch.full((6,), 0.01)), {}),
         ("odometry_local_delta", t_odo._local_delta_jit, (pose_a, pose), {}),
-    ] + _loop_graphed_calls() + _verification_graphed_calls(frame)
+    ] + (_loop_graphed_calls() + _verification_graphed_calls(frame)
+         + _init_and_ba_graphed_calls())
 
 
 def _loop_graphed_calls():
@@ -474,12 +475,31 @@ def _verification_graphed_calls(frame):
     ]
 
 
+def _init_and_ba_graphed_calls():
+    """The monocular initializer's graph (600 matches, drawn uniforms), the
+    flat engine's LM loop through local and global BA's captures and its
+    three PCG graphs, the cg backend's local-BA graphs on a padded camera
+    plan, and the calibration with and without plane terms
+    (`eval/graph_calls.py`'s inputs)."""
+    cam = t_synth.DEFAULT_CAM
+    xy1, xy2, valid = graph_calls.two_view_matches(600, cam, "cpu")
+    calls = graph_calls.init_calls(xy1, xy2, valid, cam, torch.Generator().manual_seed(0))
+    flat, _ = t_synth.make_ba_problem(seed=5, P=8, L=256, stereo_frac=0.6, obs_per_landmark=4)
+    calls.update(graph_calls.ba_calls(schur_bucketed.from_flat(flat, 4, device="cpu"), cam,
+                                      num_iters=2))
+    rng = np.random.RandomState(2)
+    T_true = t_se3.exp(T(rng.normal(size=6).astype(np.float32) * 0.1))
+    calls.update(graph_calls.calibration_calls(T(rng.normal(size=(200, 3)).astype(np.float32)
+                                                 * 5.0), T_true))
+    return [(name, *call) for name, call in calls.items()]
+
+
 @pytest.fixture(scope="module")
 def graphed_calls(images, scan):
     return _graphed_calls(images, scan)
 
 
-@pytest.mark.parametrize("which", range(27))
+@pytest.mark.parametrize("which", range(38))
 def test_graphed_functions_issue_no_device_read(graphed_calls, which):
     name, fn, args, kwargs = graphed_calls[which]
     fn(*args, **kwargs)  # first use: the per-device tables a warm-up would make

@@ -21,7 +21,12 @@ with fixed and free scale; `project_match` on the loop group padded to
 `loop_points_cap`; `guided_sim3_match`): a capture and a replay equal two
 eager calls bit for bit, the second call of a shape replays without
 capturing, and a graphed call leaves the generator where the eager call
-leaves it.
+leaves it. The monocular initializer (one graph, its uniforms drawn
+outside), the flat engine's LM loop (local and global BA's captures) and
+its three PCG graphs, the cg backend's local-BA graphs and the calibration
+(with and without plane terms) replay their eager runs bit for bit and
+capture once a shape; RGB-D runs with the flat and the cg local BA, and a
+monocular run, equal their eager reruns.
 
 Marked `cuda`: each test skips where no CUDA device exists. The file
 imports neither JAX nor the JAX package (the card has no JAX):
@@ -40,7 +45,7 @@ import pytest
 import torch
 
 from sqrtlm_slam_tpu_torch import utils
-from sqrtlm_slam_tpu_torch.eval import planeworld, scale, synthetic, verification
+from sqrtlm_slam_tpu_torch.eval import graph_calls, planeworld, scale, synthetic, verification
 from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse
 from sqrtlm_slam_tpu_torch.frontend.orb import ORBConfig
 from sqrtlm_slam_tpu_torch.geometry import se3, sim3
@@ -49,9 +54,9 @@ from sqrtlm_slam_tpu_torch.lidar import features as lidar_features
 from sqrtlm_slam_tpu_torch.lidar import odometry
 from sqrtlm_slam_tpu_torch.loop import closing, essential_graph, sim3_solver
 from sqrtlm_slam_tpu_torch.ops import hamming
-from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
+from sqrtlm_slam_tpu_torch.optim import assembly, facade, schur, schur_bucketed
 from sqrtlm_slam_tpu_torch.pipeline import frame as frame_mod
-from sqrtlm_slam_tpu_torch.pipeline import local_mapping, tracking, triangulation
+from sqrtlm_slam_tpu_torch.pipeline import initializer, local_mapping, tracking, triangulation
 from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMappingConfig
 from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
 from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackingConfig
@@ -668,3 +673,125 @@ def test_verification_graphs_replay_eager_bits_and_capture_once(cuda_device, whi
         assert _same_bits(out, out_want), which
         if state is not None:  # the graphed call drew what the eager call drew
             assert torch.equal(state, state_want), which
+
+
+def _init_and_ba_programs(dev):
+    """name -> (graphed function, call(variant) -> outputs) of the monocular
+    initializer (2000 matches; the variant seeds the uniforms' generator),
+    the flat engine's and the cg backend's local-BA graphs and the flat
+    global loop (P, L, K = 32, 2048, 5) and the calibration with and
+    without plane terms (variant 1: the inputs scaled by 1 + 1e-4), on
+    `eval/graph_calls.py`'s inputs."""
+    xy1, xy2, valid = graph_calls.two_view_matches(2000, CAM, dev)
+
+    def initialize(seed):
+        fn, a, k = graph_calls.init_calls(xy1, xy2, valid, CAM,
+                                          torch.Generator(device=dev).manual_seed(seed))[
+            "_initialize_jit"]
+        return fn(*a, **k)
+
+    flat, _ = synthetic.make_ba_problem(seed=5, P=32, L=2048, stereo_frac=0.6,
+                                        obs_per_landmark=5)
+    calls = graph_calls.ba_calls(schur_bucketed.from_flat(flat, 5, device=dev), CAM)
+    rng = np.random.RandomState(2)
+    T_true = se3.exp(torch.as_tensor(rng.normal(size=6).astype(np.float32) * 0.1,
+                                     device=dev))
+    p_l = torch.as_tensor(rng.normal(size=(2048, 3)).astype(np.float32) * 5.0, device=dev)
+    calls.update(graph_calls.calibration_calls(p_l, T_true))
+
+    def plain(name):
+        fn, args, kwargs = calls[name]
+
+        def call(variant):
+            a, k = (args, kwargs) if variant == 0 else (_perturbed(args), _perturbed(kwargs))
+            return fn(*a, **k)
+        return fn, call
+
+    out = {name: plain(name) for name in calls}
+    out["initialize"] = (initializer._initialize_jit, initialize)
+    return out
+
+
+INIT_BA_NAMES = ["initialize", "flat_local_loop", "flat_global_loop", "flat_cg_head",
+                 "flat_pcg_chunk", "flat_lm_tail", "local_cg_head", "local_pcg_chunk",
+                 "local_lm_tail", "calibrate_extrinsics", "calibrate_extrinsics_pairs"]
+
+
+@pytest.mark.parametrize("which", INIT_BA_NAMES)
+def test_init_and_ba_graphs_replay_eager_bits_and_capture_once(cuda_device, which):
+    graphed, call = _init_and_ba_programs(cuda_device)[which]
+    with cache.disable_graphs():
+        want = [call(v) for v in (0, 1)]
+    c0, r0 = utils.graph_captures, utils.graph_replays
+    got0 = call(0)  # a capture (unless an earlier test made it), then a replay
+    c1 = utils.graph_captures
+    got1 = call(1)  # the same shape: a replay only
+    torch.cuda.synchronize()
+    assert c1 - c0 <= 1 and graphed.num_entries() >= 1
+    assert utils.graph_captures == c1 and utils.graph_replays == r0 + 2
+    assert _same_bits(got0, want[0]) and _same_bits(got1, want[1]), which
+    assert not _same_bits(want[0], want[1]), which  # the variant is another input
+
+
+@pytest.mark.parametrize("backend", ["flat", "cg"])
+def test_local_ba_backends_graphed_equal_eager_in_a_system(cuda_device, backend, monkeypatch):
+    """`track_depth` over 32 frames with the flat or cg local BA, graphed
+    and eagerly: trajectories and maps bitwise equal; the graphed run
+    captures local BA's graphs of its backend, the windows of the second
+    half of the run capture none (the padded plans let successive windows
+    share captures), and global BA's captures are not among the entries
+    its local BA evicts (each keeps its own)."""
+    _, frames = _rgbd_frames(32)
+    cfg = SystemConfig(orb=ORBConfig(max_features=1000),
+                       local_mapping=LocalMappingConfig(backend=backend))
+    graphs = ((schur._local_loop_jit,) if backend == "flat"
+              else schur_bucketed.LOCAL_GRAPHS)
+    captures_per_call = []
+    local_ba = facade.Optimizer.local_bundle_adjustment
+
+    def counted(self, *a, **k):
+        c0 = sum(g.captures for g in graphs)
+        out = local_ba(self, *a, **k)
+        captures_per_call.append(sum(g.captures for g in graphs) - c0)
+        return out
+
+    monkeypatch.setattr(facade.Optimizer, "local_bundle_adjustment", counted)
+    runs = []
+    for eager in (False, True):
+        before = [g.num_entries() for g in graphs]
+        s = SlamSystem(CAM, cfg, device=cuda_device)
+        with cache.disable_graphs() if eager else contextlib.nullcontext():
+            tracked = sum(s.track_depth(*f) is not None for f in frames)
+        n_ba = s.local_mapper.num_local_ba
+        assert tracked == len(frames) and n_ba >= 4
+        if not eager:
+            assert all(g.num_entries() >= 1 for g in graphs), before
+            assert all(g.num_entries() <= g.max_entries for g in graphs)
+            assert len(captures_per_call) == n_ba
+            assert sum(captures_per_call[n_ba // 2:]) == 0, captures_per_call
+        runs.append((s.get_trajectory(), s.store.kf_R.copy(), s.store.kf_t.copy(),
+                     s.store.lm_pos.copy()))
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+    assert graphs[0] is not schur._global_loop_jit
+    assert not set(map(id, graphs)) & set(map(id, schur_bucketed.GLOBAL_GRAPHS))
+
+
+def test_monocular_system_graphed_equals_eager(cuda_device):
+    """`track_monocular` over 12 frames graphed and eagerly (the initializer
+    one graph, drawing outside it): trajectories and maps bitwise equal,
+    and the graphed run captured the initializer once."""
+    _, frames = _rgbd_frames()
+    cfg = SystemConfig(orb=ORBConfig(max_features=1000),
+                       tracking=TrackingConfig(min_inliers_local=15))
+    runs = []
+    for eager in (False, True):
+        s = SlamSystem(CAM, cfg, device=cuda_device)
+        with cache.disable_graphs() if eager else contextlib.nullcontext():
+            tracked = sum(s.track_monocular(img) is not None for img, _ in frames)
+        assert tracked >= 8 and s.num_keyframes() >= 2
+        runs.append((s.get_trajectory(), s.store.kf_R.copy(), s.store.kf_t.copy(),
+                     s.store.lm_pos.copy()))
+    assert initializer._initialize_jit.num_entries() >= 1
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)

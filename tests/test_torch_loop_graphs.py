@@ -180,7 +180,7 @@ def test_pcg_read_period_changes_no_bits(monkeypatch, early_stop):
     for read_every in (t_schur.PCG_CHECK_EVERY, cg_iters):
         monkeypatch.setattr(t_schur, "PCG_CHECK_EVERY", read_every)
         got[read_every] = t_schur._lm_step(tp, chi2, mu, nu, active, plan, CAM, DELTA,
-                                           cg_iters, graphed=True)
+                                           cg_iters, t_schur.GLOBAL_GRAPHS)
     a, b = got.values()
     for name, x, y in zip(t_schur.LMState._fields, a, b):
         assert torch.equal(x, y), name
