@@ -184,21 +184,35 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      T_CAM_VELO perturbed, with and without plane terms, graphed against
      eager (bitwise equal, within 1e-3 of T_CAM_VELO); (b) the
      distributed Nielsen LM in process on the bench problem, 15 iterations,
-     Huber 2.447, over 1, 2 and 4 shards on cuda:0, each run twice (bitwise
-     equal), chi2 falling, 2 and 4 shards against 1 within
-     tests/test_dist_ba.py's gates (accepted within 1, chi2 rtol 0.05,
-     pose_t 5e-3, landmarks 2e-2), K2 launched D times per iteration and K3
-     D times per chi2 evaluation, ms per LM iteration; one flat distributed
-     step over 4 shards against the single-device flat step (mu 1e-3;
-     pose_t 5e-4, landmarks 5e-3); (c) `python -m
+     Huber 2.447, over 1, 2 and 4 shards on cuda:0 (the whole loop one
+     graph): a first call (it captures) and a second (one replay, no
+     capture, or the phase raises; bitwise equal to the first and to the
+     eager call under `disable_graphs`), chi2 falling, 2 and 4 shards
+     against 1 within tests/test_dist_ba.py's gates (accepted within 1,
+     chi2 rtol 0.05, pose_t 5e-3, landmarks 2e-2), K2 launched D times per
+     iteration and K3 D times per chi2 evaluation in the replayed call, ms
+     per LM iteration graphed, through the segment graphs (bitwise equal
+     to the whole loop) and eagerly, CUDA launches and device ms of a call
+     graphed and eager (torch.profiler), the memory a capture keeps; the
+     bucketed and the flat steps over 4 shards (3 a call, one graph a
+     step): bitwise equal to eager, ms per step, host reads (the flat
+     engine's edge plans, once a call); one flat distributed step over 4
+     shards against the single-device flat step (mu 1e-3; pose_t 5e-4,
+     landmarks 5e-3); (c) `python -m
      sqrtlm_slam_tpu_torch.parallel.mp_worker` at the JAX dryrun's shape
      (64, 16384, 4), 6 iterations: 2 processes x 2 shards with gloo on
-     cuda:0, and 1 process x 4 shards with nccl, each against the
-     in-process 4-shard run (the same gates; the one-process run also
-     bitwise), every rank's result bitwise equal, wall seconds and the
-     all-reduce ms per iteration; (d) phase 7's (600, 120000, 7) problem,
-     3 iterations over 4 shards and over 1: chi2 falls, the two within the
-     gates of (b), ms per iteration and peak device memory.
+     cuda:0 (per-device segment graphs, the all-reduces between them), and
+     1 process x 4 shards with nccl (the whole loop one graph), each
+     against the in-process 4-shard run (the same gates), every rank's
+     result bitwise equal, and per rank the first call's seconds and
+     captures, the timed call's wall seconds, captures (none) and replays,
+     CUDA launches of a call graphed and eager, the eager call's wall
+     seconds and its digest equal to the graphed one's, the all-reduce ms
+     per iteration; (d) phase 7's (600, 120000, 7) problem, 3 iterations
+     over 4 shards and over 1: a call that captures, one replay and an
+     eager call, bitwise equal, chi2 falls, the two within the gates of
+     (b), ms per iteration, peak device memory of each call and the memory
+     the capture keeps.
  17. more than 16 slots per landmark on the callers (`wide_k_phase`, also
      callable alone): (a) phase 4's first 10 frames with
      `LocalMappingConfig(obs_cap=24)` (every frame tracked, >= 1 local BA,
@@ -242,8 +256,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      `guided_sim3_match` on the ring's last calls in phase 9, with their
      CUDA launches per call replayed and eager), and the flat engine's LM
      loop (local and global captures) and three PCG graphs, the cg
-     backend's local-BA graphs (bench problem) and the calibration with and
-     without plane terms, replayed against their eager runs as in (a), and
+     backend's local-BA graphs, distributed BA's graphs over 4 shards (the
+     whole LM loop, the bucketed and flat steps, the eight segments; bench
+     problem) and the calibration with and without plane terms, replayed
+     against their eager runs as in (a), and
      global BA's two PCG designs ((a) all 100 PCG
      iterations in one graph of the whole LM iteration, no read, built
      here; (b) the port's, a read every 10) timed in turns on the ring's
@@ -251,7 +267,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
-first 4-shard run, `cg_local_ba` from phase 16 (a)'s KITTI-size run with
+replayed 4-shard call, `cg_local_ba` from phase 16 (a)'s KITTI-size run with
 the cg backend, `graphs_paths` from phase 18 (b)'s graphed runs; a
 captured graph adds its kernels' launches at each replay), its
 time, its plain version's, its bound from this run's shapes and, where one
@@ -769,6 +785,28 @@ def kept_bytes() -> int:
     return torch.cuda.memory_reserved()
 
 
+def capture_mb(fn, a, k):
+    """The device memory a fresh capture of the graphed `fn` on (a, k)
+    keeps (its private pool and static inputs): memory_reserved after
+    empty_cache, before and after the capture. None off the card."""
+    import torch
+    from sqrtlm_slam_tpu_torch.utils import cache
+
+    if not torch.cuda.is_available():
+        return None
+    fresh = cache.graphed(fn.eager, static_argnames=fn.static_argnames)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    fresh(*a, **k)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mb = (torch.cuda.memory_reserved() - r0) / 2**20
+    del fresh
+    torch.cuda.empty_cache()
+    return mb
+
+
 def run_counted(fn):
     """(fn(), dict(s, graph_captures, graph_replays, host_reads)) of one call
     ended by a synchronize (none without a card); the counters are zeroed
@@ -947,15 +985,18 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None, ring_probl
     scan (`scan`, sensor frame; phase 10's first when given) and
     T_CAM_VELO perturbed; (b) the distributed
     Nielsen LM in process at the bench problem over 1, 2 and 4 shards on
-    one card (each run twice, bitwise), K2 / K3 launches per shard, and
+    one card (the whole loop one graph: a capturing call and a replayed
+    one, bitwise, against eager and the segment graphs), K2 / K3 launches
+    per shard, the bucketed and flat steps graphed against eager, and
     one flat distributed step over 4 shards against the single-device flat
     step; (c) `python -m sqrtlm_slam_tpu_torch.parallel.mp_worker` at the
     JAX dryrun's shape (P=64, L=16384, K=4): 2 processes x 2 shards with
     gloo on one card and 1 process x 4 shards with nccl, against (b)'s
-    in-process 4 shards; (d) map scale (phase 7's 600 x 120000 problem),
-    4 shards against 1, 3 iterations. Returns the launches of (b)'s first
-    4-shard run, and (a)'s cg run's under "cg_local_ba". `device="cpu"`
-    rehearses it without a card (gloo only)."""
+    in-process 4 shards, each rank against its eager rerun; (d) map scale
+    (phase 7's 600 x 120000 problem), 4 shards against 1, 3 iterations,
+    captured, replayed once and eager. Returns the launches of (b)'s
+    replayed 4-shard call, and (a)'s cg run's under "cg_local_ba".
+    `device="cpu"` rehearses it without a card (gloo only)."""
     import socket
 
     import torch
@@ -1158,43 +1199,100 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None, ring_probl
             raise AssertionError(f"{name}: {rec}")
 
     # (b) Distributed LM in one process ---------------------------------------
-    iters = 15
+    # Each shard count: a first call (it captures the whole loop), a second
+    # (a replay: the launch counts), ms per LM iteration graphed, through
+    # the segment graphs (the cross-process form, on one card) and eagerly.
+    iters, lm = 15, dict(cam=cam, num_iters=15, robust_delta=2.447, mu0=1e-3)
     runs, launches = {}, None
+
+    def lm_result(r):
+        return (r[0].pose_R, r[0].pose_t, r[0].points, r[1], r[2])
+
     for D in (1, 2, 4):
         mesh = dist_ba.make_mesh(D, dev)
-        reps = []
-        for _ in range(2):
-            assembly.launch_count = assembly.chi2_launch_count = 0
-            sync()
-            t0 = time.perf_counter()
-            res = dist_ba.distributed_ba_lm(prob, cam, mesh, num_iters=iters, robust_delta=2.447)
-            sync()
-            reps.append((res, time.perf_counter() - t0, assembly.launch_count,
-                         assembly.chi2_launch_count))
-        (r1, s1, k2, k3), (r2, s2, _, _) = reps
-        bitwise = all(torch.equal(a, b) for a, b in zip(
-            (r1[0].pose_R, r1[0].pose_t, r1[0].points, r1[1], r1[2]),
-            (r2[0].pose_R, r2[0].pose_t, r2[0].points, r2[1], r2[2])))
+
+        def run():
+            return dist_ba.distributed_ba_lm(prob, cam, mesh, num_iters=iters, robust_delta=2.447)
+
+        r1, first = run_counted(run)
+        assembly.launch_count = assembly.chi2_launch_count = 0
+        r2, again = run_counted(run)
+        k2, k3 = assembly.launch_count, assembly.chi2_launch_count
+        ms = wall_ms(run, n=3, warm=0)
+        with cache.disable_graphs():
+            want, eager = run_counted(run)
+            eager_ms = wall_ms(run, n=2, warm=0)
+        sp = dist_ba.to_shards(dist_ba.partition_bucketed(prob, D)[0], mesh)
+        whole = dist_ba._lm_loop_jit(sp, **lm)
+        seg = dist_ba._lm_segmented(mesh, sp, cam, iters, 2.447, 1e-3)
+        seg_ms = wall_ms(lambda: dist_ba._lm_segmented(mesh, sp, cam, iters, 2.447, 1e-3), n=3,
+                         warm=0)
         runs[D] = r1
         rec = dict(shards=D, iters=iters, chi2_start=chi2_0, chi2=float(r1[1]),
-                   accepted=int(r1[2]), rerun_bitwise_equal=bitwise,
-                   ms_per_iter=1e3 * min(s1, s2) / iters, launches=dict(ba_assembly=k2,
-                                                                         ba_chi2=k3))
+                   accepted=int(r1[2]), ms_per_iter=ms / iters,
+                   segments_ms_per_iter=seg_ms / iters, eager_ms_per_iter=eager_ms / iters,
+                   first_call=first, replayed_call=again, eager_call=eager,
+                   launches=dict(ba_assembly=k2, ba_chi2=k3),
+                   rerun_bitwise_equal=same_bits(lm_result(r1), lm_result(r2)),
+                   bitwise_equal_to_eager=same_bits(lm_result(r2), lm_result(want)),
+                   segments_bitwise_equal_to_whole=same_bits(tuple(whole), tuple(seg)))
+        if on_card:
+            w_g = profile_window(run)
+            with cache.disable_graphs():
+                w_e = profile_window(run)
+            rec.update(cuda_launches=dict(graphed=w_g["cuda_launches"],
+                                          eager=w_e["cuda_launches"]),
+                       device_ms=dict(graphed=w_g["device_ms"], eager=w_e["device_ms"]),
+                       graph_memory_mb=capture_mb(dist_ba._lm_loop_jit, (sp,), lm))
         if D > 1:
             rec["vs_one_shard"] = check_dist(f"distributed LM, {D} shards", r1, runs[1], multi)
-        emit("dist_ba_lm_in_process", shape=[96, 8192, 5], **rec)
-        if not (float(r1[1]) < chi2_0 and bitwise):
+        emit("dist_ba_lm_in_process", shape=[96, 8192, 5], **rec,
+             note="first_call / replayed_call / eager_call: seconds, captures, replays and host "
+                  "reads of one call (partition and write-back included) to a synchronize; "
+                  "ms: median call over iters; segments: the start / head / solve / tail "
+                  "graphs a process group replays, here on one card")
+        if not (float(r1[1]) < chi2_0 and rec["rerun_bitwise_equal"]
+                and rec["bitwise_equal_to_eager"] and rec["segments_bitwise_equal_to_whole"]):
             raise AssertionError(f"distributed LM over {D} shards: {rec}")
         if on_card and (k2 != D * iters or k3 != D * (iters + 1)):
             raise AssertionError(f"distributed LM over {D} shards launched K2 {k2} / K3 {k3} "
                                  f"times, expected {D * iters} / {D * (iters + 1)}")
+        if on_card and not (again["graph_captures"] == 0 and again["graph_replays"] == 1):
+            raise AssertionError(f"distributed LM over {D} shards is not one replay a call: "
+                                 f"{again}")
         if D == 4:
             launches = dict(ba_assembly=k2, ba_chi2=k3, cg_local_ba=cg_launches)
+        del sp, whole, seg
+    # The bucketed and the flat steps over 4 shards, 3 steps a call: one
+    # graph a step (the flat engine's edge plans built once a call, outside).
+    tf = facade.bucketed_to_flat(prob)
+    mesh4 = dist_ba.make_mesh(4, dev)
+    steps = {
+        "bucketed": lambda: dist_ba.distributed_ba_bucketed(prob, cam, mesh4, num_iters=3, mu=1e-3,
+                                                            robust_delta=2.447),
+        "flat": lambda: dist_ba.distributed_ba(tf, cam, mesh4, num_iters=3, mu=1e-3)}
+    for engine, run in steps.items():
+        got, first = run_counted(run)
+        _, again = run_counted(run)
+        ms = wall_ms(run, n=3, warm=0)
+        with cache.disable_graphs():
+            want, eager = run_counted(run)
+            eager_ms = wall_ms(run, n=2, warm=0)
+        rec = dict(engine=engine, shape=[96, 8192, 5], shards=4, steps=3, ms_per_step=ms / 3,
+                   eager_ms_per_step=eager_ms / 3, first_call=first, replayed_call=again,
+                   eager_call=eager, bitwise_equal_to_eager=same_bits(
+                       (got[0].pose_R, got[0].pose_t, got[0].points, got[1]),
+                       (want[0].pose_R, want[0].pose_t, want[0].points, want[1])))
+        emit("dist_ba_steps", **rec,
+             note="host_reads: the partition and write-back's, and for the flat engine its "
+                  "edge plans (three a shard, once a call)")
+        if not rec["bitwise_equal_to_eager"] or (on_card and not (
+                again["graph_captures"] == 0 and again["graph_replays"] == 3)):
+            raise AssertionError(f"distributed {engine} steps: {rec}")
     # One flat step (tests/test_dist_ba.py's mu and gates), beside the float32
     # error of the single-device step itself (against it in float64).
-    tf = facade.bucketed_to_flat(prob)
     mu = 1e-3
-    out4, _ = dist_ba.distributed_ba(tf, cam, dist_ba.make_mesh(4, dev), num_iters=1, mu=mu)
+    out4, _ = dist_ba.distributed_ba(tf, cam, mesh4, num_iters=1, mu=mu)
     ne = schur.build_normal_equations(tf, cam, tf.obs_valid, None)
     dxp, dxl = schur.reduce_and_solve(*ne[:5], tf.pose_fixed, tf.point_valid,
                                       torch.tensor(mu, device=dev))
@@ -1258,16 +1356,23 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None, ring_probl
         d = check_dist(f"mp_worker {name}", (mp_out, float(got["chi2"]), int(got["n_acc"])),
                        ref, multi64)
         digests = {r["digest"] for r in results}
+        per_rank = ("wall_s", "allreduce_ms_per_iter", "device", "first_call_s",
+                    "first_call_captures", "graph_captures", "graph_replays", "cuda_launches",
+                    "eager_wall_s", "eager_cuda_launches", "eager_bitwise_equal")
         rec = dict(config=name, backend=backend, shape=[P, L, K], iters=mp_iters,
                    ranks_bitwise_equal=len(digests) == 1,
                    bitwise_equal_to_in_process=digests == {ref_digest},
-                   wall_s=[r["wall_s"] for r in results],
-                   allreduce_ms_per_iter=[r["allreduce_ms_per_iter"] for r in results],
-                   devices=[r["device"] for r in results], processes_s=process_s,
+                   **{k: [r[k] for r in results] for k in per_rank}, processes_s=process_s,
                    vs_in_process_4_shards=d)
-        emit("dist_ba_multiprocess", **rec)
+        emit("dist_ba_multiprocess", **rec,
+             note="per rank: the first call (it captures), the timed call's wall s, captures "
+                  "and replays, CUDA launches of one call graphed and eager (torch.profiler), "
+                  "the eager call's wall s and whether its digest equals the graphed one")
         if len(digests) != 1:
             raise AssertionError(f"mp_worker {name}: ranks differ: {results}")
+        if not all(rec["eager_bitwise_equal"]) or (on_card and any(rec["graph_captures"])):
+            raise AssertionError(f"mp_worker {name}: a rank's graphed call differs from its "
+                                 f"eager rerun, or its timed call captured: {results}")
     del b64, ref
 
     # (d) Map scale -----------------------------------------------------------
@@ -1282,25 +1387,54 @@ def flat_and_distributed_phase(kitti_frames=None, scale_problem=None, ring_probl
     multi_s = multi_camera(big)
     chi2_s0 = float(schur_bucketed.chi2_only(big, cam, big.obs_valid, 2.447))
     scale = {}
-    for D in (4, 1):
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    def reset_peak():
         if on_card:
-            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        sync()
-        t0 = time.perf_counter()
-        res = dist_ba.distributed_ba_lm(big, cam, dist_ba.make_mesh(D, dev), num_iters=3,
-                                        robust_delta=2.447)
-        sync()
+
+    for D in (4, 1):
+        mesh = dist_ba.make_mesh(D, dev)
+
+        def run():
+            return dist_ba.distributed_ba_lm(big, cam, mesh, num_iters=3, robust_delta=2.447)
+
+        kept0 = kept_bytes() if on_card else 0
+        reset_peak()
+        res, first = run_counted(run)  # the capture (warm-up, capture, replay)
+        capture_peak = peak_gb()
+        kept1 = kept_bytes() if on_card else 0
+        reset_peak()
+        again_res, again = run_counted(run)  # one replay
+        replay_peak = peak_gb()
+        with cache.disable_graphs():
+            reset_peak()
+            want, eager = run_counted(run)
+            eager_peak = peak_gb()
         scale[D] = res
         rec = dict(shards=D, shape=[big.num_poses, *big.obs_cam.shape], iters=3,
                    chi2_start=chi2_s0, chi2=float(res[1]), accepted=int(res[2]),
-                   ms_per_iter=1e3 * (time.perf_counter() - t0) / 3,
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None)
+                   ms_per_iter=1e3 * again["s"] / 3, capture_call_ms_per_iter=1e3 * first["s"] / 3,
+                   eager_ms_per_iter=1e3 * eager["s"] / 3, first_call=first,
+                   replayed_call=again, eager_call=eager, peak_mem_gb=dict(
+                       capture_call=capture_peak, replay=replay_peak, eager=eager_peak),
+                   kept_mb=dict(before=kept0 / 2**20, after_capture=kept1 / 2**20),
+                   bitwise_equal_to_eager=same_bits(lm_result(again_res), lm_result(want))
+                   and same_bits(lm_result(res), lm_result(want)))
         if D == 1:
             rec["four_vs_one_shard"] = check_dist("map scale, 4 shards", scale[4], res, multi_s)
-        emit("dist_ba_map_scale", **rec)
-        if not float(res[1]) < chi2_s0:
-            raise AssertionError(f"map scale over {D} shards: chi2 did not fall: {rec}")
+        emit("dist_ba_map_scale", **rec,
+             note="kept_mb: memory_reserved after empty_cache before the first call (the "
+                  "earlier capture of the loop, evicted by this one) and after it (this "
+                  "capture's pool and inputs); peak: max_memory_allocated of each call")
+        if not (float(res[1]) < chi2_s0 and rec["bitwise_equal_to_eager"]):
+            raise AssertionError(f"map scale over {D} shards: chi2 did not fall or the "
+                                 f"replay differs from eager: {rec}")
+        if on_card and not (again["graph_captures"] == 0 and again["graph_replays"] == 1):
+            raise AssertionError(f"map scale over {D} shards is not one replay a call: {again}")
+        del again_res, want
     del big, scale
     return launches
 
@@ -1688,8 +1822,10 @@ def init_and_ba_graph_calls(cam, scan) -> list:
     """(row name, graphed function, args, kwargs) of the flat engine's and
     the cg backend's local-BA graphs and the flat global loop on the bench
     problem (96, 8192, 5; `eval/graph_calls.py`, 5 LM iterations a loop),
-    and of the calibration with and without plane terms on 4096 points of
-    `scan` (sensor frame) from T_CAM_VELO perturbed."""
+    of distributed BA's graphs on it over 4 shards (the whole LM loop of 3
+    iterations, the bucketed and flat steps, and the segments a process
+    group replays), and of the calibration with and without plane terms on
+    4096 points of `scan` (sensor frame) from T_CAM_VELO perturbed."""
     import torch
     from sqrtlm_slam_tpu_torch.eval import graph_calls, synthetic
     from sqrtlm_slam_tpu_torch.optim import schur_bucketed
@@ -1697,7 +1833,9 @@ def init_and_ba_graph_calls(cam, scan) -> list:
     dev = torch.device("cuda", 0)
     flat, _ = synthetic.make_ba_problem(seed=0, P=96, L=8192, stereo_frac=0.6,
                                         obs_per_landmark=5)
-    calls = graph_calls.ba_calls(schur_bucketed.from_flat(flat, 5, device=dev), cam)
+    problem = schur_bucketed.from_flat(flat, 5, device=dev)
+    calls = graph_calls.ba_calls(problem, cam)
+    calls.update(graph_calls.dist_calls(problem, cam))
     calls.update(calibration_graph_calls(scan, dev)[0])
     return [(name, fn, a, k) for name, (fn, a, k) in calls.items()]
 
@@ -1914,24 +2052,6 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
         _, a, k = calls["stage_a"]
         calls["stage_a_both"] = (tracking._stage_a_both_jit, a[:6] + (10,) + a[6:], k)
 
-    def pool_mb(fn, a, k):
-        """The device memory a fresh capture of `fn` keeps (its private pool
-        and static inputs): memory_reserved after empty_cache, before and
-        after the capture."""
-        if dev.type != "cuda":
-            return None
-        fresh = cache.graphed(fn.eager, static_argnames=fn.static_argnames)
-        sync()
-        torch.cuda.empty_cache()
-        r0 = torch.cuda.memory_reserved(dev)
-        fresh(*a, **k)
-        sync()
-        torch.cuda.empty_cache()
-        mb = (torch.cuda.memory_reserved(dev) - r0) / 2**20
-        del fresh
-        torch.cuda.empty_cache()
-        return mb
-
     replay = {}
     for name in ("build_frame_rgbd", "build_frame_mono", "build_frame_fusion",
                  "build_frame_stereo", "extract_features", "stage_a", "stages_bc",
@@ -1953,7 +2073,7 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
         err = max_abs_diff(got, want)
         replay[name] = dict(bitwise_equal=same_bits(got, want), max_abs_err=err,
                             eager_ms=eager_ms, replay_ms=replay_ms,
-                            graph_memory_mb=pool_mb(fn, a, k))
+                            graph_memory_mb=capture_mb(fn, a, k))
         emit("graphs_replay_vs_eager", function=name, **replay[name])
         if not replay[name]["bitwise_equal"]:
             raise AssertionError(f"{name}: the replay differs from the eager run (max |d| {err})")
@@ -2039,7 +2159,7 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
             err = max_abs_diff(got, want)
             replay[name] = dict(bitwise_equal=same_bits(got, want), max_abs_err=err,
                                 eager_ms=eager_ms, replay_ms=replay_ms,
-                                graph_memory_mb=pool_mb(fn, a, k))
+                                graph_memory_mb=capture_mb(fn, a, k))
             if name in VERIFICATION_ROWS.values():
                 with cache.disable_graphs():
                     w_eager = profile_window(lambda: fn(*a, **k))

@@ -1,8 +1,9 @@
 """Synthetic inputs of the monocular initializer's, the flat and cg local
-BA's, the flat engine's global BA's and the extrinsic calibration's graphs,
-for holding each graph against its eager run (`chip_smoke.py` phase 18 and
-the graph tests). Each function returns graphed name -> (graphed function,
-args, kwargs); the arguments lie on the inputs' device.
+BA's, the flat engine's global BA's, the extrinsic calibration's and
+distributed BA's graphs, for holding each graph against its eager run
+(`chip_smoke.py` phase 18 and the graph tests). Each function returns
+graphed name -> (graphed function, args, kwargs); the arguments lie on the
+inputs' device.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from ..factors.reprojection import Camera
 from ..geometry import se3
 from ..optim import facade, schur, schur_bucketed
 from ..optim import loss as losses
+from ..parallel import dist_ba
 from ..pipeline import initializer
 
 _DELTA = math.sqrt(losses.CHI2_2DOF)  # the robust phases' Huber threshold
@@ -130,3 +132,51 @@ def calibration_calls(p_lidar: torch.Tensor, T_true: se3.SE3, seed: int = 0) -> 
     fn = calibration.calibrate_extrinsics
     return {"calibrate_extrinsics": (fn, (T0, p_lidar, q_c, valid), planes),
             "calibrate_extrinsics_pairs": (fn, (T0, p_lidar, q_c, valid), {})}
+
+
+def dist_calls(problem: schur_bucketed.BucketedBAProblem, cam: Camera, n_shards: int = 4,
+               num_iters: int = 3, mu: float = 1e-3) -> dict:
+    """Distributed BA's graphs on `problem` split into `n_shards` shards on
+    its device (robust):
+
+      * `dist_lm_loop`, `dist_bucketed_step`, `dist_flat_step`: the whole
+        Nielsen loop of `num_iters` iterations, a bucketed and a flat step
+        (`mu`), each one graph (one process, one device);
+      * `dist_start`, `dist_head`, `dist_solve`, `dist_tail`,
+        `dist_step_head`, `dist_step_solve`, `dist_flat_head`,
+        `dist_flat_solve`: the device's segment graphs (across processes or
+        devices), at the loop's first iteration and the steps' state."""
+    dev = problem.points.device
+    mesh = dist_ba.make_mesh(n_shards, dev)
+    sp = dist_ba.to_shards(dist_ba.partition_bucketed(problem, n_shards)[0], mesh)
+    fp = dist_ba.to_shards(dist_ba.partition_problem(facade.bucketed_to_flat(problem),
+                                                     n_shards)[0], mesh)
+    plans = dist_ba.shard_edge_plans(fp)
+    P = problem.num_poses
+    lm = dict(cam=cam, robust_delta=_DELTA)
+    groups, part = dist_ba._lm_start(sp, **lm)
+    st = dist_ba._lm_begin(sp, part, mu)
+    kept, part = dist_ba._lm_head(sp, groups, st.pose_R, st.pose_t, st.points, st.mu, **lm)
+    system = dist_ba._unfold(part, dist_ba._system_shapes(P))
+    cand, part = dist_ba._lm_solve(sp, st.pose_R, st.pose_t, st.points, kept, *system, st.mu,
+                                   **lm)
+    step_kept, step_part = dist_ba._step_head(sp, mu, **lm)
+    step_system = dist_ba._unfold(step_part, dist_ba._system_shapes(P) + [()])[:3]
+    flat_kept, flat_part = dist_ba._flat_head(fp, plans, mu, **lm)
+    flat_system = dist_ba._unfold(flat_part, dist_ba._flat_shapes(P))[:4]
+    segs = dist_ba._segments(dev)
+    state = (st.pose_R, st.pose_t, st.points)
+    return {
+        "dist_lm_loop": (dist_ba._lm_loop_jit, (sp,), dict(lm, num_iters=num_iters, mu0=mu)),
+        "dist_bucketed_step": (dist_ba._bucketed_step_jit, (sp,), dict(lm, mu=mu)),
+        "dist_flat_step": (dist_ba._flat_step_jit, (fp, plans), dict(lm, mu=mu)),
+        "dist_start": (segs.start, (sp,), lm),
+        "dist_head": (segs.head, (sp, groups, *state, st.mu), lm),
+        "dist_solve": (segs.solve, (sp, *state, kept, *system, st.mu), lm),
+        "dist_tail": (segs.tail, (st, cand, part), {}),
+        "dist_step_head": (segs.step_head, (sp, mu), lm),
+        "dist_step_solve": (segs.step_solve, (sp, sp.pose_R, sp.pose_t, sp.points, step_kept,
+                                              *step_system, mu), dict(lm, test=False)),
+        "dist_flat_head": (segs.flat_head, (fp, plans, mu), lm),
+        "dist_flat_solve": (segs.flat_solve, (fp, flat_kept, *flat_system, mu), {}),
+    }

@@ -9,12 +9,18 @@ Each OS process runs
 Every worker builds the same synthetic BA problem (the port's numpy
 `eval.synthetic.make_ba_problem`), joins the process group and runs the
 Nielsen LM loop over all processes' shards (`multiprocess.distributed_ba_lm`)
-once for one iteration (warm-up), then timed. Each prints one JSON line:
-chi2, accepted steps, a SHA-256 digest of its resulting poses and landmarks
-(equal digests = bitwise-equal results on every rank), the timed call's
-wall seconds, and the median ms of one iteration's two all-reduces at this
-problem's sizes. Process 0 writes the result to `--out`. Two ranks on one
-GPU need `--backend gloo` (NCCL takes one GPU per rank).
+once (the first call, which captures its graphs), then timed, then once
+more under torch.profiler (on the card), then eagerly
+(`cache.disable_graphs()`: timed, then profiled on the card). Each prints one JSON line: chi2, accepted
+steps, a SHA-256 digest of its resulting poses and landmarks (equal digests
+= bitwise-equal results on every rank), the timed call's wall seconds, the
+median ms of one iteration's two all-reduces at this problem's sizes, the
+first call's seconds and captures, the timed call's captures and replays,
+the CUDA launches of a call (kernel and graph launches, counted by the
+profiler; null on the CPU) graphed and eager, the eager call's wall
+seconds, and whether its digest equals the graphed one. Process 0 writes
+the result to `--out`. Two ranks on one GPU need `--backend gloo` (NCCL
+takes one GPU per rank).
 """
 
 from __future__ import annotations
@@ -59,6 +65,35 @@ def _all_reduce_ms(numel: int, device, n: int = 20) -> float:
     return float(np.median(times[2:]))
 
 
+_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
+
+
+def _cuda_launches(fn, device):
+    """CUDA launches (kernels and graphs) of one call of `fn`, from
+    torch.profiler; None off the card (where `fn` is not called)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(device)
+    return sum(e.count for e in prof.key_averages() if e.key in _LAUNCHES)
+
+
+def _timed(fn, device):
+    """(fn(), wall seconds to a synchronize, graph captures, graph replays)."""
+    from sqrtlm_slam_tpu_torch import utils
+
+    utils.graph_captures = utils.graph_replays = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0, utils.graph_captures, utils.graph_replays
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--coordinator", required=True, help="host:port of rank 0")
@@ -83,7 +118,7 @@ def main(argv=None) -> int:
     from sqrtlm_slam_tpu_torch.eval.synthetic import DEFAULT_CAM, make_ba_problem
     from sqrtlm_slam_tpu_torch.optim import schur_bucketed
     from sqrtlm_slam_tpu_torch.parallel import multiprocess
-    from sqrtlm_slam_tpu_torch.utils import to_host
+    from sqrtlm_slam_tpu_torch.utils import cache, to_host
 
     torch.backends.cuda.matmul.allow_tf32 = False
     multiprocess.initialize(args.coordinator, args.nproc, args.pid, backend=args.backend,
@@ -93,18 +128,23 @@ def main(argv=None) -> int:
         flat, _ = make_ba_problem(seed=args.seed, P=args.poses, L=args.landmarks,
                                   obs_per_landmark=args.obs_per_lm)
         b = schur_bucketed.from_flat(flat, K=args.obs_per_lm, device=mesh.home)
-        multiprocess.distributed_ba_lm(b, DEFAULT_CAM, mesh, num_iters=1)  # warm-up
-        _sync(mesh.home)
-        t0 = time.perf_counter()
-        out, chi2, n_acc = multiprocess.distributed_ba_lm(b, DEFAULT_CAM, mesh,
-                                                          num_iters=args.iters)
-        _sync(mesh.home)
-        wall = time.perf_counter() - t0
+
+        def run():
+            return multiprocess.distributed_ba_lm(b, DEFAULT_CAM, mesh, num_iters=args.iters)
+
+        _, first_s, first_captures, _ = _timed(run, mesh.home)
+        (out, chi2, n_acc), wall, captures, replays = _timed(run, mesh.home)
+        launches = _cuda_launches(run, mesh.home)
+        with cache.disable_graphs():
+            (e_out, e_chi2, _), eager_wall, _, _ = _timed(run, mesh.home)
+            eager_launches = _cuda_launches(run, mesh.home)
         P6 = 6 * args.poses
         comm_ms = _all_reduce_ms(P6 * P6 + 2 * P6, mesh.home) + _all_reduce_ms(2, mesh.home)
         pose_R, pose_t, points, chi2, n_acc = to_host(out.pose_R, out.pose_t, out.points,
                                                       chi2, n_acc)
         digest = result_digest(pose_R, pose_t, points, chi2)
+        eager_digest = result_digest(*to_host(e_out.pose_R, e_out.pose_t, e_out.points,
+                                              e_chi2))
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "sqrtlm_slam_tpu")]
         if loaded:
             raise RuntimeError(f"mp_worker imported the JAX package or JAX: {loaded[:5]}")
@@ -112,7 +152,11 @@ def main(argv=None) -> int:
             "rank": args.pid, "nproc": args.nproc, "shards": mesh.num_shards,
             "device": str(mesh.home), "backend": dist.get_backend(), "chi2": float(chi2),
             "accepted": int(n_acc), "iters": args.iters, "digest": digest, "wall_s": wall,
-            "allreduce_ms_per_iter": comm_ms}), flush=True)
+            "allreduce_ms_per_iter": comm_ms, "first_call_s": first_s,
+            "first_call_captures": first_captures, "graph_captures": captures,
+            "graph_replays": replays, "cuda_launches": launches, "eager_wall_s": eager_wall,
+            "eager_cuda_launches": eager_launches,
+            "eager_bitwise_equal": eager_digest == digest}), flush=True)
         if args.out and args.pid == 0:
             np.savez(args.out, pose_R=pose_R, pose_t=pose_t, points=points, chi2=float(chi2),
                      n_acc=int(n_acc), n_shards=mesh.num_shards)

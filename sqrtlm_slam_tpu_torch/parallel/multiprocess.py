@@ -5,7 +5,11 @@ Counterpart of `sqrtlm_slam_tpu/parallel/multiprocess.py`
 problem (the partitioner is deterministic, so all agree on the layout),
 materializes only its own landmark shards, and runs the Nielsen LM loop of
 `dist_ba.make_bucketed_lm_iterate`: the two sums of each iteration end in
-one `all_reduce` each over the process group. The landmark shards are then
+one `all_reduce` each over the process group. Across processes the loop
+runs as per-device segment graphs (start, head, solve, tail; see
+`dist_ba`), the all-reduces between their replays: gloo's runs on the
+host and cannot be captured, and NCCL's is left outside the graphs too
+(two NCCL ranks need two cards). The landmark shards are then
 all-gathered, so every process returns identical arrays.
 
 Backends: `gloo` for CPU tensors, `nccl` by default for CUDA tensors. NCCL
@@ -85,7 +89,9 @@ def distributed_ba_lm(b: schur_bucketed.BucketedBAProblem, cam: Camera,
                       ) -> Tuple[schur_bucketed.BucketedBAProblem, torch.Tensor, torch.Tensor]:
     """Multi-process twin of `dist_ba.distributed_ba_lm`: every process
     calls it with the same problem and gets the same result. Returns
-    (problem, chi2, accepted count)."""
+    (problem, chi2, accepted count). The final gather (the JAX package's
+    identity jit with a replicated output) is one `all_gather`, a
+    collective outside any graph."""
     mesh = mesh if mesh is not None else global_mesh(1, b.points.device)
     sharded, lm_ids = dist_ba.partition_bucketed(b, mesh.num_shards)
     iterate = dist_ba.make_bucketed_lm_iterate(mesh, cam, num_iters=num_iters,

@@ -27,7 +27,8 @@ the CPU), so here:
     LiDAR pose graph, and the three graphs of global BA's LM iteration;
     relocalisation's `recover_pose_no_prior` core and the loop's Sim3
     verification: `ransac_sim3`'s core, `optimize_sim3` (fixed and free
-    scale), `project_match` and `guided_sim3_match`;
+    scale), `project_match` and `guided_sim3_match`; distributed BA's
+    whole LM loop, its bucketed and flat steps and their segments;
   * the both-radii stage A (pipelined mode) gives the bits of stage A with
     the read and the widened retry, without and with the retry;
   * the port reads its vocabulary from its own copy of the asset.
@@ -416,7 +417,7 @@ def _graphed_calls(images, scan):
         ("odometry_retract", t_odo._retract_jit, (pose_a, torch.full((6,), 0.01)), {}),
         ("odometry_local_delta", t_odo._local_delta_jit, (pose_a, pose), {}),
     ] + (_loop_graphed_calls() + _verification_graphed_calls(frame)
-         + _init_and_ba_graphed_calls())
+         + _init_and_ba_graphed_calls() + _dist_graphed_calls())
 
 
 def _loop_graphed_calls():
@@ -494,12 +495,22 @@ def _init_and_ba_graphed_calls():
     return [(name, *call) for name, call in calls.items()]
 
 
+def _dist_graphed_calls():
+    """Distributed BA's graphs over 4 shards (`eval/graph_calls.py`'s
+    inputs): the whole LM loop, the bucketed and flat steps, and the
+    segments the loop and the steps run across processes."""
+    flat, _ = t_synth.make_ba_problem(seed=5, P=8, L=256, stereo_frac=0.6, obs_per_landmark=4)
+    calls = graph_calls.dist_calls(schur_bucketed.from_flat(flat, 4, device="cpu"),
+                                   t_synth.DEFAULT_CAM, num_iters=2)
+    return [(name, *call) for name, call in calls.items()]
+
+
 @pytest.fixture(scope="module")
 def graphed_calls(images, scan):
     return _graphed_calls(images, scan)
 
 
-@pytest.mark.parametrize("which", range(38))
+@pytest.mark.parametrize("which", range(49))
 def test_graphed_functions_issue_no_device_read(graphed_calls, which):
     name, fn, args, kwargs = graphed_calls[which]
     fn(*args, **kwargs)  # first use: the per-device tables a warm-up would make

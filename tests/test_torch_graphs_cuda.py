@@ -26,7 +26,13 @@ outside), the flat engine's LM loop (local and global BA's captures) and
 its three PCG graphs, the cg backend's local-BA graphs and the calibration
 (with and without plane terms) replay their eager runs bit for bit and
 capture once a shape; RGB-D runs with the flat and the cg local BA, and a
-monocular run, equal their eager reruns.
+monocular run, equal their eager reruns. Distributed BA: the whole LM loop
+over 1, 2 and 4 shards on one card, the bucketed and flat steps and every
+segment graph replay their eager runs bit for bit and capture once a
+shape; the whole loop launches one graph a call and equals the segments'
+replays; K2 / K3 launch D x iters / D x (iters + 1) times in a replayed
+call; two `mp_worker` ranks with gloo on one card give equal digests, each
+equal to its own eager rerun.
 
 Marked `cuda`: each test skips where no CUDA device exists. The file
 imports neither JAX nor the JAX package (the card has no JAX):
@@ -55,6 +61,7 @@ from sqrtlm_slam_tpu_torch.lidar import odometry
 from sqrtlm_slam_tpu_torch.loop import closing, essential_graph, sim3_solver
 from sqrtlm_slam_tpu_torch.ops import hamming
 from sqrtlm_slam_tpu_torch.optim import assembly, facade, schur, schur_bucketed
+from sqrtlm_slam_tpu_torch.parallel import dist_ba
 from sqrtlm_slam_tpu_torch.pipeline import frame as frame_mod
 from sqrtlm_slam_tpu_torch.pipeline import initializer, local_mapping, tracking, triangulation
 from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMappingConfig
@@ -795,3 +802,119 @@ def test_monocular_system_graphed_equals_eager(cuda_device):
     assert initializer._initialize_jit.num_entries() >= 1
     for a, b in zip(*runs):
         np.testing.assert_array_equal(a, b)
+
+
+def _dist_problem(dev):
+    flat, _ = synthetic.make_ba_problem(seed=3, P=24, L=2048, stereo_frac=0.6,
+                                        obs_per_landmark=5)
+    return schur_bucketed.from_flat(flat, 5, device=dev)
+
+
+DIST_NAMES = ["dist_lm_loop", "dist_bucketed_step", "dist_flat_step", "dist_start",
+              "dist_head", "dist_solve", "dist_tail", "dist_step_head", "dist_step_solve",
+              "dist_flat_head", "dist_flat_solve"]
+
+
+@pytest.mark.parametrize("which", DIST_NAMES)
+def test_dist_graphs_replay_eager_bits_and_capture_once(cuda_device, which):
+    """Each of distributed BA's graphs (`eval/graph_calls.py`'s inputs, 4
+    shards on the card): two calls equal the eager run bit for bit, the
+    second a replay only."""
+    fn, a, k = graph_calls.dist_calls(_dist_problem(cuda_device), CAM)[which]
+    with cache.disable_graphs():
+        want = fn(*a, **k)
+    got0 = fn(*a, **k)
+    c1, r1 = utils.graph_captures, utils.graph_replays
+    got1 = fn(*a, **k)
+    torch.cuda.synchronize()
+    assert utils.graph_captures == c1 and utils.graph_replays == r1 + 1
+    assert _same_bits(got0, want) and _same_bits(got1, want), which
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_dist_lm_is_one_graph_a_call_and_equals_eager_and_the_segments(cuda_device, D):
+    """`distributed_ba_lm` over D shards on one card: the second call
+    replays one graph and captures nothing, K2 / K3 launch D x iters / D x
+    (iters + 1) times in it, and it equals the eager call and the segment
+    driver's replays bit for bit."""
+    b, iters = _dist_problem(cuda_device), 5
+    mesh = dist_ba.make_mesh(D, cuda_device)
+    run = lambda: dist_ba.distributed_ba_lm(b, CAM, mesh, num_iters=iters, robust_delta=2.447)
+    first = run()
+    assembly.launch_count = assembly.chi2_launch_count = 0
+    c0, r0 = utils.graph_captures, utils.graph_replays
+    got = run()
+    torch.cuda.synchronize()
+    assert utils.graph_captures == c0 and utils.graph_replays == r0 + 1
+    assert (assembly.launch_count, assembly.chi2_launch_count) == (D * iters, D * (iters + 1))
+    with cache.disable_graphs():
+        want = run()
+    sp = dist_ba.to_shards(dist_ba.partition_bucketed(b, D)[0], mesh)
+    whole = dist_ba._lm_loop_jit(sp, cam=CAM, num_iters=iters, robust_delta=2.447, mu0=1e-3)
+    seg = dist_ba._lm_segmented(mesh, sp, CAM, iters, 2.447, 1e-3)
+    for out in (first, want):
+        assert _same_bits((got[0].pose_R, got[0].pose_t, got[0].points, got[1], got[2]),
+                          (out[0].pose_R, out[0].pose_t, out[0].points, out[1], out[2]))
+    assert _same_bits(tuple(whole), tuple(seg))
+    assert float(got[1]) < float(schur_bucketed.chi2_only(b, CAM, b.obs_valid, 2.447))
+
+
+def test_dist_steps_replay_eager_bits_and_capture_once(cuda_device):
+    """`distributed_ba_bucketed` and `distributed_ba` (4 shards, 3 steps):
+    a second call replays one graph a step and captures nothing, and equals
+    the eager call bit for bit."""
+    b = _dist_problem(cuda_device)
+    flat = facade.bucketed_to_flat(b)
+    mesh = dist_ba.make_mesh(4, cuda_device)
+    runs = (lambda: dist_ba.distributed_ba_bucketed(b, CAM, mesh, num_iters=3, mu=1e-3,
+                                                    robust_delta=2.447),
+            lambda: dist_ba.distributed_ba(flat, CAM, mesh, num_iters=3, mu=1e-3))
+    for run in runs:
+        run()
+        c0, r0 = utils.graph_captures, utils.graph_replays
+        got = run()
+        torch.cuda.synchronize()
+        assert utils.graph_captures == c0 and utils.graph_replays == r0 + 3
+        with cache.disable_graphs():
+            want = run()
+        assert _same_bits((got[0].pose_R, got[0].pose_t, got[0].points, got[1]),
+                          (want[0].pose_R, want[0].pose_t, want[0].points, want[1]))
+
+
+def test_two_gloo_ranks_on_one_card_agree_with_each_other_and_their_eager_rerun(cuda_device):
+    """Two `mp_worker` ranks x 2 shards with gloo on one card: equal
+    digests, each rank's graphed call equal to its eager rerun, and the
+    timed call replays without capturing."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "sqrtlm_slam_tpu_torch.parallel.mp_worker", "--coordinator",
+         f"localhost:{port}", "--nproc", "2", "--pid", str(pid), "--shards-per-proc", "2",
+         "--device", "cuda", "--backend", "gloo", "--poses", "16", "--landmarks", "2048",
+         "--obs-per-lm", "4", "--iters", "4"],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(2)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert len({r["digest"] for r in results}) == 1, results
+    for r in results:
+        assert r["eager_bitwise_equal"] and r["graph_captures"] == 0, r
+        assert r["first_call_captures"] > 0 and r["graph_replays"] > 0, r
+        assert 0 < r["cuda_launches"] < r["eager_cuda_launches"], r
