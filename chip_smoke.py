@@ -264,11 +264,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      iterations in one graph of the whole LM iteration, no read, built
      here; (b) the port's, a read every 10) timed in turns on the ring's
      and phase 8's problems, bitwise equal.
+ 19. the long run (`long_run_phase`, also callable alone): `eval/longrun.py`'s
+     `run_long` at its defaults (1,000 frames of the 42 m ring over 2.3
+     revolutions, 12,000 points, 2,000 features, loop detection on, a
+     1,200 x 400,000 store) through its own entry, memory and captures read
+     at every progress line and after every loop, every frame and loop
+     frame split by stage, each capture timed and placed, launch counters
+     zeroed just before and read just after; gates on the outcome against
+     the JAX package's CPU run (tracked frames, keyframes and landmarks
+     created, the ATE of the first 100-300 frames) and the rest in its
+     docstring. In the whole smoke it runs in a child process started
+     after phase 8, beside phases 9-18 (its lines are printed after phase
+     18's), so that its ~9 minutes alone, ~11 there (NVIDIA H100 80GB
+     HBM3, 700 W), fit the smoke's time; alone it runs undisturbed. The
+     lines of phases 9-19 in a whole smoke carry `shared_with`: their
+     times were taken on a card and host the two processes shared.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
 replayed 4-shard call, `cg_local_ba` from phase 16 (a)'s KITTI-size run with
-the cg backend, `graphs_paths` from phase 18 (b)'s graphed runs; a
+the cg backend, `graphs_paths` from phase 18 (b)'s graphed runs, `long_run`
+from phase 19; a
 captured graph adds its kernels' launches at each replay), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
@@ -282,6 +298,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import inspect
 import json
 import os
 import subprocess
@@ -327,10 +344,17 @@ WIDE_K_SHAPES = ((32, 4096, 24), (96, 8192, 32), (96, 4096, 64), (64, 4096, 64),
 
 
 T_START = time.perf_counter()
+# Set while the whole smoke runs phase 19 in a child process beside phases
+# 9-18: every line emitted meanwhile, in either process, names what shared
+# the card and the host with it (`shared_with`), since its times were taken
+# under that load. Phases 1-8 run before the child starts and are not
+# shared; phase 19 run alone is not either.
+SHARED_WITH = None
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, "card": CARD, **fields,
+    shared = {"shared_with": SHARED_WITH} if SHARED_WITH else {}
+    print(json.dumps({"phase": phase, "card": CARD, **fields, **shared,
                       "elapsed_s": time.perf_counter() - T_START}), flush=True)
 
 
@@ -2185,6 +2209,483 @@ def graphs_phase(kitti=None, street=None, rgbd_system=None, loop_inputs=None,
     return dict(hamming=k1, ba_assembly=k2)
 
 
+# The long run (phase 19): `eval/longrun.py`'s `run_long` at its defaults.
+# Its gates on the outcome come from the JAX package's own run of the same
+# configuration on the CPU (`scripts/longrun_reference.py --package jax
+# --max-landmarks 600000`: at the default 400,000 its store asserts at
+# frame 855; PERF.md, "Long run"). It tracked 1,000 of 1,000 frames,
+# created 980 keyframes and 468,250 landmarks, closed no loop, and its
+# trajectory's ATE over the first 100 / 200 / 300 frames (each prefix
+# aligned alone, Sim3) was 9.617 / 12.988 / 18.648 m. The card must track
+# at least 0.9 x as many frames, create keyframes within 2 % and landmarks
+# within 3 % of its counts, and keep each prefix's ATE within 1.25 x its
+# (ORB on the card differs from ORB on the CPU in ~3 % of descriptors, so
+# keyframe and loop decisions differ a little). A trajectory collapsed to
+# a point reads 16.9 / 30.5 / 38.8 m over those prefixes. The whole run's
+# ATE cannot serve: aligned with scale on the 42 m ring, a collapsed
+# trajectory reads 41.7 m and a straight line 41.5 m against the JAX
+# run's 30.7 m, so no gate on it tells a right map from a wrong one. Nor
+# can the prefixes catch every fault: a straight line at the ring's speed
+# reads 3.2 / 11.6 / 22.5 m, within the gate (the trajectory at this
+# operating point drifts in both packages).
+LONG_RUN_JAX_TRACKED = 1000
+LONG_RUN_JAX_KEYFRAMES = 980
+LONG_RUN_JAX_LANDMARKS = 468250
+LONG_RUN_JAX_PREFIX_ATE_M = {100: 9.617, 200: 12.988, 300: 18.648}
+LONG_RUN_TRACKED_FRAC = 0.9
+LONG_RUN_KEYFRAMES_TOL = 0.02
+LONG_RUN_LANDMARKS_TOL = 0.03
+LONG_RUN_PREFIX_ATE_FACTOR = 1.25
+# End-of-run memory_reserved (after empty_cache) may exceed its reading
+# after the first loop by at most this much.
+LONG_RUN_MEMORY_MARGIN_MB = 512.0
+
+
+def rss_mb() -> float:
+    """This process's resident host memory now, MB (/proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return float("nan")
+
+
+def percentiles(ms) -> dict:
+    ms = np.asarray(ms, float)
+    if not len(ms):
+        return dict(n=0)
+    return dict(n=int(len(ms)), p50_ms=float(np.percentile(ms, 50)),
+                p95_ms=float(np.percentile(ms, 95)), max_ms=float(ms.max()))
+
+
+def long_run_phase() -> dict:
+    """19. The long run, also callable alone: `eval.longrun.run_long` at its
+    defaults on the card (1,000 frames of the 42 m ring over 2.3
+    revolutions, 12,000 points, 2,000 features, loop detection on, a
+    1,200 x 400,000 store) through its own entry, with its `log` hook
+    reading device memory (after `empty_cache`), host RSS and each graphed
+    function's captures at every progress line (every 50 frames); the same
+    after every committed loop. Every frame is timed
+    (`SlamSystem.track_depth` bracketed by synchronizes; a keyframe frame
+    is one that inserted a keyframe), the render apart, and every loop
+    frame split into detection, Sim3, the essential graph, the fuse
+    (SearchAndFuse's projections and merges) and global BA. Each capture
+    is timed and placed (frame, function), and each replay of the per-loop
+    programs (`max_entries=1`: the essential graph's step, global BA's
+    three graphs) timed, so a recapture's cost stands beside a replay's.
+    Launch counters are zeroed just before the run and read just after.
+    Then the place-recognition precision / recall of the run's store.
+    Gates: every frame processed, >= 1 loop closed and >= 1 GBA written
+    back, K1, K2 and K3 launched, after the first loop no graphed function
+    captures inputs of a shape it has not captured before but the per-loop
+    programs inside a loop's correction (a function's first capture, or
+    one of known shapes under another static argument, is listed apart),
+    memory_reserved at the end within LONG_RUN_MEMORY_MARGIN_MB of the
+    first loop's, and the outcome against the JAX package's CPU run:
+    tracked frames, keyframes and landmarks created, and the ATE of the
+    first 100, 200 and 300 frames (the constants above say how, and why
+    the whole run's ATE is not gated). Returns the launch counts."""
+    import torch
+    from sqrtlm_slam_tpu_torch import utils
+    from sqrtlm_slam_tpu_torch.eval import longrun, synthetic
+    from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse, rpe
+    from sqrtlm_slam_tpu_torch.loop import closing, essential_graph
+    from sqrtlm_slam_tpu_torch.ops import hamming
+    from sqrtlm_slam_tpu_torch.optim import assembly
+    from sqrtlm_slam_tpu_torch.pipeline import system as system_mod
+    from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMapper
+    from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem
+    from sqrtlm_slam_tpu_torch.pipeline.tracking import Tracker
+    from sqrtlm_slam_tpu_torch.utils import cache
+
+    defaults = {k: v.default for k, v in inspect.signature(longrun.run_long).parameters.items()}
+    n_frames = defaults["n_frames"]
+    LOOP_CALLS = ("detect_loop", "compute_sim3", "correct_loop", "run_global_ba")
+    MAPPING_STAGES = ("map_point_culling", "create_new_map_points", "search_in_neighbors",
+                      "local_ba", "keyframe_culling")
+
+    sync = torch.cuda.synchronize
+
+    frame = [-1]  # the frame being tracked
+    frames = []  # per frame: ms, keyframe inserted, loop closed, captures, stage ms
+    stages, counts = {}, {}  # the frame being tracked: bracketed call -> ms, calls
+    render_ms = []
+    loop_calls = []  # (frame, name, ms, result)
+    captures = []  # (frame, graphed function, ms, in a loop correction)
+    replays = {}  # per-loop program -> replay ms
+    replay_counts = {}  # graphed function -> replays
+    progress, after_loop = [], []  # readings
+    in_correction = [False]
+    corrections = []  # every correct_loop call: frame, committed, ms, the veto
+    fuse_ms = [0.0]
+    names = {}
+
+    def name_of(g) -> str:
+        if id(g) not in names:
+            names.update({id(v): k for k, v in cache.graphed_functions().items()})
+        return names.get(id(g), g.__name__)
+
+    def captures_now() -> dict:
+        return {k: g.captures for k, g in cache.graphed_functions().items() if g.captures}
+
+    def reading(label: str) -> dict:
+        sync()
+        rec = dict(frame=frame[0] + 1, at=label, rss_mb=rss_mb(),
+                   graph_captures=utils.graph_captures, captures=captures_now())
+        torch.cuda.empty_cache()
+        mb = 1.0 / 2**20
+        rec.update(allocated_mb=torch.cuda.memory_allocated() * mb,
+                   reserved_mb=torch.cuda.memory_reserved() * mb,
+                   max_allocated_mb=torch.cuda.max_memory_allocated() * mb)
+        return rec
+
+    def log(msg: str):
+        progress.append(dict(line=msg, **reading("progress")))
+        emit("long_run_progress", **progress[-1])
+
+    patched = []
+
+    def patch(owner, attr, make):
+        fn = getattr(owner, attr)
+        patched.append((owner, attr, fn))
+        setattr(owner, attr, make(fn))
+
+    def timed_track(fn):
+        def track_depth(self, image, depth_img):
+            frame[0] += 1
+            lc = self.loop_closer
+            kf0, loops0, c0 = self.store.num_kf, lc.num_loops_closed, utils.graph_captures
+            stages.clear()
+            counts.clear()
+            sync()
+            t = time.perf_counter()
+            out = fn(self, image, depth_img)
+            sync()
+            frames.append(dict(ms=1e3 * (time.perf_counter() - t), tracked=out is not None,
+                               keyframe=self.store.num_kf > kf0,
+                               loop=lc.num_loops_closed > loops0,
+                               captures=utils.graph_captures - c0, stages=dict(stages),
+                               calls=dict(counts)))
+            return out
+        return track_depth
+
+    def timed_render(fn):
+        def render(self, *a, **k):
+            t = time.perf_counter()
+            out = fn(self, *a, **k)
+            render_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+        return render
+
+    def timed_capture(fn):
+        def _capture(self, key, *a, **k):
+            sync()
+            t = time.perf_counter()
+            out = fn(self, key, *a, **k)
+            sync()
+            # key = (statics, argument nesting, shapes / strides / dtypes, TF32)
+            captures.append((frame[0], name_of(self), 1e3 * (time.perf_counter() - t),
+                             in_correction[0], hash(key[1:3])))
+            return out
+        return _capture
+
+    def timed_replay(fn):
+        def _replay(self, *a, **k):
+            name = name_of(self)
+            replay_counts[name] = replay_counts.get(name, 0) + 1
+            if self.max_entries != 1:
+                return fn(self, *a, **k)
+            sync()
+            t = time.perf_counter()
+            out = fn(self, *a, **k)
+            sync()
+            replays.setdefault(name, []).append(1e3 * (time.perf_counter() - t))
+            return out
+        return _replay
+
+    def bracketed(name):
+        """`fn` bracketed by synchronizes, its ms added to the frame's
+        stages (and, for the loop corrector's calls, to `loop_calls`)."""
+        def make(fn):
+            def call(*a, **k):
+                if name == "correct_loop":
+                    in_correction[0], fuse_ms[0] = True, 0.0
+                sync()
+                t = time.perf_counter()
+                try:
+                    out = fn(*a, **k)
+                finally:
+                    if name == "correct_loop":
+                        in_correction[0] = False
+                sync()
+                ms = 1e3 * (time.perf_counter() - t)
+                stages[name] = stages.get(name, 0.0) + ms
+                counts[name] = counts.get(name, 0) + 1
+                if name in LOOP_CALLS + ("essential_graph",):
+                    loop_calls.append((frame[0], name, ms, out))
+                if name == "correct_loop":
+                    loop_calls.append((frame[0], "fuse", fuse_ms[0], None))
+                    corrections.append(dict(frame=frame[0], committed=bool(out), ms=ms,
+                                            veto=None if out else a[0].last_loop_veto))
+                    if out:
+                        after_loop.append(reading("loop"))
+                        emit("long_run_loop", **after_loop[-1])
+                return out
+            return call
+        return make
+
+    def fuse_timed(fn):  # SearchAndFuse's host work inside correct_loop
+        def call(*a, **k):
+            if not in_correction[0]:
+                return fn(*a, **k)
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            fuse_ms[0] += 1e3 * (time.perf_counter() - t)
+            return out
+        return call
+
+    LC = closing.LoopCloser
+    patch(SlamSystem, "track_depth", timed_track)
+    patch(synthetic.SyntheticWorld, "render", timed_render)
+    patch(cache.Graphed, "_capture", timed_capture)
+    patch(cache.Graphed, "_replay", timed_replay)
+    for attr in LOOP_CALLS:
+        patch(LC, attr, bracketed(attr))
+    patch(LC, "insert_keyframe", bracketed("loop_closer"))
+    patch(system_mod, "build_frame_jit", bracketed("frame_build"))
+    patch(SlamSystem, "_reclaim_landmarks", bracketed("reclaim_landmarks"))
+    patch(Tracker, "_insert_keyframe_locked", bracketed("insert_keyframe"))
+    for attr in ("process_keyframe",) + MAPPING_STAGES:
+        patch(LocalMapper, attr, bracketed(attr))
+    patch(essential_graph, "optimize_pose_graph", bracketed("essential_graph"))
+    for attr in ("_project_loop_points", "_fuse_point"):
+        patch(LC, attr, fuse_timed)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = reading("start")
+    hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
+    utils.host_reads = 0
+    t0 = time.perf_counter()
+    try:
+        summary, system = longrun.run_long(log=log)
+    finally:
+        for owner, attr, fn in reversed(patched):
+            setattr(owner, attr, fn)
+    wall = time.perf_counter() - t0
+    launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count,
+                "ba_chi2": assembly.chi2_launch_count}
+    reads = utils.host_reads
+    end = reading("end")
+    lc = system.loop_closer
+
+    # Frames: the first and the last 100, keyframe frames apart from the rest.
+    def exclusive(f) -> dict:
+        """A frame's ms by stage, each without the stages inside it."""
+        st = f["stages"]
+        get = lambda n: st.get(n, 0.0)  # noqa: E731
+        parts = {n: get(n) for n in MAPPING_STAGES}
+        out = dict(frame_build=get("frame_build"), reclaim_landmarks=get("reclaim_landmarks"),
+                   tracking=(f["ms"] - get("frame_build") - get("reclaim_landmarks")
+                             - get("insert_keyframe")),
+                   insert_keyframe=(get("insert_keyframe") - get("process_keyframe")
+                                    - get("loop_closer")),
+                   **parts, rest_of_mapping=get("process_keyframe") - sum(parts.values()),
+                   loop_closer=get("loop_closer"), detect_loop=get("detect_loop"),
+                   compute_sim3=get("compute_sim3"),
+                   correct_loop=get("correct_loop"),
+                   compute_sim3_calls=f["calls"].get("compute_sim3", 0),
+                   correct_loop_calls=f["calls"].get("correct_loop", 0))
+        return out
+
+    def split(part):
+        kf = [f for f in part if f["keyframe"] and not f["loop"]]
+        rest = [f["ms"] for f in part if not f["keyframe"]]
+        by_stage = [exclusive(f) for f in kf]
+        return dict(keyframe_frames=percentiles([f["ms"] for f in kf]),
+                    other_frames=percentiles(rest),
+                    keyframe_frame_stage_p50_ms={
+                        n: float(np.median([e[n] for e in by_stage])) for n in by_stage[0]}
+                    if by_stage else {})
+
+    steady = [f for f in frames[100:] if not f["loop"] and not f["captures"]]
+    frame_split = dict(first_100=split(frames[:100]), last_100=split(frames[-100:]),
+                       all=split(frames),
+                       keyframe_frame_p50_ms_by_100=[
+                           percentiles([f["ms"] for f in frames[i:i + 100]
+                                        if f["keyframe"] and not f["loop"]]).get("p50_ms")
+                           for i in range(0, len(frames), 100)],
+                       steady_frames_per_s=(len(steady) / (1e-3 * sum(f["ms"] for f in steady))
+                                            if steady else None),
+                       steady_note="frames 100 on, without a loop or a capture")
+    loop_frames = []
+    for f in sorted({f for f, n, _, ok in loop_calls if n == "correct_loop" and ok is True}):
+        ms = {}
+        for fi, n, t, _ in loop_calls:
+            if fi == f:
+                ms[n] = ms.get(n, 0.0) + t
+        total = frames[f]["ms"]
+        corr = ms.get("correct_loop", 0.0)
+        loop_frames.append(dict(
+            frame=f, total_ms=total, detect_loop_ms=ms.get("detect_loop", 0.0),
+            compute_sim3_ms=ms.get("compute_sim3", 0.0),
+            essential_graph_ms=ms.get("essential_graph", 0.0), fuse_ms=ms.get("fuse", 0.0),
+            gba_ms=ms.get("run_global_ba", 0.0),
+            rest_of_correct_loop_ms=(corr - ms.get("essential_graph", 0.0)
+                                     - ms.get("fuse", 0.0) - ms.get("run_global_ba", 0.0)),
+            tracking_and_mapping_ms=(total - ms.get("detect_loop", 0.0)
+                                     - ms.get("compute_sim3", 0.0) - corr),
+            captures=[(n, ms_c) for fc, n, ms_c, _, _ in captures if fc == f]))
+    per_loop = {n for n, g in cache.graphed_functions().items() if g.max_entries == 1}
+    first_loop = loop_frames[0]["frame"] if loop_frames else None
+    # After the first loop no function captures inputs of a shape it has
+    # not captured before, but a per-loop program inside a correction: a
+    # shape that follows the map would. A capture of known shapes under
+    # another static argument (the widened stage A's radius) or a
+    # function's first (a path first taken then: a relocalisation) is
+    # listed apart.
+    seen = {(c[1], c[4]) for c in captures if first_loop is not None and c[0] <= first_loop}
+    after = [c for c in captures if first_loop is not None and c[0] > first_loop]
+    late = [c[:4] for c in after if (c[1], c[4]) not in seen
+            and any(n == c[1] for n, _ in seen) and not (c[1] in per_loop and c[3])]
+    apart = [c[:4] for c in after if (c[1], c[4]) in seen
+             or not any(n == c[1] for n, _ in seen)]
+    capture_events = {}
+    for f, n, ms_c, inside, _ in captures:
+        capture_events.setdefault(n, []).append(dict(frame=f, ms=ms_c, in_correction=inside))
+    recapture = {n: dict(captures=len(capture_events.get(n, [])),
+                         capture_ms=percentiles([e["ms"] for e in capture_events.get(n, [])]),
+                         replays=len(r), replay_ms=percentiles(r))
+                 for n, r in sorted(replays.items())}
+    poses = synthetic.ring_trajectory(n_frames, radius=defaults["radius"],
+                                      frac=defaults["revolutions"])
+    pr = longrun.evaluate_place_recognition(system, poses, log=lambda m: None)
+    # The trajectory's error along the run: aligned once (as run_long's
+    # ATE), RMS per 100 frames; the ATE of prefixes, each aligned alone.
+    est = system.get_trajectory()
+    ids = np.asarray(system.trajectory_frame_ids()[: len(est)])
+    gt = gt_cam_to_world([poses[int(i)] for i in ids])
+    _, aligned = ate_rmse(est, gt)
+    err = np.linalg.norm(aligned - gt[:, :3, 3], axis=-1)
+    rpe_t, rpe_r = rpe(est, gt)
+    trajectory = dict(
+        error_rms_m_by_100=[float(np.sqrt(np.mean(err[(ids >= i) & (ids < i + 100)] ** 2)))
+                            if ((ids >= i) & (ids < i + 100)).any() else None
+                            for i in range(0, n_frames, 100)],
+        ate_m_of_first={int(k): ate_rmse(est[ids < k], gt[ids < k])[0]
+                        for k in range(100, n_frames + 1, 100) if (ids < k).sum() > 2},
+        rpe_1_frame=dict(t_m=rpe_t, r_deg=rpe_r))
+    mem_first = after_loop[0]["reserved_mb"] if after_loop else None
+    out = dict(summary=summary, loops_closed=lc.num_loops_closed,
+               loops_rejected=lc.num_loops_rejected, corrections=corrections,
+               gba_runs=[dict(frame=f, ms=ms, written_back=bool(ok))
+                         for f, n, ms, ok in loop_calls if n == "run_global_ba"],
+               gba_completed=lc.num_gba_completed,
+               gba_aborted=lc.num_gba_aborted, launches=launches,
+               host_reads_per_frame=reads / max(len(frames), 1),
+               place_recognition=pr, trajectory=trajectory, frames=frame_split,
+               render=percentiles(render_ms),
+               loop_frames=loop_frames, captures_by_function=end["captures"],
+               replays_by_function=dict(sorted(replay_counts.items())),
+               capture_events=capture_events, per_loop_programs=recapture,
+               new_shapes_after_first_loop=late,
+               other_captures_after_first_loop=apart,
+               memory=dict(start=at_start, after_each_loop=after_loop, end=end,
+                           reserved_end_minus_first_loop_mb=(
+                               end["reserved_mb"] - mem_first if mem_first is not None
+                               else None)),
+               wall_s=wall)
+    emit("long_run", **out,
+         note="run_long at its defaults through its own entry; frames: track_depth bracketed "
+              "by synchronizes (keyframe frames without a loop apart from the rest); "
+              "loop_frames: the frames that committed a loop, split by the loop corrector's "
+              "calls bracketed by synchronizes (fuse: SearchAndFuse's projections and merges "
+              "inside correct_loop, host clock); memory after torch.cuda.empty_cache; "
+              "per_loop_programs: each max_entries=1 program's captures (warm-up and "
+              "capture) against its replays")
+    prefix_ate = trajectory["ate_m_of_first"]
+    bad = []
+    if len(frames) != n_frames:
+        bad.append(f"{len(frames)} of {n_frames} frames processed")
+    if lc.num_loops_closed < 1 or lc.num_gba_completed < 1:
+        bad.append(f"{lc.num_loops_closed} loops closed, {lc.num_gba_completed} GBAs")
+    if min(launches.values()) <= 0:
+        bad.append(f"a kernel never launched: {launches}")
+    if late:
+        bad.append(f"new input shapes captured after the first loop: {late}")
+    if mem_first is not None and not (
+            end["reserved_mb"] <= mem_first + LONG_RUN_MEMORY_MARGIN_MB):
+        bad.append(f"memory_reserved {end['reserved_mb']} MB at the end against "
+                   f"{mem_first} MB after the first loop")
+    if summary["tracked"] < LONG_RUN_TRACKED_FRAC * LONG_RUN_JAX_TRACKED:
+        bad.append(f"tracked {summary['tracked']} < {LONG_RUN_TRACKED_FRAC} x "
+                   f"{LONG_RUN_JAX_TRACKED}")
+    for key, jax, tol in (("keyframes_created", LONG_RUN_JAX_KEYFRAMES, LONG_RUN_KEYFRAMES_TOL),
+                          ("landmarks_created", LONG_RUN_JAX_LANDMARKS, LONG_RUN_LANDMARKS_TOL)):
+        if not abs(summary[key] - jax) <= tol * jax:
+            bad.append(f"{key} {summary[key]} not within {tol:.0%} of the JAX run's {jax}")
+    for k, jax in LONG_RUN_JAX_PREFIX_ATE_M.items():
+        if not prefix_ate.get(k, float("inf")) <= LONG_RUN_PREFIX_ATE_FACTOR * jax:
+            bad.append(f"ATE of the first {k} frames {prefix_ate.get(k)} m > "
+                       f"{LONG_RUN_PREFIX_ATE_FACTOR} x the JAX run's {jax} m")
+    if bad:
+        raise AssertionError("long run: " + "; ".join(bad))
+    return launches
+
+
+def start_long_run_child():
+    """Phase 19 in a child process (`long_run_phase()` at its defaults),
+    its output to build/chip_smoke_long_run.log: the whole smoke starts it
+    after phase 8 (the kernel and BA timings) and reads it after phase 18,
+    so that the long run's ~9 minutes of mostly host work (NVIDIA H100 80GB
+    HBM3, 700 W) fit the smoke's time beside phases 9-18: run after them in
+    one process it would take the smoke to ~1,130 s of its 1,200. The card
+    and the host are shared meanwhile: phase 19 run alone gives its undisturbed times, and every line either
+    process emits meanwhile says what it shared with (`SHARED_WITH`). The
+    child is killed if the smoke exits or dies first."""
+    global SHARED_WITH
+    import atexit
+    import ctypes
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    path = os.path.join(here, "build", "chip_smoke_long_run.log")
+    code = ("import json, torch, chip_smoke as c; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; c.CARD = c.card_line(); "
+            "c.SHARED_WITH = 'phases 9-18 (the parent process)'; "
+            "print(json.dumps({'long_run_launches': c.long_run_phase()}), flush=True)")
+    def die_with_parent():  # PR_SET_PDEATHSIG: SIGKILL when the smoke dies
+        ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+
+    with open(path, "w") as log:
+        child = subprocess.Popen([sys.executable, "-c", code], cwd=here, stdout=log,
+                                 stderr=subprocess.STDOUT, preexec_fn=die_with_parent)
+    atexit.register(lambda: child.poll() is None and child.kill())
+    SHARED_WITH = "phase 19 (the long run, a child process)"
+    return child, path
+
+
+def finish_long_run_child(child, path: str) -> dict:
+    """Wait for phase 19's child, print its lines and return its launch
+    counts; raise with its last lines if it failed."""
+    global SHARED_WITH
+    rc = child.wait()
+    SHARED_WITH = None
+    with open(path) as f:
+        lines = f.read().splitlines()
+    launches = None
+    for line in lines:
+        if line.startswith('{"long_run_launches"'):
+            launches = json.loads(line)["long_run_launches"]
+        elif line.startswith('{"phase"'):
+            print(line, flush=True)
+    if rc != 0 or launches is None:
+        raise AssertionError("phase 19 (the long run, a child process) failed, rc "
+                             f"{rc}:\n" + "\n".join(lines[-40:]))
+    return launches
+
+
 def main() -> None:
     global CARD
     import torch
@@ -2601,6 +3102,9 @@ def main() -> None:
         raise AssertionError(f"captures: essential graph {eg_graphed}, {eg_again}; "
                              f"GBA {gba_graphed}, {gba_again}")
     del store, snapshot, snapshot_eager, lc, lc2, lc3, pg_out
+
+    # 19 starts here, in a child process beside phases 9-18 ------------------
+    long_child = start_long_run_child()
 
     # 9. The loop path end to end -----------------------------------------
     ring = synthetic.ring_world(seed=7, n_points=2500)
@@ -3438,6 +3942,9 @@ def main() -> None:
                                   rgbd_system=system, loop_inputs=loop_inputs,
                                   verification_calls=verification_calls)
 
+    # 19. The long run: run_long at its defaults (the child's) -------------
+    long_launches = finish_long_run_child(*long_child)
+
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by") + keys}
@@ -3455,7 +3962,8 @@ def main() -> None:
                                    kitti_runner=runner_launches["hamming"],
                                    cg_local_ba=dist_launches["cg_local_ba"]["hamming"],
                                    local_ba_obs_cap_24=wide_launches["local_ba"]["hamming"],
-                                   graphs_paths=graph_launches["hamming"]),
+                                   graphs_paths=graph_launches["hamming"],
+                                   long_run=long_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
@@ -3472,7 +3980,8 @@ def main() -> None:
                                    cg_local_ba=dist_launches["cg_local_ba"]["ba_assembly"],
                                    local_ba_obs_cap_24=wide_launches["local_ba"]["ba_assembly"],
                                    gba_obs_per_landmark_32=wide_launches["gba"]["ba_assembly"],
-                                   graphs_paths=graph_launches["ba_assembly"]),
+                                   graphs_paths=graph_launches["ba_assembly"],
+                                   long_run=long_launches["ba_assembly"]),
              max_abs_err=k2_err,
              **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",
@@ -3484,7 +3993,8 @@ def main() -> None:
                                    kitti_runner=runner_launches["ba_chi2"],
                                    dist_ba=dist_launches["ba_chi2"],
                                    cg_local_ba=dist_launches["cg_local_ba"]["ba_chi2"],
-                                   gba_obs_per_landmark_32=wide_launches["gba"]["ba_chi2"]),
+                                   gba_obs_per_landmark_32=wide_launches["gba"]["ba_chi2"],
+                                   long_run=long_launches["ba_chi2"]),
              max_abs_err=k3_err,
              **timed(k3[(600, 120000, 7, 2.447)]), library_ms=None),
     ]

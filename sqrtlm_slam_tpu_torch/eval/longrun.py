@@ -90,7 +90,8 @@ def run_long(
         "keyframes": int(np.sum(s.store.kf_valid)),
         "keyframes_created": int(s.store.num_kf),
         "landmarks": int(np.sum(s.store.lm_valid)),
-        "landmarks_created": int(s.store.num_lm),
+        # Rows `SlamSystem` reclaimed from dead landmarks count as created.
+        "landmarks_created": int(s.store.num_lm) + s.landmarks_reclaimed,
         "loops_closed": int(s.loop_closer.num_loops_closed),
         "ate_rmse_m": float(rmse),
         "frames_per_s": n_frames / wall,

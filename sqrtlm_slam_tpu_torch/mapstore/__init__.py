@@ -1,5 +1,5 @@
 """SoA map state: keyframes, landmarks, covisibility, spanning tree."""
 
-from .store import COVIS_THRESHOLD, MapStore
+from .store import COVIS_THRESHOLD, MapStore, compact_landmarks
 
-__all__ = ["MapStore", "COVIS_THRESHOLD"]
+__all__ = ["MapStore", "COVIS_THRESHOLD", "compact_landmarks"]

@@ -4,7 +4,8 @@ The numpy `MapStore` of `sqrtlm_slam_tpu/mapstore/store.py`, carried into
 the port unchanged so that the port (and `chip_smoke.py`) runs without
 importing the JAX package. The map is host-side numpy in both packages;
 `tests/test_torch_slice.py` holds the two `MapStore` classes to identical
-source.
+source. `compact_landmarks` is the port's own: it reclaims the rows of dead
+landmarks when the append-only rows run out (`SlamSystem` calls it).
 """
 
 from __future__ import annotations
@@ -370,3 +371,44 @@ class MapStore:
         self.num_kf = 0
         self.num_lm = 0
         self.loop_edges = []
+
+
+def compact_landmarks(store: MapStore, hold=()) -> np.ndarray:
+    """Reclaim the rows of dead landmarks: the rows to keep (valid
+    landmarks, those a keyframe's `kf_obs_lm` still names, and the ids in
+    `hold`, arrays that callers keep across the call) move down to
+    0..n-1 in their order, every landmark field and `kf_obs_lm` follow,
+    the freed rows get `__post_init__`'s values and `num_lm` becomes n.
+
+    The store allocates landmark rows append-only (`add_landmark`), and
+    culling leaves most of them dead: the 1,000-frame ring of
+    `eval/longrun.py` creates ~470 landmarks a frame and keeps a third,
+    so its 400,000 rows run out near frame 850. Ids keep their order, so
+    everything that sorts or slices ids (`np.unique`, the newest landmarks
+    of a local map) sees the same sequence, and a run that compacts gives
+    the bits of one with room to spare (tests/test_torch_landmark_rows.py).
+    Returns `remap`, (num_lm before,) int32: old id -> new id, -1 for a
+    reclaimed row."""
+    L = store.num_lm
+    keep = store.lm_valid[:L].copy()
+    named = store.kf_obs_lm[:store.num_kf]
+    keep[named[named >= 0]] = True
+    for ids in hold:
+        ids = np.asarray(ids).reshape(-1)
+        keep[ids[ids >= 0]] = True
+    old = np.flatnonzero(keep)
+    n = len(old)
+    remap = np.full(L, -1, np.int32)
+    remap[old] = np.arange(n, dtype=np.int32)
+    blank = MapStore(max_keyframes=1, max_landmarks=1, feats_per_kf=1,
+                     obs_per_landmark=store.obs_per_landmark, num_words=1,
+                     corner_per_kf=1, flat_per_kf=1)
+    for name, value in vars(store).items():
+        if name.startswith("lm_") and isinstance(value, np.ndarray):
+            value[:n] = value[old]
+            value[n:L] = getattr(blank, name)[0]
+    bound = named >= 0
+    named[bound] = remap[named[bound]]
+    store.num_lm = n
+    store.version += 1
+    return remap

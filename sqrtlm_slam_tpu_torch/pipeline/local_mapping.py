@@ -319,6 +319,12 @@ class LocalMapper:
                 keep.append((lm, born_kf))
         self.recent_landmarks = keep
 
+    def remap_landmarks(self, remap: np.ndarray):
+        """Renumber the recent landmarks after `mapstore.compact_landmarks`;
+        dead ones are dropped, as `map_point_culling` drops them."""
+        self.recent_landmarks = [(int(remap[lm]), kf) for lm, kf in self.recent_landmarks
+                                 if remap[lm] >= 0 and self.store.lm_valid[remap[lm]]]
+
     def watch_landmarks(self, lm_ids, born_kf: int):
         for lm in np.atleast_1d(lm_ids):
             if lm >= 0:

@@ -35,6 +35,16 @@ waiting). `flush` drains the queue and waits for global BA; `shutdown`
 also stops the worker. With pipelined tracking, `get_trajectory`,
 `get_slam_result`, `trajectory_frame_ids` and `shutdown` finalize the
 deferred frame first (`Tracker.flush`).
+
+The store allocates landmark rows append-only and culling leaves most of
+them dead; before a frame is tracked with fewer than two keyframes' worth
+of rows left (a keyframe creates at most `feats_per_kf` landmarks in
+tracking and as many in local mapping), `_reclaim_landmarks` compacts the
+rows (`mapstore.compact_landmarks`, ids in order) and renumbers the ids the
+tracker and the local mapper hold. The JAX package's store, the same class,
+asserts when its rows run out; a run that compacts gives the bits of one
+whose store has room to spare (synchronous mapping, or asynchronous mapping
+flushed after every frame: an unflushed worker's timing varies run to run).
 """
 
 from __future__ import annotations
@@ -52,11 +62,17 @@ from ..geometry import so3
 from ..lidar.features import LidarConfig, pad_cloud
 from ..loop import LoopCloser, LoopClosingConfig
 from ..loop.database import KeyFrameDatabase
-from ..mapstore import MapStore, checkpoint
+from ..mapstore import MapStore, checkpoint, compact_landmarks
 from ..utils import desc_to_numpy, to_host
 from .frame import Frame, build_frame_jit, build_frame_stereo_jit
 from .local_mapping import LocalMapper, LocalMappingConfig
 from .tracking import Tracker, TrackingConfig, TrackState
+
+
+# Keyframes' worth of landmark rows kept free (`SlamSystem._reclaim_landmarks`):
+# one keyframe creates at most `feats_per_kf` landmarks in tracking and as
+# many in local mapping.
+RECLAIM_KEYFRAMES = 2
 
 
 class SystemConfig(NamedTuple):
@@ -105,6 +121,7 @@ class SlamSystem:
         self._worker: Optional[threading.Thread] = None
         self._worker_error: Optional[Exception] = None
         self._shutdown = False
+        self.landmarks_reclaimed = 0  # rows given back by `_reclaim_landmarks`
         if cfg.async_mapping:
             self._kf_queue = queue.Queue()
             self._worker = threading.Thread(target=self._mapping_worker, daemon=True,
@@ -199,7 +216,28 @@ class SlamSystem:
         self._raise_worker_error()
         if self._shutdown:
             raise RuntimeError("the mapping worker was shut down")
+        self._reclaim_landmarks()
         return self.tracker.track(frame)
+
+    def _reclaim_landmarks(self):
+        """Compact the store's landmark rows when fewer than
+        `RECLAIM_KEYFRAMES` keyframes' worth remain (see the module
+        docstring). The mapping queue is drained and global BA waited for
+        first (`flush`): a GBA gathers the old ids, and with the worker
+        idle none starts until this frame's keyframe. The ids held across
+        frames keep their rows and are renumbered by their holders
+        (`Tracker.held_landmarks` / `remap_landmarks`,
+        `LocalMapper.remap_landmarks`)."""
+        store = self.store
+        if store.num_lm + RECLAIM_KEYFRAMES * store.feats_per_kf <= store.max_landmarks:
+            return
+        self.flush()
+        with self.tracker.map_lock:
+            n_before = store.num_lm
+            remap = compact_landmarks(store, self.tracker.held_landmarks())
+            self.tracker.remap_landmarks(remap)
+            self.local_mapper.remap_landmarks(remap)
+            self.landmarks_reclaimed += n_before - store.num_lm
 
     def track_depth(self, image, depth_img):
         """RGB-D entry: (H, W) intensity image and (H, W) depth in metres

@@ -489,6 +489,25 @@ class Tracker:
         self._lm_cache = buf
         return buf
 
+    def held_landmarks(self) -> list:
+        """The arrays of landmark ids the tracker keeps across frames: the
+        last frame's matches and the local map cached or of a pipelined
+        step in flight (one buffer or two). Their rows are kept when the
+        system compacts the store, dead or not, and `remap_landmarks`
+        renumbers them in place."""
+        buffers = {id(b): b.ids for b in (self._lm_cache, self._pending and self._pending[2])
+                   if b is not None and b.ids is not None}
+        held = list(buffers.values())
+        if self.last_lm_ids is not None:
+            held.append(self.last_lm_ids[:, 0])
+        return held
+
+    def remap_landmarks(self, remap: np.ndarray):
+        """Renumber the held ids after `mapstore.compact_landmarks`."""
+        for ids in self.held_landmarks():
+            bound = ids >= 0
+            ids[bound] = remap[ids[bound]]
+
     def _buffer_from_ids(self, lm_ids: np.ndarray) -> LocalMapBuffer:
         cap = self.cfg.local_map_capacity
         n = len(lm_ids)
