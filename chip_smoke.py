@@ -145,9 +145,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      three bitwise equal (`backend_ms`: the first call).
  15. the KITTI runner (`python -m sqrtlm_slam_tpu_torch.run_kitti`): 20
      frames of `eval/kitti_synth.generate` (1226x370, the street circuit
-     from its start) in a directory under build/, the velodyne scans
-     rewritten as 64 x 1800-ray scans centred on the columns (and Tr with
-     them; the generator's 1440-ray scans give no LiDAR feature). The zlib
+     from its start) in a directory under build/, with `centred=True`:
+     64 x 1800-ray scans centred on the columns (and Tr with them; the
+     generator's 1440-ray scans give no LiDAR feature). The zlib
      PNG decoder is held equal to PIL there, and the native loader must
      build where libpng's header is installed. Then `run_kitti.main` in
      process, counters zeroed before and read after each run: (a) `--mode
@@ -273,18 +273,34 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      zeroed just before and read just after; gates on the outcome against
      the JAX package's CPU run (tracked frames, keyframes and landmarks
      created, the ATE of the first 100-300 frames) and the rest in its
-     docstring. In the whole smoke it runs in a child process started
-     after phase 8, beside phases 9-18 (its lines are printed after phase
-     18's), so that its ~9 minutes alone, ~11 there (NVIDIA H100 80GB
-     HBM3, 700 W), fit the smoke's time; alone it runs undisturbed. The
-     lines of phases 9-19 in a whole smoke carry `shared_with`: their
-     times were taken on a card and host the two processes shared.
+     docstring;
+ 20. the fusion soak (`kitti_soak_phase`, also callable alone): the KITTI
+     runner, `--mode fusion --loop`, over the first KITTI_SOAK_SMOKE_FRAMES
+     = 600 frames of `eval/kitti_synth`'s sequence (1226x370, 2.09 laps of
+     the 383 m street circuit; the first loop of the second lap on the card
+     at frame 593) written first on half the host's cores, at the runner's defaults;
+     every 100 frames frames/s, keyframe frames by stage, LiDAR
+     associations, captures, replays, memory and RSS; each loop frame
+     split; gates on the outcome against the JAX package's CPU run of the
+     same files (counts and loops at the deepest frame of its record the
+     run reaches, 600 here; the prefix ATEs at frame 500, before either
+     run's first loop), on captures after the first loop and on memory
+     (its docstring). Alone, `kitti_soak_phase(n_frames=1000, production=True)`
+     runs the whole sequence (its counts gated at frame 700, where the
+     JAX record ends) and then `--pipelined --async-mapping` over it. Phases 19 and
+     20 read their runs through one `RunProbe`.
+     In the whole smoke phases 19 and 20 each run in a child process
+     started after phase 8, beside phases 9-18 (their lines are printed
+     after phase 18's), so that they fit the smoke's time; alone they run
+     undisturbed. The lines of phases 9-20 in a whole smoke carry
+     `shared_with`: their times were taken on a card and host the three
+     processes shared.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
 replayed 4-shard call, `cg_local_ba` from phase 16 (a)'s KITTI-size run with
 the cg backend, `graphs_paths` from phase 18 (b)'s graphed runs, `long_run`
-from phase 19; a
+from phase 19, `kitti_soak` from phase 20's sync run; a
 captured graph adds its kernels' launches at each replay), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
@@ -616,29 +632,14 @@ def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") ->
     shutil.rmtree(work, ignore_errors=True)
     root = os.path.join(work, "kitti")
     seq_dir = os.path.join(root, "sequences", "00")
-    t0 = time.perf_counter()
-    kitti_synth.generate(root, seq="00", n_frames=n_frames, seed=0, step=0.8,
-                         log=lambda *a: None)
-    generate_s = time.perf_counter() - t0
     # The generator's 1440-ray scans give no LiDAR feature under the default
-    # LidarConfig (a fault of the reference): rescan with 64 x 1800 rays
-    # centred on the range image's columns, and write the extrinsics that
-    # the half-column yaw implies into calib.txt.
+    # LidarConfig (a fault of the reference): the writer's centred 64 x
+    # 1800-ray scans instead, with the Tr that goes with them.
     t0 = time.perf_counter()
     street = street if street is not None else planeworld.street_circuit_world(seed=0)
-    poses, _ = planeworld.circuit_trajectory(n_frames, step=0.8)
-    for i, T in enumerate(poses):
-        scan = street.lidar_scan(T, planeworld.T_CAM_VELO, n_azimuth=1800, noise_seed=i)
-        pts, T_cv = planeworld.center_scan_on_columns(scan, planeworld.T_CAM_VELO)
-        np.concatenate([pts, scan[:, 3:4]], axis=1).astype(np.float32).tofile(
-            os.path.join(seq_dir, "velodyne", f"{i:06d}.bin"))
-    calib = os.path.join(seq_dir, "calib.txt")
-    with open(calib) as f:
-        rows = [ln for ln in f.read().splitlines() if not ln.startswith("Tr:")]
-    with open(calib, "w") as f:
-        f.write("\n".join(rows + ["Tr: " + " ".join(repr(float(x)) for x in T_cv[:3].ravel())])
-                + "\n")
-    rescan_s = time.perf_counter() - t0
+    kitti_synth.generate(root, seq="00", n_frames=n_frames, seed=0, step=0.8, centred=True,
+                         world=street, log=lambda *a: None)
+    generate_s = time.perf_counter() - t0
 
     # The PNG readers: the zlib decoder against PIL where PIL is installed.
     first = os.path.join(seq_dir, "image_0", "000000.png")
@@ -658,7 +659,7 @@ def kitti_runner_phase(n_frames: int = 20, street=None, device: str = "cuda") ->
         [gxx, "-E", "-x", "c++", "-"], input="#include <png.h>\n", capture_output=True,
         text=True, timeout=60).returncode == 0
     native_ok = native_loader.NativeKittiLoader.available()
-    emit("kitti_runner_setup", frames=n_frames, generate_s=generate_s, rescan_s=rescan_s,
+    emit("kitti_runner_setup", frames=n_frames, generate_s=generate_s,
          image_backend=backend, zlib_decode_ms=zlib_ms, zlib_equals_pil=zlib_equals_pil,
          png_h=png_h, native_loader=native_ok, native_build_error=native_loader.build_error())
     if png_h and not native_ok:
@@ -2258,116 +2259,329 @@ def percentiles(ms) -> dict:
                 p95_ms=float(np.percentile(ms, 95)), max_ms=float(ms.max()))
 
 
+LOOP_CALLS = ("detect_loop", "compute_sim3", "correct_loop", "run_global_ba")
+MAPPING_STAGES = ("map_point_culling", "create_new_map_points", "search_in_neighbors",
+                  "local_ba", "keyframe_culling")
+
+
+class RunProbe:
+    """What phases 19 and 20 read of a long run, while the `with` block runs.
+
+    The system's `track_attr` (`track_depth`, `track_fusion`) is timed
+    between synchronizes, a frame at a time: ms, tracked, keyframe
+    inserted, loop closed, captures, each bracketed call's ms (`stages`) and
+    calls, and `extra(system)`. Bracketed by synchronizes: the loop
+    corrector's calls (also kept in `loop_calls`), its keyframe insertion
+    (`loop_closer`), the frame build, the landmark reclaim, the tracker's
+    keyframe insertion, local mapping's `process_keyframe` and
+    `mapping_stages`, the essential graph, and `more` ((owner, attribute,
+    stage)). SearchAndFuse's host work inside a correction (`fuse`) is timed
+    on the host clock. Each capture is timed and placed (frame, function,
+    ms, inside a correction, its inputs' shapes); each replay is counted,
+    a per-loop program's (`max_entries=1`) also timed. Every correction is
+    kept (frame, committed, ms, the veto), and after a committed one a
+    `memory()` reading is kept and emitted as `<name>_loop`. `frame` is
+    the index of the frame being tracked (-1 before the first)."""
+
+    def __init__(self, name: str, track_attr: str, mapping_stages=MAPPING_STAGES, more=(),
+                 extra=None):
+        self.name, self.track_attr, self.extra = name, track_attr, extra
+        self.mapping_stages, self.more = tuple(mapping_stages), tuple(more)
+        self.frame = -1
+        self.frames, self.loop_calls, self.captures, self.corrections = [], [], [], []
+        self.replays, self.replay_counts, self.after_loop = {}, {}, []
+        self.stages, self.counts = {}, {}
+        self._in_correction, self._fuse_ms = False, 0.0
+        self._names, self._patched = {}, []
+
+    # -- readings -------------------------------------------------------------
+
+    def name_of(self, g) -> str:
+        from sqrtlm_slam_tpu_torch.utils import cache
+
+        if id(g) not in self._names:
+            self._names.update({id(v): k for k, v in cache.graphed_functions().items()})
+        return self._names.get(id(g), g.__name__)
+
+    def memory(self, empty: bool = True, **fields) -> dict:
+        """Host RSS, the captures so far, the device memory reserved as the
+        run holds it and, with `empty`, after `empty_cache` (reserved,
+        allocated, the peak allocated)."""
+        import torch
+        from sqrtlm_slam_tpu_torch import utils
+        from sqrtlm_slam_tpu_torch.utils import cache
+
+        torch.cuda.synchronize()
+        mb = 1.0 / 2**20
+        rec = dict(frame=self.frame + 1, **fields, rss_mb=rss_mb(),
+                   graph_captures=utils.graph_captures,
+                   captures={k: g.captures for k, g in cache.graphed_functions().items()
+                             if g.captures},
+                   reserved_as_held_mb=torch.cuda.memory_reserved() * mb)
+        if empty:
+            torch.cuda.empty_cache()
+            rec.update(reserved_mb=torch.cuda.memory_reserved() * mb,
+                       allocated_mb=torch.cuda.memory_allocated() * mb,
+                       max_allocated_mb=torch.cuda.max_memory_allocated() * mb)
+        return rec
+
+    # -- the wrapped methods -----------------------------------------------
+
+    def patch(self, owner, attr, make):
+        fn = getattr(owner, attr)
+        self._patched.append((owner, attr, fn))
+        setattr(owner, attr, make(fn))
+
+    def _track(self, fn):
+        import torch
+        from sqrtlm_slam_tpu_torch import utils
+
+        probe = self
+
+        def call(system, *a, **k):
+            probe.frame += 1
+            lc = system.loop_closer
+            kf0, loops0, c0 = system.store.num_kf, lc.num_loops_closed, utils.graph_captures
+            probe.stages.clear()
+            probe.counts.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(system, *a, **k)
+            torch.cuda.synchronize()
+            rec = dict(ms=1e3 * (time.perf_counter() - t), tracked=out is not None,
+                       keyframe=system.store.num_kf > kf0,
+                       loop=lc.num_loops_closed > loops0,
+                       captures=utils.graph_captures - c0, stages=dict(probe.stages),
+                       calls=dict(probe.counts))
+            if probe.extra is not None:
+                rec.update(probe.extra(system))
+            probe.frames.append(rec)
+            return out
+        return call
+
+    def _capture(self, fn):
+        import torch
+
+        probe = self
+
+        def _capture(g, key, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(g, key, *a, **k)
+            torch.cuda.synchronize()
+            # key = (statics, argument nesting, shapes / strides / dtypes, TF32)
+            probe.captures.append((probe.frame, probe.name_of(g),
+                                   1e3 * (time.perf_counter() - t), probe._in_correction,
+                                   hash(key[1:3])))
+            return out
+        return _capture
+
+    def _replay(self, fn):
+        import torch
+
+        probe = self
+
+        def _replay(g, *a, **k):
+            name = probe.name_of(g)
+            probe.replay_counts[name] = probe.replay_counts.get(name, 0) + 1
+            if g.max_entries != 1:
+                return fn(g, *a, **k)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(g, *a, **k)
+            torch.cuda.synchronize()
+            probe.replays.setdefault(name, []).append(1e3 * (time.perf_counter() - t))
+            return out
+        return _replay
+
+    def _bracketed(self, name):
+        """`fn` bracketed by synchronizes, its ms added to the frame's stages
+        (and, for the loop corrector's calls, to `loop_calls`)."""
+        import torch
+
+        probe = self
+
+        def make(fn):
+            def call(*a, **k):
+                if name == "correct_loop":
+                    probe._in_correction, probe._fuse_ms = True, 0.0
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    out = fn(*a, **k)
+                finally:
+                    if name == "correct_loop":
+                        probe._in_correction = False
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t)
+                probe.stages[name] = probe.stages.get(name, 0.0) + ms
+                probe.counts[name] = probe.counts.get(name, 0) + 1
+                if name in LOOP_CALLS + ("essential_graph",):
+                    probe.loop_calls.append((probe.frame, name, ms, out))
+                if name == "correct_loop":
+                    probe.loop_calls.append((probe.frame, "fuse", probe._fuse_ms, None))
+                    probe.corrections.append(dict(
+                        frame=probe.frame, committed=bool(out), ms=ms,
+                        veto=None if out else repr(a[0].last_loop_veto)))
+                    if out:
+                        probe.after_loop.append(probe.memory(at="loop"))
+                        emit(f"{probe.name}_loop", **probe.after_loop[-1])
+                return out
+            return call
+        return make
+
+    def _fuse_timed(self, fn):  # SearchAndFuse's host work inside correct_loop
+        probe = self
+
+        def call(*a, **k):
+            if not probe._in_correction:
+                return fn(*a, **k)
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            probe._fuse_ms += 1e3 * (time.perf_counter() - t)
+            return out
+        return call
+
+    def __enter__(self):
+        from sqrtlm_slam_tpu_torch.loop import closing, essential_graph
+        from sqrtlm_slam_tpu_torch.pipeline import system as system_mod
+        from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMapper
+        from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem
+        from sqrtlm_slam_tpu_torch.pipeline.tracking import Tracker
+        from sqrtlm_slam_tpu_torch.utils import cache
+
+        LC = closing.LoopCloser
+        self.patch(SlamSystem, self.track_attr, self._track)
+        self.patch(cache.Graphed, "_capture", self._capture)
+        self.patch(cache.Graphed, "_replay", self._replay)
+        for attr in LOOP_CALLS:
+            self.patch(LC, attr, self._bracketed(attr))
+        brackets = ((LC, "insert_keyframe", "loop_closer"),
+                    (system_mod, "build_frame_jit", "frame_build"),
+                    (SlamSystem, "_reclaim_landmarks", "reclaim_landmarks"),
+                    (Tracker, "_insert_keyframe_locked", "insert_keyframe"),
+                    (essential_graph, "optimize_pose_graph", "essential_graph")) + tuple(
+            (LocalMapper, a, a) for a in ("process_keyframe",) + self.mapping_stages)
+        for owner, attr, stage in brackets + self.more:
+            self.patch(owner, attr, self._bracketed(stage))
+        for attr in ("_project_loop_points", "_fuse_point"):
+            self.patch(LC, attr, self._fuse_timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._patched):
+            setattr(owner, attr, fn)
+        self._patched.clear()
+        return False
+
+    # -- the run, read after it ---------------------------------------------
+
+    def loop_frames(self) -> list:
+        """Each frame that committed a loop, split by the loop corrector's
+        calls (fuse: SearchAndFuse's host work inside `correct_loop`)."""
+        out = []
+        for f in sorted({f for f, n, _, ok in self.loop_calls
+                         if n == "correct_loop" and ok is True}):
+            ms = {}
+            for fi, n, t, _ in self.loop_calls:
+                if fi == f:
+                    ms[n] = ms.get(n, 0.0) + t
+            total = self.frames[f]["ms"]
+            corr = ms.get("correct_loop", 0.0)
+            eg, fuse, gba = (ms.get(n, 0.0) for n in ("essential_graph", "fuse",
+                                                      "run_global_ba"))
+            out.append(dict(
+                frame=f, total_ms=total, detect_loop_ms=ms.get("detect_loop", 0.0),
+                compute_sim3_ms=ms.get("compute_sim3", 0.0), essential_graph_ms=eg,
+                fuse_ms=fuse, gba_ms=gba, rest_of_correct_loop_ms=corr - eg - fuse - gba,
+                tracking_and_mapping_ms=(total - ms.get("detect_loop", 0.0)
+                                         - ms.get("compute_sim3", 0.0) - corr),
+                captures=[(n, c) for fc, n, c, _, _ in self.captures if fc == f]))
+        return out
+
+    def captures_after(self, first_loop) -> tuple:
+        """(new shapes, other captures) after the first loop: a function
+        capturing inputs of a shape it has not captured before, but a
+        per-loop program inside a correction (a shape that follows the map
+        would); apart, a capture of known shapes under another static
+        argument (the widened stage A's radius) or a function's first (a
+        path first taken then: a relocalisation)."""
+        from sqrtlm_slam_tpu_torch.utils import cache
+
+        if first_loop is None:
+            return [], []
+        per_loop = {n for n, g in cache.graphed_functions().items() if g.max_entries == 1}
+        seen = {(c[1], c[4]) for c in self.captures if c[0] <= first_loop}
+        after = [c for c in self.captures if c[0] > first_loop]
+        late = [c[:4] for c in after if (c[1], c[4]) not in seen
+                and any(n == c[1] for n, _ in seen) and not (c[1] in per_loop and c[3])]
+        apart = [c[:4] for c in after if (c[1], c[4]) in seen
+                 or not any(n == c[1] for n, _ in seen)]
+        return late, apart
+
+    def capture_events(self) -> dict:
+        events = {}
+        for f, n, ms, inside, _ in self.captures:
+            events.setdefault(n, []).append(dict(frame=f, ms=ms, in_correction=inside))
+        return events
+
+    def per_loop_programs(self) -> dict:
+        """Each per-loop program's captures (warm-up and capture) against
+        its replays."""
+        events = self.capture_events()
+        return {n: dict(captures=len(events.get(n, [])),
+                        capture_ms=percentiles([e["ms"] for e in events.get(n, [])]),
+                        replays=len(r), replay_ms=percentiles(r))
+                for n, r in sorted(self.replays.items())}
+
+    def gba_runs(self) -> list:
+        return [dict(frame=f, ms=ms, written_back=bool(ok))
+                for f, n, ms, ok in self.loop_calls if n == "run_global_ba"]
+
+
 def long_run_phase() -> dict:
     """19. The long run, also callable alone: `eval.longrun.run_long` at its
     defaults on the card (1,000 frames of the 42 m ring over 2.3
     revolutions, 12,000 points, 2,000 features, loop detection on, a
-    1,200 x 400,000 store) through its own entry, with its `log` hook
-    reading device memory (after `empty_cache`), host RSS and each graphed
-    function's captures at every progress line (every 50 frames); the same
-    after every committed loop. Every frame is timed
-    (`SlamSystem.track_depth` bracketed by synchronizes; a keyframe frame
-    is one that inserted a keyframe), the render apart, and every loop
-    frame split into detection, Sim3, the essential graph, the fuse
-    (SearchAndFuse's projections and merges) and global BA. Each capture
-    is timed and placed (frame, function), and each replay of the per-loop
-    programs (`max_entries=1`: the essential graph's step, global BA's
-    three graphs) timed, so a recapture's cost stands beside a replay's.
-    Launch counters are zeroed just before the run and read just after.
-    Then the place-recognition precision / recall of the run's store.
-    Gates: every frame processed, >= 1 loop closed and >= 1 GBA written
-    back, K1, K2 and K3 launched, after the first loop no graphed function
-    captures inputs of a shape it has not captured before but the per-loop
-    programs inside a loop's correction (a function's first capture, or
-    one of known shapes under another static argument, is listed apart),
-    memory_reserved at the end within LONG_RUN_MEMORY_MARGIN_MB of the
-    first loop's, and the outcome against the JAX package's CPU run:
-    tracked frames, keyframes and landmarks created, and the ATE of the
-    first 100, 200 and 300 frames (the constants above say how, and why
-    the whole run's ATE is not gated). Returns the launch counts."""
+    1,200 x 400,000 store) through its own entry, read by a `RunProbe`
+    (`track_depth`): every frame timed (a keyframe frame is one that
+    inserted a keyframe), the render apart, every loop frame split into
+    detection, Sim3, the essential graph, the fuse (SearchAndFuse's
+    projections and merges) and global BA, each capture timed and placed,
+    each replay of the per-loop programs (`max_entries=1`: the essential
+    graph's step, global BA's three graphs) timed, so a recapture's cost
+    stands beside a replay's; its `log` hook reads device memory (after
+    `empty_cache`), host RSS and each graphed function's captures at every
+    progress line (every 50 frames), and the probe the same after every
+    committed loop. Launch counters are zeroed just before the run and read
+    just after. Then the place-recognition precision / recall of the run's
+    store. Gates: every frame processed, >= 1 loop closed and >= 1 GBA
+    written back, K1, K2 and K3 launched, after the first loop no graphed
+    function captures inputs of a shape it has not captured before but the
+    per-loop programs inside a loop's correction (a function's first
+    capture, or one of known shapes under another static argument, is
+    listed apart), memory_reserved at the end within
+    LONG_RUN_MEMORY_MARGIN_MB of the first loop's, and the outcome against
+    the JAX package's CPU run: tracked frames, keyframes and landmarks
+    created, and the ATE of the first 100, 200 and 300 frames (the
+    constants above say how, and why the whole run's ATE is not gated).
+    Returns the launch counts."""
     import torch
     from sqrtlm_slam_tpu_torch import utils
     from sqrtlm_slam_tpu_torch.eval import longrun, synthetic
     from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse, rpe
-    from sqrtlm_slam_tpu_torch.loop import closing, essential_graph
     from sqrtlm_slam_tpu_torch.ops import hamming
     from sqrtlm_slam_tpu_torch.optim import assembly
-    from sqrtlm_slam_tpu_torch.pipeline import system as system_mod
-    from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMapper
-    from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem
-    from sqrtlm_slam_tpu_torch.pipeline.tracking import Tracker
-    from sqrtlm_slam_tpu_torch.utils import cache
 
     defaults = {k: v.default for k, v in inspect.signature(longrun.run_long).parameters.items()}
     n_frames = defaults["n_frames"]
-    LOOP_CALLS = ("detect_loop", "compute_sim3", "correct_loop", "run_global_ba")
-    MAPPING_STAGES = ("map_point_culling", "create_new_map_points", "search_in_neighbors",
-                      "local_ba", "keyframe_culling")
-
-    sync = torch.cuda.synchronize
-
-    frame = [-1]  # the frame being tracked
-    frames = []  # per frame: ms, keyframe inserted, loop closed, captures, stage ms
-    stages, counts = {}, {}  # the frame being tracked: bracketed call -> ms, calls
+    probe = RunProbe("long_run", "track_depth")
     render_ms = []
-    loop_calls = []  # (frame, name, ms, result)
-    captures = []  # (frame, graphed function, ms, in a loop correction)
-    replays = {}  # per-loop program -> replay ms
-    replay_counts = {}  # graphed function -> replays
-    progress, after_loop = [], []  # readings
-    in_correction = [False]
-    corrections = []  # every correct_loop call: frame, committed, ms, the veto
-    fuse_ms = [0.0]
-    names = {}
-
-    def name_of(g) -> str:
-        if id(g) not in names:
-            names.update({id(v): k for k, v in cache.graphed_functions().items()})
-        return names.get(id(g), g.__name__)
-
-    def captures_now() -> dict:
-        return {k: g.captures for k, g in cache.graphed_functions().items() if g.captures}
-
-    def reading(label: str) -> dict:
-        sync()
-        rec = dict(frame=frame[0] + 1, at=label, rss_mb=rss_mb(),
-                   graph_captures=utils.graph_captures, captures=captures_now())
-        torch.cuda.empty_cache()
-        mb = 1.0 / 2**20
-        rec.update(allocated_mb=torch.cuda.memory_allocated() * mb,
-                   reserved_mb=torch.cuda.memory_reserved() * mb,
-                   max_allocated_mb=torch.cuda.max_memory_allocated() * mb)
-        return rec
+    progress = []
 
     def log(msg: str):
-        progress.append(dict(line=msg, **reading("progress")))
+        progress.append(dict(line=msg, **probe.memory(at="progress")))
         emit("long_run_progress", **progress[-1])
-
-    patched = []
-
-    def patch(owner, attr, make):
-        fn = getattr(owner, attr)
-        patched.append((owner, attr, fn))
-        setattr(owner, attr, make(fn))
-
-    def timed_track(fn):
-        def track_depth(self, image, depth_img):
-            frame[0] += 1
-            lc = self.loop_closer
-            kf0, loops0, c0 = self.store.num_kf, lc.num_loops_closed, utils.graph_captures
-            stages.clear()
-            counts.clear()
-            sync()
-            t = time.perf_counter()
-            out = fn(self, image, depth_img)
-            sync()
-            frames.append(dict(ms=1e3 * (time.perf_counter() - t), tracked=out is not None,
-                               keyframe=self.store.num_kf > kf0,
-                               loop=lc.num_loops_closed > loops0,
-                               captures=utils.graph_captures - c0, stages=dict(stages),
-                               calls=dict(counts)))
-            return out
-        return track_depth
 
     def timed_render(fn):
         def render(self, *a, **k):
@@ -2377,107 +2591,22 @@ def long_run_phase() -> dict:
             return out
         return render
 
-    def timed_capture(fn):
-        def _capture(self, key, *a, **k):
-            sync()
-            t = time.perf_counter()
-            out = fn(self, key, *a, **k)
-            sync()
-            # key = (statics, argument nesting, shapes / strides / dtypes, TF32)
-            captures.append((frame[0], name_of(self), 1e3 * (time.perf_counter() - t),
-                             in_correction[0], hash(key[1:3])))
-            return out
-        return _capture
-
-    def timed_replay(fn):
-        def _replay(self, *a, **k):
-            name = name_of(self)
-            replay_counts[name] = replay_counts.get(name, 0) + 1
-            if self.max_entries != 1:
-                return fn(self, *a, **k)
-            sync()
-            t = time.perf_counter()
-            out = fn(self, *a, **k)
-            sync()
-            replays.setdefault(name, []).append(1e3 * (time.perf_counter() - t))
-            return out
-        return _replay
-
-    def bracketed(name):
-        """`fn` bracketed by synchronizes, its ms added to the frame's
-        stages (and, for the loop corrector's calls, to `loop_calls`)."""
-        def make(fn):
-            def call(*a, **k):
-                if name == "correct_loop":
-                    in_correction[0], fuse_ms[0] = True, 0.0
-                sync()
-                t = time.perf_counter()
-                try:
-                    out = fn(*a, **k)
-                finally:
-                    if name == "correct_loop":
-                        in_correction[0] = False
-                sync()
-                ms = 1e3 * (time.perf_counter() - t)
-                stages[name] = stages.get(name, 0.0) + ms
-                counts[name] = counts.get(name, 0) + 1
-                if name in LOOP_CALLS + ("essential_graph",):
-                    loop_calls.append((frame[0], name, ms, out))
-                if name == "correct_loop":
-                    loop_calls.append((frame[0], "fuse", fuse_ms[0], None))
-                    corrections.append(dict(frame=frame[0], committed=bool(out), ms=ms,
-                                            veto=None if out else a[0].last_loop_veto))
-                    if out:
-                        after_loop.append(reading("loop"))
-                        emit("long_run_loop", **after_loop[-1])
-                return out
-            return call
-        return make
-
-    def fuse_timed(fn):  # SearchAndFuse's host work inside correct_loop
-        def call(*a, **k):
-            if not in_correction[0]:
-                return fn(*a, **k)
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            fuse_ms[0] += 1e3 * (time.perf_counter() - t)
-            return out
-        return call
-
-    LC = closing.LoopCloser
-    patch(SlamSystem, "track_depth", timed_track)
-    patch(synthetic.SyntheticWorld, "render", timed_render)
-    patch(cache.Graphed, "_capture", timed_capture)
-    patch(cache.Graphed, "_replay", timed_replay)
-    for attr in LOOP_CALLS:
-        patch(LC, attr, bracketed(attr))
-    patch(LC, "insert_keyframe", bracketed("loop_closer"))
-    patch(system_mod, "build_frame_jit", bracketed("frame_build"))
-    patch(SlamSystem, "_reclaim_landmarks", bracketed("reclaim_landmarks"))
-    patch(Tracker, "_insert_keyframe_locked", bracketed("insert_keyframe"))
-    for attr in ("process_keyframe",) + MAPPING_STAGES:
-        patch(LocalMapper, attr, bracketed(attr))
-    patch(essential_graph, "optimize_pose_graph", bracketed("essential_graph"))
-    for attr in ("_project_loop_points", "_fuse_point"):
-        patch(LC, attr, fuse_timed)
-
+    probe.patch(synthetic.SyntheticWorld, "render", timed_render)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    at_start = reading("start")
+    at_start = probe.memory(at="start")
     hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
     utils.host_reads = 0
     t0 = time.perf_counter()
-    try:
+    with probe:
         summary, system = longrun.run_long(log=log)
-    finally:
-        for owner, attr, fn in reversed(patched):
-            setattr(owner, attr, fn)
     wall = time.perf_counter() - t0
     launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count,
                 "ba_chi2": assembly.chi2_launch_count}
     reads = utils.host_reads
-    end = reading("end")
+    end = probe.memory(at="end")
     lc = system.loop_closer
+    frames = probe.frames
 
     # Frames: the first and the last 100, keyframe frames apart from the rest.
     def exclusive(f) -> dict:
@@ -2518,45 +2647,9 @@ def long_run_phase() -> dict:
                        steady_frames_per_s=(len(steady) / (1e-3 * sum(f["ms"] for f in steady))
                                             if steady else None),
                        steady_note="frames 100 on, without a loop or a capture")
-    loop_frames = []
-    for f in sorted({f for f, n, _, ok in loop_calls if n == "correct_loop" and ok is True}):
-        ms = {}
-        for fi, n, t, _ in loop_calls:
-            if fi == f:
-                ms[n] = ms.get(n, 0.0) + t
-        total = frames[f]["ms"]
-        corr = ms.get("correct_loop", 0.0)
-        loop_frames.append(dict(
-            frame=f, total_ms=total, detect_loop_ms=ms.get("detect_loop", 0.0),
-            compute_sim3_ms=ms.get("compute_sim3", 0.0),
-            essential_graph_ms=ms.get("essential_graph", 0.0), fuse_ms=ms.get("fuse", 0.0),
-            gba_ms=ms.get("run_global_ba", 0.0),
-            rest_of_correct_loop_ms=(corr - ms.get("essential_graph", 0.0)
-                                     - ms.get("fuse", 0.0) - ms.get("run_global_ba", 0.0)),
-            tracking_and_mapping_ms=(total - ms.get("detect_loop", 0.0)
-                                     - ms.get("compute_sim3", 0.0) - corr),
-            captures=[(n, ms_c) for fc, n, ms_c, _, _ in captures if fc == f]))
-    per_loop = {n for n, g in cache.graphed_functions().items() if g.max_entries == 1}
+    loop_frames = probe.loop_frames()
     first_loop = loop_frames[0]["frame"] if loop_frames else None
-    # After the first loop no function captures inputs of a shape it has
-    # not captured before, but a per-loop program inside a correction: a
-    # shape that follows the map would. A capture of known shapes under
-    # another static argument (the widened stage A's radius) or a
-    # function's first (a path first taken then: a relocalisation) is
-    # listed apart.
-    seen = {(c[1], c[4]) for c in captures if first_loop is not None and c[0] <= first_loop}
-    after = [c for c in captures if first_loop is not None and c[0] > first_loop]
-    late = [c[:4] for c in after if (c[1], c[4]) not in seen
-            and any(n == c[1] for n, _ in seen) and not (c[1] in per_loop and c[3])]
-    apart = [c[:4] for c in after if (c[1], c[4]) in seen
-             or not any(n == c[1] for n, _ in seen)]
-    capture_events = {}
-    for f, n, ms_c, inside, _ in captures:
-        capture_events.setdefault(n, []).append(dict(frame=f, ms=ms_c, in_correction=inside))
-    recapture = {n: dict(captures=len(capture_events.get(n, [])),
-                         capture_ms=percentiles([e["ms"] for e in capture_events.get(n, [])]),
-                         replays=len(r), replay_ms=percentiles(r))
-                 for n, r in sorted(replays.items())}
+    late, apart = probe.captures_after(first_loop)
     poses = synthetic.ring_trajectory(n_frames, radius=defaults["radius"],
                                       frac=defaults["revolutions"])
     pr = longrun.evaluate_place_recognition(system, poses, log=lambda m: None)
@@ -2575,19 +2668,19 @@ def long_run_phase() -> dict:
         ate_m_of_first={int(k): ate_rmse(est[ids < k], gt[ids < k])[0]
                         for k in range(100, n_frames + 1, 100) if (ids < k).sum() > 2},
         rpe_1_frame=dict(t_m=rpe_t, r_deg=rpe_r))
+    after_loop = probe.after_loop
     mem_first = after_loop[0]["reserved_mb"] if after_loop else None
     out = dict(summary=summary, loops_closed=lc.num_loops_closed,
-               loops_rejected=lc.num_loops_rejected, corrections=corrections,
-               gba_runs=[dict(frame=f, ms=ms, written_back=bool(ok))
-                         for f, n, ms, ok in loop_calls if n == "run_global_ba"],
-               gba_completed=lc.num_gba_completed,
+               loops_rejected=lc.num_loops_rejected, corrections=probe.corrections,
+               gba_runs=probe.gba_runs(), gba_completed=lc.num_gba_completed,
                gba_aborted=lc.num_gba_aborted, launches=launches,
                host_reads_per_frame=reads / max(len(frames), 1),
                place_recognition=pr, trajectory=trajectory, frames=frame_split,
                render=percentiles(render_ms),
                loop_frames=loop_frames, captures_by_function=end["captures"],
-               replays_by_function=dict(sorted(replay_counts.items())),
-               capture_events=capture_events, per_loop_programs=recapture,
+               replays_by_function=dict(sorted(probe.replay_counts.items())),
+               capture_events=probe.capture_events(),
+               per_loop_programs=probe.per_loop_programs(),
                new_shapes_after_first_loop=late,
                other_captures_after_first_loop=apart,
                memory=dict(start=at_start, after_each_loop=after_loop, end=end,
@@ -2633,16 +2726,25 @@ def long_run_phase() -> dict:
     return launches
 
 
-def start_long_run_child():
-    """Phase 19 in a child process (`long_run_phase()` at its defaults),
-    its output to build/chip_smoke_long_run.log: the whole smoke starts it
-    after phase 8 (the kernel and BA timings) and reads it after phase 18,
-    so that the long run's ~9 minutes of mostly host work (NVIDIA H100 80GB
-    HBM3, 700 W) fit the smoke's time beside phases 9-18: run after them in
-    one process it would take the smoke to ~1,130 s of its 1,200. The card
-    and the host are shared meanwhile: phase 19 run alone gives its undisturbed times, and every line either
-    process emits meanwhile says what it shared with (`SHARED_WITH`). The
-    child is killed if the smoke exits or dies first."""
+CHILD_PHASES = {  # name -> (the call a child process makes, its niceness)
+    "long_run": ("long_run_phase()", 0),
+    # Phase 20 and its writer's processes yield the host's cores to phases
+    # 9-19, which end later.
+    "kitti_soak": ("kitti_soak_phase()", 5),
+}
+
+
+def start_child_phases() -> dict:
+    """Phases 19 (at its full depth) and 20 (at KITTI_SOAK_SMOKE_FRAMES),
+    each in a child process of its own, their
+    output to build/chip_smoke_<name>.log: the whole smoke starts them
+    after phase 8 (the kernel and BA timings) and reads them after phase
+    18, so that their mostly host work fits the smoke's time beside phases
+    9-18 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6). The card and
+    the host are shared meanwhile: each phase run alone gives its
+    undisturbed times, and every line the three processes emit meanwhile
+    says what it shared with (`SHARED_WITH`); phase 20's child runs at
+    niceness 5. The children are killed if the smoke exits or dies first."""
     global SHARED_WITH
     import atexit
     import ctypes
@@ -2650,39 +2752,306 @@ def start_long_run_child():
 
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
-    path = os.path.join(here, "build", "chip_smoke_long_run.log")
-    code = ("import json, torch, chip_smoke as c; "
-            "torch.backends.cuda.matmul.allow_tf32 = False; c.CARD = c.card_line(); "
-            "c.SHARED_WITH = 'phases 9-18 (the parent process)'; "
-            "print(json.dumps({'long_run_launches': c.long_run_phase()}), flush=True)")
+
     def die_with_parent():  # PR_SET_PDEATHSIG: SIGKILL when the smoke dies
         ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
 
-    with open(path, "w") as log:
-        child = subprocess.Popen([sys.executable, "-c", code], cwd=here, stdout=log,
-                                 stderr=subprocess.STDOUT, preexec_fn=die_with_parent)
-    atexit.register(lambda: child.poll() is None and child.kill())
-    SHARED_WITH = "phase 19 (the long run, a child process)"
-    return child, path
+    children = {}
+    for name, (call, niceness) in CHILD_PHASES.items():
+        path = os.path.join(here, "build", f"chip_smoke_{name}.log")
+        code = ("import json, torch, chip_smoke as c; "
+                "torch.backends.cuda.matmul.allow_tf32 = False; c.CARD = c.card_line(); "
+                "c.SHARED_WITH = 'phases 9-18 and the other of 19-20 (processes of "
+                "their own), while they run'; "
+                f"print(json.dumps({{'launches': c.{call}}}), flush=True)")
+        with open(path, "w") as log:
+            child = subprocess.Popen([sys.executable, "-c", code], cwd=here, stdout=log,
+                                     stderr=subprocess.STDOUT,
+                                     preexec_fn=lambda n=niceness: (die_with_parent(),
+                                                                    os.nice(n)))
+        atexit.register(lambda c=child: c.poll() is None and c.kill())
+        children[name] = (child, path)
+    SHARED_WITH = "phases 19 and 20 (child processes)"
+    return children
 
 
-def finish_long_run_child(child, path: str) -> dict:
-    """Wait for phase 19's child, print its lines and return its launch
-    counts; raise with its last lines if it failed."""
+def finish_child_phases(children: dict) -> dict:
+    """Wait for phases 19 and 20's children, print their lines and return
+    their launch counts by name; raise with a failed child's last lines."""
     global SHARED_WITH
-    rc = child.wait()
+    launches, failed = {}, []
+    for name, (child, path) in children.items():
+        rc = child.wait()
+        with open(path) as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            if line.startswith('{"launches"'):
+                launches[name] = json.loads(line)["launches"]
+            elif line.startswith('{"phase"'):
+                print(line, flush=True)
+        if rc != 0 or name not in launches:
+            failed.append(f"{name} (a child process) failed, rc {rc}:\n"
+                          + "\n".join(lines[-40:]))
     SHARED_WITH = None
-    with open(path) as f:
-        lines = f.read().splitlines()
-    launches = None
-    for line in lines:
-        if line.startswith('{"long_run_launches"'):
-            launches = json.loads(line)["long_run_launches"]
-        elif line.startswith('{"phase"'):
-            print(line, flush=True)
-    if rc != 0 or launches is None:
-        raise AssertionError("phase 19 (the long run, a child process) failed, rc "
-                             f"{rc}:\n" + "\n".join(lines[-40:]))
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return launches
+
+# 20. The fusion soak. The JAX package's record of the same files (its
+# runner on the CPU through `scripts/kitti_soak_reference.py --package jax`;
+# PERF.md section 5), read at the depths a run is gated at: the counts and
+# the ATE of each prefix as they stood after that frame (its progress
+# lines; the run reached frame 700 of 1,000). Its first loop committed at
+# frame 592 (the card's at 593), so the whole smoke's depth, 600, takes
+# both runs through their first loop and its GBA. A run's counts and loops
+# are gated at the deepest of these frames it reaches, its prefix ATEs at
+# frame 500, the last reading before either run's first loop (a loop
+# correction re-draws them); a run shorter than 500 frames is not run.
+# The margins are `kitti_soak.GATES` (why: its comment).
+KITTI_SOAK_SMOKE_FRAMES = 600  # the whole smoke's depth (see KITTI_SOAK_JAX)
+KITTI_SOAK_ATE_DEPTH = 500
+KITTI_SOAK_JAX = {
+    500: dict(frames=500, tracked=500, keyframes_created=372, landmarks_created=225936,
+              loops_closed=0, ate_m_of_first={100: 0.1072, 200: 0.2643, 300: 0.3896,
+                                              500: 0.7603}),
+    600: dict(frames=600, tracked=599, keyframes_created=451, landmarks_created=274191,
+              loops_closed=1, ate_m_of_first={100: 0.1367, 200: 0.7349, 300: 1.6839,
+                                              500: 2.2556}),
+    700: dict(frames=700, tracked=699, keyframes_created=542, landmarks_created=332529,
+              loops_closed=3, ate_m_of_first={100: 0.0857, 200: 0.487, 300: 1.0735,
+                                              500: 1.6002}),
+}
+# sha256 of the sequence the JAX run read (`kitti_soak.digest`) over its
+# first N frames: the card's equal means the runs read the same bytes.
+KITTI_SOAK_DIGEST = {
+    600: "6da1e11687acae20c48c095303db50e993b7e491f465d4e4fe6c1b39e226b220",
+    1000: "b00d98db4b828b5d9bed822104d888bd60a6e5eb62da6d3f1615d358ad2a1d9a",
+}
+# End-of-run memory_reserved (after empty_cache) may exceed its reading
+# after the first loop by at most this much.
+KITTI_SOAK_MEMORY_MARGIN_MB = 512.0
+# `--pipelined --async-mapping` is gated against collapse only.
+KITTI_SOAK_PRODUCTION_TRACKED_FRAC = 0.9
+SOAK_MAPPING_STAGES = ("map_point_culling", "create_new_map_points", "search_in_neighbors",
+                       "local_ba", "_lidar_stage", "keyframe_culling")
+
+
+def write_kitti_soak(n_frames: int) -> dict:
+    """The soak's sequence under build/chip_smoke_soak: `eval/kitti_synth` at
+    its defaults (seed 0, 0.8 m a frame, 1226x370) with the centred 64 x
+    1800-ray scans, `n_frames` frames in processes on half the cores."""
+    from sqrtlm_slam_tpu_torch.eval import kitti_soak, kitti_synth
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_soak")
+    workers = max(2, (os.cpu_count() or 2) // 2)  # half the cores: the smoke shares them
+    t0 = time.perf_counter()
+    kitti_synth.generate(root, n_frames=n_frames, workers=workers, centred=True,
+                         log=lambda *a: None)
+    rec = dict(root=root, frames=n_frames, workers=workers,
+               write_s=time.perf_counter() - t0, digest=kitti_soak.digest(root, "00", n_frames))
+    rec["digest_equals_reference"] = (rec["digest"] == KITTI_SOAK_DIGEST[n_frames]
+                                    if n_frames in KITTI_SOAK_DIGEST else None)
+    emit("kitti_soak_setup", **rec)
+    return rec
+
+
+def kitti_soak_phase(n_frames: int = KITTI_SOAK_SMOKE_FRAMES, production: bool = False) -> dict:
+    """20. The fusion soak, also callable alone: `python -m
+    sqrtlm_slam_tpu_torch.run_kitti --mode fusion --loop` in process over
+    the first `n_frames` frames of the `kitti_synth` sequence (written
+    first, `write_kitti_soak`) at the runner's defaults: 1226x370, the
+    KITTI 00-02 intrinsics, 2,000 ORB features, 64-ring scans,
+    min_inliers_local 30, a 1,200 x 400,000 store, default
+    LoopClosingConfig. Sync mode first, read by a `RunProbe`
+    (`track_fusion`; also bracketed: the tracker's LiDAR map and the
+    keyframe's LiDAR clouds, local mapping's LiDAR stage): every frame
+    timed, the keyframe frames split by stage (tracking, keyframe
+    insertion, the tracker's LiDAR map and the keyframe's LiDAR clouds,
+    triangulation, fuse, local BA, the LiDAR stage, the loop closer) and
+    every committed loop's frame by the loop corrector's calls (detection,
+    Sim3, essential graph, fuse, GBA; the LiDAR pose-graph backend is not
+    on this path in either package); each capture timed and placed; every
+    100 frames a line with frames/s, keyframe frames' p50 / p95 by stage,
+    LiDAR associations a frame, captures and replays per graphed function,
+    memory_reserved as held and after empty_cache, and host RSS. Launch
+    counters zeroed just before the run and read just after (K1, K2 and K3
+    must launch). Gates: `kitti_soak.gates` against the JAX package's
+    record (KITTI_SOAK_JAX): the counts and loops at the deepest frame
+    both runs reached (`n_frames`, or the record's last depth below it; a
+    depth short of the record's first raises before the run), the prefix
+    ATEs at KITTI_SOAK_ATE_DEPTH, before either run's first loop; after
+    the first loop no graphed
+    function captures an input shape it had not captured before but the
+    per-loop programs inside a correction, memory_reserved (after
+    empty_cache) at the end within KITTI_SOAK_MEMORY_MARGIN_MB of the first
+    loop's. With `production`, then `--pipelined --async-mapping` over the
+    same frames, unbracketed, its memory read as the run holds it every 100
+    frames: it must complete, track >= 0.9 of the sync run's frames, and
+    end holding within KITTI_SOAK_MEMORY_MARGIN_MB of its first reading
+    after a loop. Returns the sync run's launch counts."""
+    import torch
+    from sqrtlm_slam_tpu_torch import run_kitti, utils
+    from sqrtlm_slam_tpu_torch.eval import kitti_soak
+    from sqrtlm_slam_tpu_torch.eval.ate import ate_rmse
+    from sqrtlm_slam_tpu_torch.loop import closing
+    from sqrtlm_slam_tpu_torch.ops import hamming
+    from sqrtlm_slam_tpu_torch.optim import assembly
+    from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMapper
+    from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem
+    from sqrtlm_slam_tpu_torch.pipeline.tracking import Tracker
+
+    depths = [d for d in sorted(KITTI_SOAK_JAX) if d <= n_frames]
+    if not depths:
+        raise ValueError(f"fusion soak: {n_frames} frames end before the JAX record's first "
+                         f"reading ({min(KITTI_SOAK_JAX)}): no gate could hold the run")
+    depth = depths[-1]  # the gates' depth
+    setup = write_kitti_soak(n_frames)
+    root = setup["root"]
+    gt = kitti_soak.read_gt(root)
+
+    def runner_argv(name, extra):
+        return ["--root", root, "--seq", "00", "--mode", "fusion", "--loop", "--frames",
+                str(n_frames), "--out", os.path.join(root, f"traj_{name}.txt")] + extra
+
+    probe = RunProbe(
+        "kitti_soak", "track_fusion", SOAK_MAPPING_STAGES,
+        more=((Tracker, "_gather_lidar_local_map", "tracker_lidar_map"),
+              (Tracker, "_store_kf_lidar", "store_kf_lidar")),
+        extra=lambda system: dict(lidar_matches=int(system.tracker.last_lidar_matches)))
+
+    def exclusive(f) -> dict:
+        """A keyframe frame's ms by stage, each without the stages inside it."""
+        get = lambda n: f["stages"].get(n, 0.0)  # noqa: E731
+        lba = get("local_ba") - get("_lidar_stage")
+        return dict(
+            frame_build=get("frame_build"),
+            tracking=(f["ms"] - get("frame_build") - get("insert_keyframe")
+                      - get("reclaim_landmarks")),
+            insert_keyframe=(get("insert_keyframe") - get("process_keyframe")
+                             - get("loop_closer") - get("store_kf_lidar")),
+            store_kf_lidar=get("store_kf_lidar"), tracker_lidar_map=get("tracker_lidar_map"),
+            map_point_culling=get("map_point_culling"),
+            triangulation=get("create_new_map_points"), fuse=get("search_in_neighbors"),
+            local_ba=lba, lidar_stage=get("_lidar_stage"),
+            keyframe_culling=get("keyframe_culling"), loop_closer=get("loop_closer"),
+            compute_sim3_calls=f["calls"].get("compute_sim3", 0))
+
+    def split(part) -> dict:
+        kf = [f for f in part if f["keyframe"] and not f["loop"]]
+        by_stage = [exclusive(f) for f in kf]
+        return dict(
+            frames_per_s=len(part) / (1e-3 * sum(f["ms"] for f in part)) if part else None,
+            keyframe_frames=percentiles([f["ms"] for f in kf]),
+            other_frames=percentiles([f["ms"] for f in part if not f["keyframe"]]),
+            keyframe_frame_stage_ms={
+                n: dict(p50=float(np.percentile([e[n] for e in by_stage], 50)),
+                        p95=float(np.percentile([e[n] for e in by_stage], 95)))
+                for n in by_stage[0]} if by_stage else {},
+            lidar_associations_per_frame=float(np.mean([f["lidar_matches"] for f in part]))
+            if part else None)
+
+    def every_100(line: str):
+        """The recorder's progress line (every 100 frames) with the card's
+        readings; its loop lines as they come."""
+        if not line.startswith("PROGRESS"):
+            emit("kitti_soak_event", line=line)
+            return
+        emit("kitti_soak_progress", line=line, **split(probe.frames[-100:]),
+             replays=dict(sorted(probe.replay_counts.items())),
+             **probe.memory(at="progress"))
+
+    # -- sync mode, bracketed ------------------------------------------------
+    LC = closing.LoopCloser
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = probe.memory(at="start")
+    hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
+    utils.host_reads = 0
+    with probe, kitti_soak.Recorder(SlamSystem, Tracker, LC, gt, ate_rmse, every=100,
+                                    log=every_100) as rec:
+        summary = run_kitti.main(runner_argv("sync", []))
+    torch.cuda.synchronize()
+    launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count,
+                "ba_chi2": assembly.chi2_launch_count}
+    reads = utils.host_reads
+    end = probe.memory(at="end")
+    result = rec.result()
+    frames = probe.frames
+    loop_frames = [dict(f, lidar_backend_ms=0.0) for f in probe.loop_frames()]
+    first_loop = loop_frames[0]["frame"] if loop_frames else None
+    late, apart = probe.captures_after(first_loop)
+    mem_first = probe.after_loop[0]["reserved_mb"] if probe.after_loop else None
+    ref = KITTI_SOAK_JAX[depth]
+    gated = kitti_soak.at_depth(result, depth)
+    ates_at = (kitti_soak.at_depth(result, KITTI_SOAK_ATE_DEPTH),
+               KITTI_SOAK_JAX[KITTI_SOAK_ATE_DEPTH])
+    out = dict(
+        frames=n_frames, runner=summary, outcome={k: v for k, v in result.items()
+                                                  if k != "progress"},
+        gate_depth=depth, at_gate_depth=gated, jax_at_gate_depth=ref,
+        ate_depth=KITTI_SOAK_ATE_DEPTH, at_ate_depth=ates_at[0], jax_at_ate_depth=ates_at[1],
+        margins=kitti_soak.GATES,
+        launches=launches, host_reads_per_frame=reads / max(len(frames), 1),
+        whole_run=split(frames), first_100=split(frames[:100]), last_100=split(frames[-100:]),
+        loop_frames=loop_frames, corrections=probe.corrections, gba_runs=probe.gba_runs(),
+        per_loop_programs=probe.per_loop_programs(), captures_by_function=end["captures"],
+        replays_by_function=dict(sorted(probe.replay_counts.items())),
+        capture_events=probe.capture_events(), new_shapes_after_first_loop=late,
+        other_captures_after_first_loop=apart,
+        memory=dict(start=at_start, after_each_loop=probe.after_loop, end=end,
+                    reserved_end_minus_first_loop_mb=(end["reserved_mb"] - mem_first
+                                                      if mem_first is not None else None)))
+    emit("kitti_soak", mode="sync", **out,
+         note="run_kitti --mode fusion --loop in process; frames: track_fusion between "
+              "synchronizes (keyframe frames without a loop apart); stage ms exclusive; "
+              "memory after torch.cuda.empty_cache; the gates read both runs at gate_depth")
+
+    bad = kitti_soak.gates(gated, ref, loops_explained=ref.get("loops_explained", ""),
+                           ates_at=ates_at)
+    if result["frames"] != n_frames:
+        bad.append(f"{result['frames']} of {n_frames} frames processed")
+    if (launches["hamming"] <= 0 or launches["ba_assembly"] <= 0
+            or (result["gba"]["runs"] and launches["ba_chi2"] <= 0)):
+        bad.append(f"a kernel never launched: {launches}")
+    if late:
+        bad.append(f"new input shapes captured after the first loop: {late}")
+    if mem_first is not None and not end["reserved_mb"] <= mem_first + KITTI_SOAK_MEMORY_MARGIN_MB:
+        bad.append(f"memory_reserved {end['reserved_mb']} MB at the end against {mem_first} MB "
+                   "after the first loop")
+
+    # -- the production combination ----------------------------------------
+    if production:
+        held = []  # (frame, loops closed, reserved as held, MB) every 100 frames
+
+        def production_line(line: str):
+            torch.cuda.synchronize()
+            mb = torch.cuda.memory_reserved() / 2**20
+            if line.startswith("PROGRESS"):
+                held.append((prod.progress[-1]["frame"], prod.progress[-1]["loops_closed"], mb))
+            emit("kitti_soak_event", mode="production", line=line, rss_mb=rss_mb(),
+                 reserved_as_held_mb=mb)
+
+        with kitti_soak.Recorder(SlamSystem, Tracker, LC, gt, ate_rmse, every=100,
+                                 log=production_line) as prod:
+            p_summary = run_kitti.main(runner_argv("production",
+                                                   ["--pipelined", "--async-mapping"]))
+        p_result = prod.result()
+        first_held = next((mb for _, loops, mb in held if loops >= 1), None)
+        emit("kitti_soak", mode="pipelined_async", frames=n_frames, runner=p_summary,
+             outcome={k: v for k, v in p_result.items() if k != "progress"},
+             reserved_as_held_mb_by_100=held, memory_end=probe.memory(at="end"),
+             note="memory as the run held it (no empty_cache until its end)",
+             tracked_against_sync=p_result["tracked"] / max(result["tracked"], 1))
+        if p_result["frames"] != n_frames:
+            bad.append(f"production: {p_result['frames']} of {n_frames} frames processed")
+        if p_result["tracked"] < KITTI_SOAK_PRODUCTION_TRACKED_FRAC * result["tracked"]:
+            bad.append(f"production: tracked {p_result['tracked']} < "
+                       f"{KITTI_SOAK_PRODUCTION_TRACKED_FRAC} x sync's {result['tracked']}")
+        if first_held is not None and not held[-1][2] <= first_held + KITTI_SOAK_MEMORY_MARGIN_MB:
+            bad.append(f"production: memory_reserved as held {held[-1][2]} MB at the end "
+                       f"against {first_held} MB at the first reading after a loop")
+    if bad:
+        raise AssertionError("fusion soak: " + "; ".join(bad))
     return launches
 
 
@@ -3103,8 +3472,8 @@ def main() -> None:
                              f"GBA {gba_graphed}, {gba_again}")
     del store, snapshot, snapshot_eager, lc, lc2, lc3, pg_out
 
-    # 19 starts here, in a child process beside phases 9-18 ------------------
-    long_child = start_long_run_child()
+    # 19 and 20 start here, in child processes beside phases 9-18 ----------
+    children = start_child_phases()
 
     # 9. The loop path end to end -----------------------------------------
     ring = synthetic.ring_world(seed=7, n_points=2500)
@@ -3942,8 +4311,9 @@ def main() -> None:
                                   rgbd_system=system, loop_inputs=loop_inputs,
                                   verification_calls=verification_calls)
 
-    # 19. The long run: run_long at its defaults (the child's) -------------
-    long_launches = finish_long_run_child(*long_child)
+    # 19-20. The long run and the fusion soak (the child's) ----------------
+    child_launches = finish_child_phases(children)
+    long_launches, soak_launches = child_launches["long_run"], child_launches["kitti_soak"]
 
     # Summary -------------------------------------------------------------
     def timed(rec, *keys):  # the keys of the summary line
@@ -3963,7 +4333,8 @@ def main() -> None:
                                    cg_local_ba=dist_launches["cg_local_ba"]["hamming"],
                                    local_ba_obs_cap_24=wide_launches["local_ba"]["hamming"],
                                    graphs_paths=graph_launches["hamming"],
-                                   long_run=long_launches["hamming"]),
+                                   long_run=long_launches["hamming"],
+                                   kitti_soak=soak_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
@@ -3981,7 +4352,8 @@ def main() -> None:
                                    local_ba_obs_cap_24=wide_launches["local_ba"]["ba_assembly"],
                                    gba_obs_per_landmark_32=wide_launches["gba"]["ba_assembly"],
                                    graphs_paths=graph_launches["ba_assembly"],
-                                   long_run=long_launches["ba_assembly"]),
+                                   long_run=long_launches["ba_assembly"],
+                                   kitti_soak=soak_launches["ba_assembly"]),
              max_abs_err=k2_err,
              **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",
@@ -3994,7 +4366,8 @@ def main() -> None:
                                    dist_ba=dist_launches["ba_chi2"],
                                    cg_local_ba=dist_launches["cg_local_ba"]["ba_chi2"],
                                    gba_obs_per_landmark_32=wide_launches["gba"]["ba_chi2"],
-                                   long_run=long_launches["ba_chi2"]),
+                                   long_run=long_launches["ba_chi2"],
+                                   kitti_soak=soak_launches["ba_chi2"]),
              max_abs_err=k3_err,
              **timed(k3[(600, 120000, 7, 2.447)]), library_ms=None),
     ]

@@ -31,7 +31,13 @@ closer (whose global BA then runs on its own thread) for its corrections.
 Both threads launch on the default CUDA stream. An exception on the worker
 is stored and raised in the tracking thread at the next `track_*`, `flush`
 or `shutdown` (the JAX package's worker would stop and leave `flush`
-waiting). `flush` drains the queue and waits for global BA; `shutdown`
+waiting). A keyframe is queued only when the frame that made it is done
+(`_hand_off_keyframes` at the end of each `track_*`, in `flush` and in
+`shutdown`): the frame's trajectory entry is recorded against the
+keyframe's pose as inserted, not against whatever local BA on the worker
+has made of it by then (the JAX package queues it at insertion, so which
+of the two it records depends on which thread takes the lock first).
+`flush` drains the queue and waits for global BA; `shutdown`
 also stops the worker. With pipelined tracking, `get_trajectory`,
 `get_slam_result`, `trajectory_frame_ids` and `shutdown` finalize the
 deferred frame first (`Tracker.flush`).
@@ -121,6 +127,7 @@ class SlamSystem:
         self._worker: Optional[threading.Thread] = None
         self._worker_error: Optional[Exception] = None
         self._shutdown = False
+        self._new_keyframes = []  # made by the frame being tracked, not yet queued
         self.landmarks_reclaimed = 0  # rows given back by `_reclaim_landmarks`
         if cfg.async_mapping:
             self._kf_queue = queue.Queue()
@@ -165,9 +172,21 @@ class SlamSystem:
 
     def _on_new_keyframe(self, kf: int):
         if self._kf_queue is not None:
-            self._kf_queue.put(kf)
+            self._new_keyframes.append(kf)
         else:
             self._map_keyframe(kf)
+
+    def _hand_off_keyframes(self):
+        """Queue the keyframes the tracker made since the last hand-off."""
+        for kf in self._new_keyframes:
+            self._kf_queue.put(kf)
+        self._new_keyframes.clear()
+
+    def _flush_tracker(self):
+        """Finalize pipelined tracking's deferred frame and queue what it made."""
+        self.tracker.flush()
+        if self._kf_queue is not None:
+            self._hand_off_keyframes()
 
     def _mapping_worker(self):
         """Map queued keyframes until the None sentinel. After a failure the
@@ -194,6 +213,7 @@ class SlamSystem:
         """Block until every queued keyframe is mapped (asynchronous mapping)
         and any global BA of the loop closer has finished."""
         if self._kf_queue is not None:
+            self._hand_off_keyframes()
             self._kf_queue.join()
         if self.loop_closer is not None:
             self.loop_closer.wait_gba()
@@ -202,7 +222,7 @@ class SlamSystem:
     def shutdown(self):
         """Finalize the deferred frame, drain and stop the worker, wait for
         global BA (System::Shutdown). Idempotent."""
-        self.tracker.flush()
+        self._flush_tracker()
         if self._kf_queue is not None and not self._shutdown:
             self._kf_queue.join()
             self._kf_queue.put(None)
@@ -217,7 +237,11 @@ class SlamSystem:
         if self._shutdown:
             raise RuntimeError("the mapping worker was shut down")
         self._reclaim_landmarks()
-        return self.tracker.track(frame)
+        try:
+            return self.tracker.track(frame)
+        finally:
+            if self._kf_queue is not None:
+                self._hand_off_keyframes()
 
     def _reclaim_landmarks(self):
         """Compact the store's landmark rows when fewer than
@@ -341,7 +365,7 @@ class SlamSystem:
         state, the landmarks seen last frame, the global map cloud, the
         local-map cloud around the reference keyframe, the trajectory and,
         when it has them, the reference keyframe's LiDAR feature clouds."""
-        self.tracker.flush()
+        self._flush_tracker()
         store, tracker = self.store, self.tracker
         kfs = np.where(store.kf_valid[: store.num_kf])[0]
         lms = np.where(store.lm_valid[: store.num_lm])[0]
@@ -375,7 +399,7 @@ class SlamSystem:
     def get_trajectory(self) -> np.ndarray:
         """Per-frame camera-to-world 4x4 poses, T_wc = (T_rel · T_ref_w)^{-1}
         with the current (BA-corrected) reference keyframe poses."""
-        self.tracker.flush()  # the deferred frame of pipelined tracking
+        self._flush_tracker()  # the deferred frame of pipelined tracking
         out = []
         for _, ref_kf, R_rel, t_rel in self.tracker.trajectory:
             R_ref = self.store.kf_R[ref_kf]
@@ -390,7 +414,7 @@ class SlamSystem:
 
     def trajectory_frame_ids(self) -> np.ndarray:
         """Frame ids matching get_trajectory() rows (lost frames record none)."""
-        self.tracker.flush()
+        self._flush_tracker()
         return np.asarray([fid for fid, _, _, _ in self.tracker.trajectory], np.int64)
 
     def save_trajectory_kitti(self, path: str):

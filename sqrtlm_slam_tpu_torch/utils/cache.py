@@ -18,9 +18,14 @@ gives the eager function's bits.
   caller keeps only its newest captures. The loop correction's programs
   (the essential graph, global BA, the LiDAR pose graph) get new shapes at
   every loop closure; with `max_entries=1` the capture of a new key drops
-  the previous one, whose memory pool goes back to the caching allocator
-  (released to the device at its next `empty_cache`, or when an allocation
-  would otherwise fail). Device memory then holds one capture per program,
+  the previous one and empties the allocator's cache
+  (`torch.cuda.empty_cache`), which gives the dropped graphs' memory pools
+  back to the device: no later capture reuses a private pool, and a run
+  that never emptied the cache grew its reserved memory by GBs a loop
+  correction until it ran out of the card's 80 GB (`run_kitti --mode
+  fusion --loop --pipelined --async-mapping` over `kitti_synth`, frame
+  ~890; PERF.md section 6). A pool whose replay was in flight at the drop is
+  given back at the next one. Device memory then holds one capture per program,
   however many loops a run closes: over `eval/longrun.py`'s 1,000 frames
   the essential graph's step was captured 8 times (a loop and seven
   vetoed corrections, ~480-540 keyframes) and `memory_reserved` after
@@ -230,12 +235,15 @@ class Graphed:
             entry = self._entries.get(key)
             if entry is not None:  # another thread captured it meanwhile
                 return entry
-            if self.max_entries is not None:
+            if self.max_entries is not None and len(self._entries) >= max(self.max_entries, 1):
                 # Oldest first, before the new pool is taken; a replay in
-                # flight keeps its entry alive until it returns.
+                # flight keeps its entry alive until it returns. The dropped
+                # pools go back to the device (see the module docstring).
                 with _lock:
                     while len(self._entries) >= max(self.max_entries, 1):
                         del self._entries[next(iter(self._entries))]
+                with torch.cuda.device(device):
+                    torch.cuda.empty_cache()
             with torch.cuda.device(device):
                 current = torch.cuda.current_stream()
                 # The inputs' own strides: a layout (a solver's column-major

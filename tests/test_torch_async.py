@@ -5,12 +5,16 @@ async run (>= 8 of 10 frames tracked, >= 2 keyframes, ATE < 0.15 m, the
 worker joined after `shutdown`) and tests/test_e2e_synthetic.py's pipelined
 run (every frame tracked, ATE < 0.1 m, `flush` idempotent), cut to 12
 frames here; the 25-frame pipelined run beside the JAX package's is `slow`.
-The port departs from the JAX worker on one point: an exception on the
+The port departs from the JAX worker on two points: an exception on the
 worker is raised in the tracking thread at the next call, where the JAX
-worker would stop and leave `flush` waiting.
+worker would stop and leave `flush` waiting; and a keyframe is queued
+only when its frame is done, so the frame's trajectory entry never races
+the worker's local BA for the lock (the JAX worker may take the keyframe
+first, and the entry then follows its optimized pose).
 """
 
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -76,6 +80,43 @@ def test_async_mapping_tracks_drains_and_joins():
     s.shutdown()  # idempotent
     with pytest.raises(RuntimeError, match="shut down"):
         s.track_depth(*world.render(poses[0], DEFAULT_CAM))
+
+
+def _async_run(tracker_first: bool):
+    """An async run flushed after every frame. `tracker_first`: the worker
+    takes a keyframe off its queue only once the frame that made it has
+    recorded its trajectory entry, as when the tracking thread wins the
+    lock."""
+    world = SyntheticWorld(seed=2, n_points=1000)
+    s = SlamSystem(DEFAULT_CAM, SystemConfig(orb=ORBConfig(max_features=600),
+                                             async_mapping=True), device="cpu")
+    if tracker_first:
+        q, get = s._kf_queue, s._kf_queue.get
+
+        def get_after_the_entry():
+            kf = get()
+            t_end = time.monotonic() + 30
+            while (kf is not None and not (s.tracker.trajectory
+                                           and s.tracker.trajectory[-1][1] >= kf)
+                   and time.monotonic() < t_end):
+                time.sleep(1e-3)
+            return kf
+        q.get = get_after_the_entry  # from the second keyframe (the worker waits in get)
+    for T in forward_trajectory(13, step=0.35):  # local BA from frame 11
+        s.track_depth(*world.render(T, DEFAULT_CAM))
+        s.flush()
+    s.shutdown()
+    return s
+
+
+def test_a_keyframe_is_queued_after_its_frame_is_recorded():
+    """The same bits whether or not the worker is held back until the
+    frame that made a keyframe has recorded its trajectory entry: it cannot
+    reach that keyframe (nor move its pose by local BA) before then."""
+    free, held = _async_run(False), _async_run(True)
+    assert free.local_mapper.num_local_ba >= 1
+    assert np.array_equal(free.get_trajectory(), held.get_trajectory())
+    assert np.array_equal(free.store.kf_R, held.store.kf_R)
 
 
 def test_a_failing_worker_raises_in_the_tracking_thread():

@@ -57,8 +57,11 @@ from sqrtlm_slam_tpu_torch.pipeline import tracking as t_tracking
 
 @pytest.fixture(autouse=True, scope="module")
 def _torch_threads():
+    """One CPU thread: in some processes of the CPU test machine the second
+    OpenMP thread's `torch.sqrt` errs by up to 3e-4 relative, and ranges
+    are compared here at 1e-6 (ROADMAP queue 3)."""
     prev = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
 

@@ -14,7 +14,9 @@ its eager run, called directly and on its own thread
 (`async_gba`); two graphs holding K3, captured on one stream, replay at
 once on two threads' streams as they do alone; device memory after three
 loop closures of different shapes stays within one capture per program of
-its level after the first. Relocalisation and the loop's Sim3
+its level after the first, and a `max_entries=1` program recaptured at
+eight growing shapes holds about one capture's memory without any
+`empty_cache` of the test's. Relocalisation and the loop's Sim3
 verification (`recover_pose_no_prior` and `ransac_sim3` through their
 public names, drawing from a generator outside the graph; `optimize_sim3`
 with fixed and free scale; `project_match` on the loop group padded to
@@ -616,6 +618,34 @@ def test_memory_stays_within_one_capture_per_program_over_three_closures(cuda_de
     assert r1 > r0
     assert r3 - r1 <= r1 - r0, (r0, r1, r3)
     assert all(fn.num_entries() <= fn.max_entries for fn in programs)
+
+
+def test_recaptures_at_growing_shapes_keep_reserved_memory_flat(cuda_device):
+    """A `max_entries=1` program recaptured at eight growing shapes (as the
+    loop correction's programs are, once a correction) holds about one
+    capture's memory as the run holds it: the test never empties the
+    allocator's cache, so a dropped graph's pool that stayed cached would
+    add its ~200 MB at every recapture."""
+
+    def body(x):
+        y = x * 2.0
+        z = y + 1.0
+        return (z * y).sum(0)
+
+    fn = cache.graphed(body, max_entries=1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(cuda_device)
+    held = []
+    for i in range(8):
+        x = torch.rand(16384 + 512 * i, 1024, device=cuda_device)  # 64 MB, +2 MB a step
+        out = fn(x)
+        assert torch.equal(out, body(x))
+        del x, out
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_reserved(cuda_device) - base)
+    assert fn.captures == 8 and fn.num_entries() == 1
+    assert max(held) <= 2 * held[0], [h / 2**20 for h in held]
 
 
 def _verification_programs(dev):
