@@ -292,15 +292,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      In the whole smoke phases 19 and 20 each run in a child process
      started after phase 8, beside phases 9-18 (their lines are printed
      after phase 18's), so that they fit the smoke's time; alone they run
-     undisturbed. The lines of phases 9-20 in a whole smoke carry
+     undisturbed. The lines of phases 9-21 in a whole smoke carry
      `shared_with`: their times were taken on a card and host the three
      processes shared.
+ 21. the LiDAR soak (`lidar_soak_phase`, also callable alone): the
+     `lidar_slam` node's operating point over `kitti_synth`'s 1,000 scans
+     (64 x 1800 rays, scans only; the whole smoke links phase 20's 600
+     and writes the rest): (a) `run_kitti --mode lidar` in process, (c)
+     `backend_for_loop` / `backend_for_gnss` over (a)'s 1,000-pose chain
+     graphed, replayed and eager, (b) mapping mode over the first lap,
+     then localization over every scan against its keyframes' map; every
+     100 scans scans/s, ms by stage, associations, occupied voxels,
+     captures, replays, host reads, memory as held and RSS; gates against
+     the JAX package's CPU record (`eval/lidar_soak.py`), on captures and
+     on memory (its docstring). In the whole smoke it runs in the main
+     process after phase 18, while phases 19 and 20 finish.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
 replayed 4-shard call, `cg_local_ba` from phase 16 (a)'s KITTI-size run with
 the cg backend, `graphs_paths` from phase 18 (b)'s graphed runs, `long_run`
-from phase 19, `kitti_soak` from phase 20's sync run; a
+from phase 19, `kitti_soak` from phase 20's sync run, `lidar_soak` from
+phase 21 (none: LiDAR-only odometry matches no descriptor and runs no
+BA); a
 captured graph adds its kernels' launches at each replay), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
@@ -3055,6 +3069,377 @@ def kitti_soak_phase(n_frames: int = KITTI_SOAK_SMOKE_FRAMES, production: bool =
     return launches
 
 
+# 21. The LiDAR soak: the `lidar_slam` node's operating point. The JAX
+# package's record of the same scans is `eval/lidar_soak.py`'s JAX_RECORD
+# (its runs on the CPU through `scripts/lidar_soak_reference.py --package
+# jax`; PERF.md section 5) with the margins of `lidar_soak.GATES`. The scans
+# are `kitti_synth`'s at its defaults, scans only (`scans_only=True`); the
+# sha256 of the first N (`lidar_soak.scan_digest`) as this phase's writer
+# and the one of a whole 1,000-frame write (images too) give them: a
+# scan's bytes do not depend on the sequence's length, so the whole smoke
+# links phase 20's 600 scans and writes the rest.
+LIDAR_SOAK_DIGEST = {
+    1000: "f2ea99b9c7096422cbb9fc2bb6e9b387853268a7ba00dcffd58b01c6fdf21156",
+    600: "649c6e50e7b9a8cdcc80aa5b03a4485ade7f25fec1aef044efdd7ed8137039b4",
+}
+LIDAR_SOAK_MEMORY_MARGIN_MB = 256.0
+LIDAR_SOAK_STAGES = ("extraction", "alignment", "keyframe_test", "keyframe_insertion")
+LIDAR_SOAK_FUNCTIONS = ("lidar.features.extract_features_jit", "lidar.odometry.align_scan",
+                        "lidar.odometry._retract_jit", "lidar.odometry._local_delta_jit",
+                        "lidar.backend._gn_step_jit")
+
+
+def write_lidar_soak(n_scans: int, reuse: str | None = None) -> dict:
+    """The LiDAR soak's scans under build/chip_smoke_lidar: `eval/kitti_synth`
+    at its defaults with the centred 64 x 1800-ray scans, scans only, in
+    processes on half the cores. `reuse`: a root of the same sequence
+    (phase 20's) whose scans are linked in, the rest written."""
+    import shutil
+
+    from sqrtlm_slam_tpu_torch.eval import kitti_synth, lidar_soak
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_lidar")
+    shutil.rmtree(root, ignore_errors=True)
+    velo = os.path.join(root, "sequences", "00", "velodyne")
+    os.makedirs(velo)
+    first = 0
+    if reuse and os.path.exists(os.path.join(reuse, "poses", "00.txt")):  # written last
+        src = os.path.join(reuse, "sequences", "00", "velodyne")
+        first = min(len(os.listdir(src)), n_scans)
+        for i in range(first):
+            os.link(os.path.join(src, f"{i:06d}.bin"), os.path.join(velo, f"{i:06d}.bin"))
+    workers = max(2, (os.cpu_count() or 2) // 2)
+    t0 = time.perf_counter()
+    kitti_synth.generate(root, n_frames=n_scans, workers=workers, centred=True,
+                         scans_only=True, first_frame=first, log=lambda *a: None)
+    rec = dict(root=root, scans=n_scans, linked=first, workers=workers,
+               write_s=time.perf_counter() - t0, digest=lidar_soak.scan_digest(root, n_scans))
+    rec["digest_equals_reference"] = (rec["digest"] == LIDAR_SOAK_DIGEST[n_scans]
+                                      if n_scans in LIDAR_SOAK_DIGEST else None)
+    emit("lidar_soak_setup", **rec)
+    if rec["digest_equals_reference"] is False:
+        raise AssertionError(f"LiDAR soak: the scans differ from the reference's: {rec}")
+    return rec
+
+
+def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
+                     localization_scans: int = 0, reuse: str | None = None,
+                     device: str = "cuda") -> dict:
+    """21. The LiDAR soak, also callable alone (`reuse` None: every scan
+    written here). On the card, each run read by `eval/lidar_soak.py`'s
+    `Recorder` (every scan's `process` between synchronizes; feature
+    extraction, alignment, the keyframe test and keyframe insertion each
+    bracketed by synchronizes):
+      (a) `run_kitti --mode lidar` in process over the first `n_scans`
+          scans at the runner's defaults (`OdomConfig()`, the sequence's
+          `LidarConfig`, `pad_cloud`'s 16,384-row buckets);
+      (c) on (a)'s chain, `backend_for_loop` and `backend_for_gnss` as
+          `scripts/lidar_soak_reference.py` calls them, each graphed cold
+          (with the capture), again (replays) and eager
+          (`disable_graphs`): ms, the memory the capture keeps, the
+          three chains bitwise equal; at 1,000 scans also on the JAX
+          package's own chain (`lidar_soak_jax.npz`) against its result;
+      (b) `mode="mapping"` over `mapping_scans` (0: the first lap), then
+          `set_prior_map` of its keyframes' clouds and localization over
+          `localization_scans` (0: `n_scans`) from scan 0.
+    Every 100 scans a line: scans/s, ms a scan p50 / p95 and by stage,
+    associations a scan, the window's occupied voxels against the
+    capacity, captures and replays of the graphed functions, host reads a
+    scan, memory_reserved as held (no `empty_cache`), RSS. Gates against the
+    JAX package's record at each run's depth (`lidar_soak.gates`): (a) and
+    the localization run; mapping's keyframes where it ran the JAX run's
+    scans; the prior map's kept voxels; (c) the end drift cut at least as
+    far as the JAX run cuts it and, on the JAX chain, its result within
+    `lidar_soak.BACKEND_TOL_M`; no capture after scan 100 of (a) but at a
+    scan of a new `pad_cloud` bucket; memory_reserved as held at the end of
+    (a) within LIDAR_SOAK_MEMORY_MARGIN_MB of its reading at scan 100.
+    Launch counters zeroed just before and read just after: this path
+    launches none of K1-K3 (returned). `device="cpu"` rehearses the phase
+    (no graph, no memory reading; the depths must be ones the record holds:
+    `lidar_soak_phase(100, 30, 100, device="cpu")`, ~2 min)."""
+    import torch
+    from sqrtlm_slam_tpu_torch import run_kitti, utils
+    from sqrtlm_slam_tpu_torch.eval import lidar_soak
+    from sqrtlm_slam_tpu_torch.geometry import se3
+    from sqrtlm_slam_tpu_torch.lidar import backend, features, odometry
+    from sqrtlm_slam_tpu_torch.ops import hamming
+    from sqrtlm_slam_tpu_torch.optim import assembly
+    from sqrtlm_slam_tpu_torch.utils import cache
+    from sqrtlm_slam_tpu_torch.utils.config import kitti_sequence_config
+
+    del backend  # imported for its graphed step, counted below
+    jax_rec = lidar_soak.JAX_RECORD
+    localization_scans = localization_scans or n_scans
+    for run, depth in (("slam", n_scans), ("localization", localization_scans)):
+        lidar_soak.at_depth(jax_rec[run], depth)  # raises at a depth the record lacks
+    setup = write_lidar_soak(n_scans, reuse)
+    root = setup["root"]
+    gt_l = lidar_soak.lidar_gt(root)
+    mapping_scans = mapping_scans or lidar_soak.first_lap(gt_l)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def held_mb() -> float:
+        return torch.cuda.memory_reserved() / 2**20 if on_card else 0.0
+
+    def host(x):
+        return x.detach().cpu().numpy() if torch.is_tensor(x) else x
+
+    graphs = {n: g for n, g in cache.graphed_functions().items() if n in LIDAR_SOAK_FUNCTIONS}
+    names = {id(g): n for n, g in graphs.items()}
+    rows = [os.path.getsize(os.path.join(root, "sequences", "00", "velodyne", f"{i:06d}.bin"))
+            // 16 for i in range(n_scans)]
+    buckets = [max(16384, -(-n // 16384) * 16384) for n in rows]
+    replays, stage = {}, {}
+    scans = {}  # run -> per scan: ms, stages, keyframe, captures, reads, bucket
+    held = {}  # run -> [(scan, memory_reserved as held, MB)] every 100 scans
+
+    def counting_replay(fn):
+        def call(self, *a, **k):
+            n = names.get(id(self), self.__name__)
+            replays[n] = replays.get(n, 0) + 1
+            return fn(self, *a, **k)
+        return call
+
+    def bracket(name, fn):
+        return staged_into(stage, name, fn) if on_card else fn
+
+    patches = [(features, "extract_features_jit", bracket, "extraction"),
+               (odometry, "align_scan", bracket, "alignment"),
+               (odometry.LidarOdometry, "_is_keyframe", bracket, "keyframe_test"),
+               (odometry.LidarOdometry, "_insert_keyframe", bracket, "keyframe_insertion"),
+               (cache.Graphed, "_replay", lambda _, fn: counting_replay(fn), None)]
+
+    @contextlib.contextmanager
+    def instrumented():
+        kept = [(o, a, getattr(o, a)) for o, a, _, _ in patches]
+        for o, a, make, name in patches:
+            setattr(o, a, make(name, getattr(o, a)))
+        try:
+            yield
+        finally:
+            for o, a, f in kept:
+                setattr(o, a, f)
+
+    def recorder(run: str, **kw):
+        per_scan = scans.setdefault(run, [])
+        marks = dict(captures=utils.graph_captures, reads=utils.host_reads)
+        rec = None
+
+        def on_scan(k):
+            per_scan.append(dict(ms=rec.ms[-1], keyframe=rec.keyframe[-1],
+                                 stages={n: 1e3 * sum(v) for n, v in stage.items()},
+                                 captures=utils.graph_captures - marks["captures"],
+                                 reads=utils.host_reads - marks["reads"],
+                                 bucket=buckets[k] if k < len(buckets) else None))
+            marks.update(captures=utils.graph_captures, reads=utils.host_reads)
+            stage.clear()
+
+        def every_100(line: str):
+            part = per_scan[-100:]
+            mb = held_mb()
+            held.setdefault(run, []).append((len(per_scan), mb))
+            emit("lidar_soak_progress", run=run, line=line, **split(part, rec.matches[-100:]),
+                 voxels_last=rec.voxels[-1] if rec.voxels else None,
+                 capacity=odometry.OdomConfig().map_capacity,
+                 captures={n: g.captures for n, g in graphs.items()},
+                 replays=dict(sorted(replays.items())),
+                 reserved_as_held_mb=mb, rss_mb=rss_mb())
+
+        rec = lidar_soak.Recorder(odometry.LidarOdometry, odometry, gt_l, host, every=100,
+                                  log=every_100, sync=sync, on_scan=on_scan, **kw)
+        return rec
+
+    def split(part, matches) -> dict:
+        if not part:
+            return {}
+        by_stage = {}
+        for name in LIDAR_SOAK_STAGES:
+            ms = [s["stages"][name] for s in part if name in s["stages"]]
+            by_stage[name] = (dict(n=len(ms), p50=float(np.percentile(ms, 50)),
+                                   p95=float(np.percentile(ms, 95))) if ms else None)
+        m = [x for x in matches if x is not None]
+        return dict(scans_per_s=len(part) / (1e-3 * sum(s["ms"] for s in part)),
+                    scan_ms=percentiles([s["ms"] for s in part]),
+                    keyframe_scan_ms=percentiles([s["ms"] for s in part if s["keyframe"]]),
+                    stage_ms=by_stage,
+                    associations_per_scan=float(np.mean(m)) if m else None,
+                    host_reads_per_scan=sum(s["reads"] for s in part) / len(part))
+
+    def outcome(res: dict) -> dict:
+        return {k: v for k, v in res.items() if k not in ("progress", "matches", "ms")}
+
+    bad = []
+    hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
+    t_phase = time.perf_counter()
+    with instrumented():
+        # -- (a) slam, through the runner --------------------------------------
+        utils.host_reads = utils.graph_captures = 0
+        with recorder("slam", record_chain=True) as rec_a:
+            summary = run_kitti.main(["--root", root, "--seq", "00", "--mode", "lidar",
+                                      "--frames", str(n_scans), "--device", device,
+                                      "--out", os.path.join(root, "traj_lidar.txt")])
+        sync()
+        held_end = held_mb()
+        res_a = rec_a.result()
+        per_a = scans["slam"]
+        held_100 = held["slam"][0][1]
+        seen, late = set(), []
+        for k, s in enumerate(per_a):
+            if k >= 100 and s["captures"] and s["bucket"] in seen:
+                late.append((k, s["captures"], s["bucket"]))
+            seen.add(s["bucket"])
+        ref_a = lidar_soak.at_depth(jax_rec["slam"], n_scans)
+        gate_a = lidar_soak.gates(res_a, ref_a)
+        emit("lidar_soak", run="slam", scans=n_scans, runner=summary, outcome=outcome(res_a),
+             jax=ref_a, margins=lidar_soak.GATES, failures=gate_a,
+             whole_run=split(per_a, res_a["matches"]),
+             first_100=split(per_a[:100], res_a["matches"][:100]),
+             last_100=split(per_a[-100:], res_a["matches"][-100:]),
+             buckets=sorted(set(buckets)), captures_after_scan_100=late,
+             captures={n: g.captures for n, g in graphs.items()},
+             replays=dict(sorted(replays.items())),
+             host_reads_per_scan=sum(s["reads"] for s in per_a) / len(per_a),
+             reserved_as_held_mb=dict(by_100=held["slam"], end=held_end),
+             note="run_kitti --mode lidar in process; ms: process() between synchronizes; "
+                  "stages bracketed by synchronizes; memory as held (no empty_cache)")
+        bad += [f"(a) {f}" for f in gate_a]
+        if late:
+            bad.append(f"(a) captures after scan 100 at a known bucket: {late}")
+        if not held_end <= held_100 + LIDAR_SOAK_MEMORY_MARGIN_MB:
+            bad.append(f"(a) memory_reserved as held {held_end} MB at the end against "
+                       f"{held_100} MB at scan 100")
+
+        # -- (c) the backends on (a)'s chain ------------------------------------
+        odo = rec_a.odo
+        recorded = list(odo._chain)
+        last = len(recorded) - 1
+        before = lidar_soak.chain_matrices(recorded, host)
+        drift_before = lidar_soak.end_drift(before, gt_l)
+        j = lidar_soak.loop_pair(gt_l, last)
+        T = lidar_soak.relative(gt_l, j, last)
+
+        def on_device(M):
+            return se3.SE3(torch.as_tensor(M[:3, :3], dtype=torch.float32, device=dev),
+                           torch.as_tensor(M[:3, 3], dtype=torch.float32, device=dev))
+
+        T_ji = on_device(T)
+        anchors = lidar_soak.gnss_anchors(gt_l, len(recorded))
+        jax_c = jax_rec["backends"]
+        backends = {}
+        for name, call in (("loop", lambda: odo.backend_for_loop(j, last, T_ji)),
+                           ("gnss", lambda: odo.backend_for_gnss(anchors))):
+            odo._chain = list(recorded)
+            mem0 = kept_bytes() if on_card else 0
+            chain_g, cold = run_counted(call)
+            kept_mb = ((kept_bytes() if on_card else 0) - mem0) / 2**20
+            odo._chain = list(recorded)
+            chain_r, again = run_counted(call)
+            odo._chain = list(recorded)
+            with cache.disable_graphs():
+                chain_e, eager = run_counted(call)
+            equal = all(same_bits((a.R, a.t), (b.R, b.t)) and same_bits((a.R, a.t), (c.R, c.t))
+                        for a, b, c in zip(chain_g, chain_r, chain_e))
+            after = lidar_soak.end_drift(lidar_soak.chain_matrices(chain_g, host), gt_l)
+            jax_cut = (jax_c[name]["end_drift_after_m"] / jax_c["end_drift_before_m"]
+                       if n_scans == jax_c["chain_length"] else None)
+            backends[name] = dict(
+                end_drift_before_m=drift_before, end_drift_after_m=after,
+                cut=after / drift_before, jax_cut=jax_cut,
+                cold_ms=1e3 * cold["s"], replayed_ms=1e3 * again["s"],
+                eager_ms=1e3 * eager["s"], cold=cold, replayed=again, eager=eager,
+                capture_kept_mb=kept_mb, bitwise_equal=equal)
+            if not equal:
+                bad.append(f"(c) {name}: the graphed, replayed and eager chains differ")
+            tol = lidar_soak.CUT_TOL[name]
+            if jax_cut is not None and not after / drift_before <= jax_cut + tol:
+                bad.append(f"(c) {name}: end drift {drift_before} -> {after} m, a cut of "
+                           f"{after / drift_before:.4f} against the JAX run's {jax_cut:.4f}")
+        odo._chain = recorded
+        # The JAX package's own chain through the card's backend, against its result.
+        on_jax = {}
+        if n_scans == jax_c["chain_length"]:
+            data = np.load(os.path.join(os.path.dirname(lidar_soak.__file__),
+                                        "lidar_soak_jax.npz"))
+            chain_j = [on_device(M) for M in data["slam"]]
+            for name, call in (
+                    ("loop", lambda: odo.backend_for_loop(jax_c["loop"]["i"], last, T_ji)),
+                    ("gnss", lambda: odo.backend_for_gnss(anchors))):
+                odo._chain = list(chain_j)
+                got = lidar_soak.chain_matrices(call(), host)
+                diff = float(np.abs(lidar_soak.chain_positions(got)
+                                    - lidar_soak.chain_positions(data[f"backend_{name}"])).max())
+                on_jax[name] = dict(max_position_diff_m=diff, tol_m=lidar_soak.BACKEND_TOL_M)
+                if not diff <= lidar_soak.BACKEND_TOL_M:
+                    bad.append(f"(c) {name} on the JAX chain: {diff} m from the JAX result")
+            odo._chain = recorded
+        emit("lidar_soak", run="backends", chain_length=len(recorded), loop_pair=[j, last],
+             anchors=[k for k, _ in anchors], anchors_used=lidar_soak.A_CAP, **backends,
+             on_the_jax_chain=on_jax, jax=jax_c,
+             note="cold: the first call (captures); replayed: again; eager: disable_graphs; "
+                  "capture_kept_mb: memory_reserved after empty_cache, before and after cold")
+        del odo, rec_a, recorded
+
+        # -- (b) mapping over the first lap, then localization -------------------
+        feat_cfg = kitti_sequence_config("00").lidar
+        odo_m = odometry.LidarOdometry(feat_cfg=feat_cfg, device=dev)
+        odo_m.mode = "mapping"
+        with recorder("mapping") as rec_m:
+            for i in range(mapping_scans):
+                odo_m.process(lidar_soak.scan(root, i))
+        res_m = rec_m.result()
+        prior = lidar_soak.prior_map(odo_m, host)
+        del odo_m
+        loc = odometry.LidarOdometry(feat_cfg=feat_cfg, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        loc.set_prior_map(**prior)
+        sync()
+        prior_ms = 1e3 * (time.perf_counter() - t0)
+        voxels = lidar_soak.prior_map_voxels(prior, loc._local_map, loc.cfg, host)
+        with recorder("localization") as rec_l:
+            for i in range(localization_scans):
+                loc.process(lidar_soak.scan(root, i))
+        res_l = rec_l.result()
+        jax_m, jax_l = jax_rec["mapping"], jax_rec["localization"]
+        gate_m = []
+        if mapping_scans == jax_m["scans"]:
+            tol = lidar_soak.GATES["keyframes_tol"]
+            if not abs(res_m["keyframes"] - jax_m["keyframes"]) <= tol * jax_m["keyframes"]:
+                gate_m.append(f"keyframes {res_m['keyframes']} not within {tol:.0%} of the "
+                              f"JAX run's {jax_m['keyframes']}")
+            for cls in ("corner", "flat"):
+                got, want = voxels[f"{cls}_kept"], jax_l["prior_map"][f"{cls}_kept"]
+                if abs(got - want) > lidar_soak.KEPT_VOXELS_TOL[cls]:
+                    gate_m.append(f"prior map's kept {cls} voxels {got} against the JAX "
+                                  f"run's {want}")
+        ref_l = lidar_soak.at_depth(jax_l, localization_scans)
+        gate_l = lidar_soak.gates(res_l, ref_l)
+        emit("lidar_soak", run="mapping", scans=mapping_scans, outcome=outcome(res_m),
+             jax={k: jax_m[k] for k in ("scans", "keyframes", "ate_rmse_m", "voxels_last")},
+             failures=gate_m, whole_run=split(scans["mapping"], res_m["matches"]),
+             last_100=split(scans["mapping"][-100:], res_m["matches"][-100:]),
+             reserved_as_held_mb=held.get("mapping"))
+        emit("lidar_soak", run="localization", scans=localization_scans, outcome=outcome(res_l),
+             prior_map=voxels, set_prior_map_ms=prior_ms, jax=ref_l,
+             jax_prior_map=jax_l["prior_map"], failures=gate_l,
+             whole_run=split(scans["localization"], res_l["matches"]),
+             reserved_as_held_mb=held.get("localization"))
+        bad += [f"(b) mapping: {f}" for f in gate_m] + [f"(b) localization: {f}" for f in gate_l]
+    sync()
+    launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count,
+                "ba_chi2": assembly.chi2_launch_count}
+    emit("lidar_soak_done", seconds=time.perf_counter() - t_phase, launches=launches,
+         failures=bad)
+    if bad:
+        raise AssertionError("LiDAR soak: " + "; ".join(bad))
+    return launches
+
+
 def main() -> None:
     global CARD
     import torch
@@ -4311,6 +4696,11 @@ def main() -> None:
                                   rgbd_system=system, loop_inputs=loop_inputs,
                                   verification_calls=verification_calls)
 
+    # 21. The LiDAR soak, beside the children's last minutes ---------------
+    lidar_launches = lidar_soak_phase(
+        reuse=os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_soak"))
+
     # 19-20. The long run and the fusion soak (the child's) ----------------
     child_launches = finish_child_phases(children)
     long_launches, soak_launches = child_launches["long_run"], child_launches["kitti_soak"]
@@ -4334,7 +4724,8 @@ def main() -> None:
                                    local_ba_obs_cap_24=wide_launches["local_ba"]["hamming"],
                                    graphs_paths=graph_launches["hamming"],
                                    long_run=long_launches["hamming"],
-                                   kitti_soak=soak_launches["hamming"]),
+                                   kitti_soak=soak_launches["hamming"],
+                                   lidar_soak=lidar_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
@@ -4353,7 +4744,8 @@ def main() -> None:
                                    gba_obs_per_landmark_32=wide_launches["gba"]["ba_assembly"],
                                    graphs_paths=graph_launches["ba_assembly"],
                                    long_run=long_launches["ba_assembly"],
-                                   kitti_soak=soak_launches["ba_assembly"]),
+                                   kitti_soak=soak_launches["ba_assembly"],
+                                   lidar_soak=lidar_launches["ba_assembly"]),
              max_abs_err=k2_err,
              **timed(k2[(32, 4096, 8, 2.447)]), library_ms=None),
         dict(name="ba_chi2", route="cuda",
@@ -4367,7 +4759,8 @@ def main() -> None:
                                    cg_local_ba=dist_launches["cg_local_ba"]["ba_chi2"],
                                    gba_obs_per_landmark_32=wide_launches["gba"]["ba_chi2"],
                                    long_run=long_launches["ba_chi2"],
-                                   kitti_soak=soak_launches["ba_chi2"]),
+                                   kitti_soak=soak_launches["ba_chi2"],
+                                   lidar_soak=lidar_launches["ba_chi2"]),
              max_abs_err=k3_err,
              **timed(k3[(600, 120000, 7, 2.447)]), library_ms=None),
     ]

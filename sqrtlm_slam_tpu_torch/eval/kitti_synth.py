@@ -23,6 +23,10 @@ fault of the reference). `centred=True` (`--centred-scans`) writes instead
 (`planeworld.center_scan_on_columns`) and the `Tr` that goes with them: the
 sequence every fusion run of the port reads (the KITTI runner's smoke
 phases and the fusion soak), and the JAX package's runner with it.
+`scans_only=True` (`--scans-only`) leaves out the images: `calib.txt`,
+`times.txt`, the scans and the poses, the same bytes as the full write's
+(what LiDAR-only odometry reads); `first_frame=k` (`--first-frame k`)
+writes the frames from k on, the earlier ones being the caller's.
 
 Each frame depends only on the world and its index (`noise_seed=i`), so
 `workers > 1` writes the frames in that many processes of this module's
@@ -33,7 +37,7 @@ at 1226x370 take ~20 minutes in one process on one server CPU core).
 Usage:
     python -m sqrtlm_slam_tpu_torch.eval.kitti_synth --out <dir> \
         --frames 1000 [--seq 00] [--seed 0] [--step 0.8] [--workers 8] \
-        [--centred-scans]
+        [--centred-scans] [--scans-only] [--first-frame K]
 """
 
 from __future__ import annotations
@@ -82,14 +86,15 @@ def _camera():
     return Camera(fx=KITTI_FX, fy=KITTI_FY, cx=KITTI_CX, cy=KITTI_CY, bf=KITTI_BF)
 
 
-def _write_frames(frames, world, poses, cam, seq_dir, centred):
+def _write_frames(frames, world, poses, cam, seq_dir, centred, images=True):
     from .planeworld import T_CAM_VELO
 
     for i in frames:
         T = poses[i]
-        img, _ = world.render(T, cam, H=KITTI_H, W=KITTI_W, noise_seed=i)
-        write_png(os.path.join(seq_dir, "image_0", f"{i:06d}.png"),
-                  np.asarray(img).astype(np.uint8))
+        if images:
+            img, _ = world.render(T, cam, H=KITTI_H, W=KITTI_W, noise_seed=i)
+            write_png(os.path.join(seq_dir, "image_0", f"{i:06d}.png"),
+                      np.asarray(img).astype(np.uint8))
         if centred:
             scan, _ = centred_scan(world, T, i)
         else:
@@ -104,9 +109,11 @@ _ONE_THREAD = {k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
                                 "MKL_NUM_THREADS", "VECLIB_MAXIMUM_THREADS")}
 
 
-def _run_workers(out, seq, n_frames, seed, step, centred, workers, log):
+def _run_workers(out, seq, n_frames, seed, step, centred, workers, log, scans_only=False,
+                 first_frame=0):
     """`workers` processes of this module, each writing every workers-th
-    frame; their progress is read off the PNGs written."""
+    frame from `first_frame` on; their progress is read off the files
+    written (the PNGs, or the scans when `scans_only`)."""
     import subprocess
     import sys
     import tempfile
@@ -116,19 +123,21 @@ def _run_workers(out, seq, n_frames, seed, step, centred, workers, log):
                PYTHONPATH=os.pathsep.join(p for p in (top, os.environ.get("PYTHONPATH")) if p))
     base = [sys.executable, "-m", f"{__package__}.kitti_synth", "--out", out, "--seq", seq,
             "--frames", str(n_frames), "--seed", str(seed), "--step", repr(step)]
-    base += ["--centred-scans"] * centred
+    base += ["--centred-scans"] * centred + ["--scans-only"] * scans_only
+    base += ["--first-frame", str(first_frame)]
     errs = [tempfile.TemporaryFile("w+") for _ in range(workers)]
     procs = [subprocess.Popen(base + ["--slice", f"{k}/{workers}"], env=env,
                               stdout=subprocess.DEVNULL, stderr=err)
              for k, err in enumerate(errs)]
-    image_dir = os.path.join(out, "sequences", seq, "image_0")
-    t0, logged = time.perf_counter(), 0
+    watched = os.path.join(out, "sequences", seq, "velodyne" if scans_only else "image_0")
+    before = len(os.listdir(watched))
+    t0, logged = time.perf_counter(), first_frame
     try:
         while any(p.poll() is None for p in procs):
             time.sleep(1.0)
-            done = len(os.listdir(image_dir))
+            done = len(os.listdir(watched)) - before + first_frame
             if done // 50 > logged // 50:
-                rate = done / (time.perf_counter() - t0)
+                rate = (done - first_frame) / (time.perf_counter() - t0)
                 log(f"[kitti_synth] ~{done}/{n_frames} frames, {workers} processes "
                     f"({rate:.1f} f/s, eta {(n_frames - done) / rate:.0f}s)")
                 logged = done
@@ -156,17 +165,22 @@ def generate(
     workers: int = 1,
     centred: bool = False,
     world=None,
+    scans_only: bool = False,
+    first_frame: int = 0,
 ) -> None:
     """Write the sequence under `out`. `workers > 1`: the frames in that
     many processes (the same bytes). `centred`: the 64 x 1800-ray scans of
-    `centred_scan` and their `Tr`. `world`: the street
+    `centred_scan` and their `Tr`. `scans_only`: no images. `first_frame`:
+    write frames `first_frame` .. `n_frames - 1` only (calib, times and
+    poses whole). `world`: the street
     (`street_circuit_world(seed)`), if the caller has built it (used in
     this process only)."""
     from .planeworld import T_CAM_VELO, center_scan_on_columns, circuit_trajectory
 
     cam = _camera()
     seq_dir = os.path.join(out, "sequences", seq)
-    os.makedirs(os.path.join(seq_dir, "image_0"), exist_ok=True)
+    if not scans_only:
+        os.makedirs(os.path.join(seq_dir, "image_0"), exist_ok=True)
     os.makedirs(os.path.join(seq_dir, "velodyne"), exist_ok=True)
     os.makedirs(os.path.join(out, "poses"), exist_ok=True)
 
@@ -185,9 +199,10 @@ def generate(
     log(f"[kitti_synth] trajectory: {n_frames} frames x {step} m "
         f"= {n_frames * step / perim:.2f} laps of {perim:.0f} m")
     t0 = time.perf_counter()
-    workers = max(1, min(workers, n_frames))
+    workers = max(1, min(workers, n_frames - first_frame))
     if workers > 1:
-        _run_workers(out, seq, n_frames, seed, step, centred, workers, log)
+        _run_workers(out, seq, n_frames, seed, step, centred, workers, log, scans_only,
+                     first_frame)
     else:
         from .planeworld import street_circuit_world
 
@@ -195,11 +210,11 @@ def generate(
             world = street_circuit_world(seed=seed)
             log(f"[kitti_synth] world: {len(world.planes)} textured planes "
                 f"({time.perf_counter() - t0:.1f}s)")
-        for lo in range(0, n_frames, 50):
+        for lo in range(first_frame, n_frames, 50):
             _write_frames(range(lo, min(lo + 50, n_frames)), world, poses, cam, seq_dir,
-                          centred)
+                          centred, images=not scans_only)
             done = min(lo + 50, n_frames)
-            rate = done / (time.perf_counter() - t0)
+            rate = (done - first_frame) / (time.perf_counter() - t0)
             log(f"[kitti_synth] {done}/{n_frames} frames "
                 f"({rate:.1f} f/s, eta {(n_frames - done) / rate:.0f}s)")
 
@@ -225,19 +240,26 @@ def main(argv=None):
     ap.add_argument("--workers", type=int, default=1, help="processes writing frame ranges")
     ap.add_argument("--centred-scans", action="store_true",
                     help="64 x 1800-ray scans on the range image's column centres")
+    ap.add_argument("--scans-only", action="store_true",
+                    help="no images: calib, times, scans and poses")
+    ap.add_argument("--first-frame", type=int, default=0,
+                    help="write frames from this one on (the earlier ones exist)")
     ap.add_argument("--slice", default=None, metavar="K/N",
                     help="write only frames K, K+N, ... (a worker of --workers N)")
     args = ap.parse_args(argv)
     if args.slice is None:
         generate(args.out, args.seq, args.frames, args.seed, args.step,
-                 workers=args.workers, centred=args.centred_scans)
+                 workers=args.workers, centred=args.centred_scans,
+                 scans_only=args.scans_only, first_frame=args.first_frame)
         return
     from .planeworld import circuit_trajectory, street_circuit_world
 
     k, n = (int(x) for x in args.slice.split("/"))
     poses, _ = circuit_trajectory(args.frames, step=args.step)
-    _write_frames(range(k, args.frames, n), street_circuit_world(seed=args.seed), poses,
-                  _camera(), os.path.join(args.out, "sequences", args.seq), args.centred_scans)
+    _write_frames(range(args.first_frame + k, args.frames, n),
+                  street_circuit_world(seed=args.seed), poses, _camera(),
+                  os.path.join(args.out, "sequences", args.seq), args.centred_scans,
+                  images=not args.scans_only)
 
 
 if __name__ == "__main__":
