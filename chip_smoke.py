@@ -288,7 +288,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      (its docstring). Alone, `kitti_soak_phase(n_frames=1000, production=True)`
      runs the whole sequence (its counts gated at frame 700, where the
      JAX record ends) and then `--pipelined --async-mapping` over it. Phases 19 and
-     20 read their runs through one `RunProbe`.
+     20 read their runs through one `RunProbe`, phase 21 through its
+     runner-independent half, `GraphProbe`.
      In the whole smoke phases 19 and 20 each run in a child process
      started after phase 8, beside phases 9-18 (their lines are printed
      after phase 18's), so that they fit the smoke's time; alone they run
@@ -2278,37 +2279,31 @@ MAPPING_STAGES = ("map_point_culling", "create_new_map_points", "search_in_neigh
                   "local_ba", "keyframe_culling")
 
 
-class RunProbe:
-    """What phases 19 and 20 read of a long run, while the `with` block runs.
+class GraphProbe:
+    """The captured graphs and the bracketed calls of a run on the card,
+    while the `with` block runs (phases 19-21). Each capture is timed and
+    placed (`frame`, function, ms, `marked`, a hash of its inputs' shapes);
+    each replay is counted by function (`replay_counts`); each call of
+    `brackets` ((owner, attribute, stage)) runs between synchronizes, its
+    ms added to `stages[stage]` and its calls to `counts[stage]` (the
+    caller clears both between items), then `on_call(stage, args, ms,
+    out)`. `frame` is the index of the item being run (-1 before the
+    first); `marked` is held up while a call of `marking` (a stage) runs.
+    `patch(owner, attr, make)` replaces any other attribute for the block
+    (`eval/soak.py`'s `Patches`)."""
 
-    The system's `track_attr` (`track_depth`, `track_fusion`) is timed
-    between synchronizes, a frame at a time: ms, tracked, keyframe
-    inserted, loop closed, captures, each bracketed call's ms (`stages`) and
-    calls, and `extra(system)`. Bracketed by synchronizes: the loop
-    corrector's calls (also kept in `loop_calls`), its keyframe insertion
-    (`loop_closer`), the frame build, the landmark reclaim, the tracker's
-    keyframe insertion, local mapping's `process_keyframe` and
-    `mapping_stages`, the essential graph, and `more` ((owner, attribute,
-    stage)). SearchAndFuse's host work inside a correction (`fuse`) is timed
-    on the host clock. Each capture is timed and placed (frame, function,
-    ms, inside a correction, its inputs' shapes); each replay is counted,
-    a per-loop program's (`max_entries=1`) also timed. Every correction is
-    kept (frame, committed, ms, the veto), and after a committed one a
-    `memory()` reading is kept and emitted as `<name>_loop`. `frame` is
-    the index of the frame being tracked (-1 before the first)."""
+    marking = None
 
-    def __init__(self, name: str, track_attr: str, mapping_stages=MAPPING_STAGES, more=(),
-                 extra=None):
-        self.name, self.track_attr, self.extra = name, track_attr, extra
-        self.mapping_stages, self.more = tuple(mapping_stages), tuple(more)
+    def __init__(self, brackets=()):
+        from sqrtlm_slam_tpu_torch.eval import soak
+
+        self._patches = soak.Patches()
+        self.patch = self._patches.patch
+        self.brackets = tuple(brackets)
         self.frame = -1
-        self.frames, self.loop_calls, self.captures, self.corrections = [], [], [], []
-        self.replays, self.replay_counts, self.after_loop = {}, {}, []
-        self.stages, self.counts = {}, {}
-        self._in_correction, self._fuse_ms = False, 0.0
-        self._names, self._patched = {}, []
-
-    # -- readings -------------------------------------------------------------
+        self.marked = False
+        self.captures, self.replay_counts, self.stages, self.counts = [], {}, {}, {}
+        self._names = {}
 
     def name_of(self, g) -> str:
         from sqrtlm_slam_tpu_torch.utils import cache
@@ -2341,10 +2336,108 @@ class RunProbe:
 
     # -- the wrapped methods -----------------------------------------------
 
-    def patch(self, owner, attr, make):
-        fn = getattr(owner, attr)
-        self._patched.append((owner, attr, fn))
-        setattr(owner, attr, make(fn))
+    def _capture(self, fn):
+        import torch
+
+        probe = self
+
+        def _capture(g, key, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(g, key, *a, **k)
+            torch.cuda.synchronize()
+            # key = (statics, argument nesting, shapes / strides / dtypes, TF32)
+            probe.captures.append((probe.frame, probe.name_of(g),
+                                   1e3 * (time.perf_counter() - t), probe.marked,
+                                   hash(key[1:3])))
+            return out
+        return _capture
+
+    def _replay(self, fn):
+        probe = self
+
+        def _replay(g, *a, **k):
+            name = probe.name_of(g)
+            probe.replay_counts[name] = probe.replay_counts.get(name, 0) + 1
+            return fn(g, *a, **k)
+        return _replay
+
+    def on_call(self, stage: str, args, ms: float, out):
+        """After each bracketed call: nothing here."""
+
+    def bracketed(self, stage: str):
+        """`make(fn)`: `fn` between synchronizes, its ms added to the item's
+        `stages[stage]`."""
+        import torch
+
+        probe = self
+
+        def make(fn):
+            def call(*a, **k):
+                marks = stage == probe.marking
+                if marks:
+                    probe.marked = True
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    out = fn(*a, **k)
+                finally:
+                    if marks:
+                        probe.marked = False
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t)
+                probe.stages[stage] = probe.stages.get(stage, 0.0) + ms
+                probe.counts[stage] = probe.counts.get(stage, 0) + 1
+                probe.on_call(stage, a, ms, out)
+                return out
+            return call
+        return make
+
+    def __enter__(self):
+        from sqrtlm_slam_tpu_torch.utils import cache
+
+        self.patch(cache.Graphed, "_capture", self._capture)
+        self.patch(cache.Graphed, "_replay", self._replay)
+        for owner, attr, stage in self.brackets:
+            self.patch(owner, attr, self.bracketed(stage))
+        return self
+
+    def __exit__(self, *exc):
+        self._patches.restore()
+        return False
+
+
+class RunProbe(GraphProbe):
+    """What phases 19 and 20 read of a long run, while the `with` block runs.
+
+    The system's `track_attr` (`track_depth`, `track_fusion`) is timed
+    between synchronizes, a frame at a time: ms, tracked, keyframe
+    inserted, loop closed, captures, each bracketed call's ms (`stages`) and
+    calls, and `extra(system)`. Bracketed by synchronizes (`GraphProbe`):
+    the loop corrector's calls (also kept in `loop_calls`), its keyframe
+    insertion (`loop_closer`), the frame build, the landmark reclaim, the
+    tracker's keyframe insertion, local mapping's `process_keyframe` and
+    `mapping_stages`, the essential graph, and `more` ((owner, attribute,
+    stage)). SearchAndFuse's host work inside a correction (`fuse`) is timed
+    on the host clock. Each capture is timed and placed (frame, function,
+    ms, inside a correction, its inputs' shapes); each replay is counted,
+    a per-loop program's (`max_entries=1`) also timed. Every correction is
+    kept (frame, committed, ms, the veto), and after a committed one a
+    `memory()` reading is kept and emitted as `<name>_loop`. `frame` is
+    the index of the frame being tracked (-1 before the first)."""
+
+    marking = "correct_loop"
+
+    def __init__(self, name: str, track_attr: str, mapping_stages=MAPPING_STAGES, more=(),
+                 extra=None):
+        super().__init__()
+        self.name, self.track_attr, self.extra = name, track_attr, extra
+        self.mapping_stages, self.more = tuple(mapping_stages), tuple(more)
+        self.frames, self.loop_calls, self.corrections = [], [], []
+        self.replays, self.after_loop = {}, []
+        self._fuse_ms = 0.0
+
+    # -- the wrapped methods -----------------------------------------------
 
     def _track(self, fn):
         import torch
@@ -2373,82 +2466,42 @@ class RunProbe:
             return out
         return call
 
-    def _capture(self, fn):
-        import torch
-
-        probe = self
-
-        def _capture(g, key, *a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(g, key, *a, **k)
-            torch.cuda.synchronize()
-            # key = (statics, argument nesting, shapes / strides / dtypes, TF32)
-            probe.captures.append((probe.frame, probe.name_of(g),
-                                   1e3 * (time.perf_counter() - t), probe._in_correction,
-                                   hash(key[1:3])))
-            return out
-        return _capture
-
     def _replay(self, fn):
         import torch
 
+        count = super()._replay(fn)
         probe = self
 
         def _replay(g, *a, **k):
-            name = probe.name_of(g)
-            probe.replay_counts[name] = probe.replay_counts.get(name, 0) + 1
             if g.max_entries != 1:
-                return fn(g, *a, **k)
+                return count(g, *a, **k)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = fn(g, *a, **k)
+            out = count(g, *a, **k)
             torch.cuda.synchronize()
-            probe.replays.setdefault(name, []).append(1e3 * (time.perf_counter() - t))
+            probe.replays.setdefault(probe.name_of(g), []).append(
+                1e3 * (time.perf_counter() - t))
             return out
         return _replay
 
-    def _bracketed(self, name):
-        """`fn` bracketed by synchronizes, its ms added to the frame's stages
-        (and, for the loop corrector's calls, to `loop_calls`)."""
-        import torch
-
-        probe = self
-
-        def make(fn):
-            def call(*a, **k):
-                if name == "correct_loop":
-                    probe._in_correction, probe._fuse_ms = True, 0.0
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                try:
-                    out = fn(*a, **k)
-                finally:
-                    if name == "correct_loop":
-                        probe._in_correction = False
-                torch.cuda.synchronize()
-                ms = 1e3 * (time.perf_counter() - t)
-                probe.stages[name] = probe.stages.get(name, 0.0) + ms
-                probe.counts[name] = probe.counts.get(name, 0) + 1
-                if name in LOOP_CALLS + ("essential_graph",):
-                    probe.loop_calls.append((probe.frame, name, ms, out))
-                if name == "correct_loop":
-                    probe.loop_calls.append((probe.frame, "fuse", probe._fuse_ms, None))
-                    probe.corrections.append(dict(
-                        frame=probe.frame, committed=bool(out), ms=ms,
-                        veto=None if out else repr(a[0].last_loop_veto)))
-                    if out:
-                        probe.after_loop.append(probe.memory(at="loop"))
-                        emit(f"{probe.name}_loop", **probe.after_loop[-1])
-                return out
-            return call
-        return make
+    def on_call(self, stage: str, args, ms: float, out):
+        if stage in LOOP_CALLS + ("essential_graph",):
+            self.loop_calls.append((self.frame, stage, ms, out))
+        if stage == "correct_loop":
+            self.loop_calls.append((self.frame, "fuse", self._fuse_ms, None))
+            self._fuse_ms = 0.0
+            self.corrections.append(dict(
+                frame=self.frame, committed=bool(out), ms=ms,
+                veto=None if out else repr(args[0].last_loop_veto)))
+            if out:
+                self.after_loop.append(self.memory(at="loop"))
+                emit(f"{self.name}_loop", **self.after_loop[-1])
 
     def _fuse_timed(self, fn):  # SearchAndFuse's host work inside correct_loop
         probe = self
 
         def call(*a, **k):
-            if not probe._in_correction:
+            if not probe.marked:
                 return fn(*a, **k)
             t = time.perf_counter()
             out = fn(*a, **k)
@@ -2462,31 +2515,20 @@ class RunProbe:
         from sqrtlm_slam_tpu_torch.pipeline.local_mapping import LocalMapper
         from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem
         from sqrtlm_slam_tpu_torch.pipeline.tracking import Tracker
-        from sqrtlm_slam_tpu_torch.utils import cache
 
         LC = closing.LoopCloser
         self.patch(SlamSystem, self.track_attr, self._track)
-        self.patch(cache.Graphed, "_capture", self._capture)
-        self.patch(cache.Graphed, "_replay", self._replay)
-        for attr in LOOP_CALLS:
-            self.patch(LC, attr, self._bracketed(attr))
-        brackets = ((LC, "insert_keyframe", "loop_closer"),
-                    (system_mod, "build_frame_jit", "frame_build"),
-                    (SlamSystem, "_reclaim_landmarks", "reclaim_landmarks"),
-                    (Tracker, "_insert_keyframe_locked", "insert_keyframe"),
-                    (essential_graph, "optimize_pose_graph", "essential_graph")) + tuple(
-            (LocalMapper, a, a) for a in ("process_keyframe",) + self.mapping_stages)
-        for owner, attr, stage in brackets + self.more:
-            self.patch(owner, attr, self._bracketed(stage))
+        self.brackets = tuple((LC, attr, attr) for attr in LOOP_CALLS) + (
+            (LC, "insert_keyframe", "loop_closer"),
+            (system_mod, "build_frame_jit", "frame_build"),
+            (SlamSystem, "_reclaim_landmarks", "reclaim_landmarks"),
+            (Tracker, "_insert_keyframe_locked", "insert_keyframe"),
+            (essential_graph, "optimize_pose_graph", "essential_graph")) + tuple(
+            (LocalMapper, a, a) for a in ("process_keyframe",) + self.mapping_stages) + self.more
+        super().__enter__()
         for attr in ("_project_loop_points", "_fuse_point"):
             self.patch(LC, attr, self._fuse_timed)
         return self
-
-    def __exit__(self, *exc):
-        for owner, attr, fn in reversed(self._patched):
-            setattr(owner, attr, fn)
-        self._patched.clear()
-        return False
 
     # -- the run, read after it ---------------------------------------------
 
@@ -3082,6 +3124,7 @@ LIDAR_SOAK_DIGEST = {
     1000: "f2ea99b9c7096422cbb9fc2bb6e9b387853268a7ba00dcffd58b01c6fdf21156",
     600: "649c6e50e7b9a8cdcc80aa5b03a4485ade7f25fec1aef044efdd7ed8137039b4",
 }
+LIDAR_SOAK_SCANS = 1000
 LIDAR_SOAK_MEMORY_MARGIN_MB = 256.0
 LIDAR_SOAK_STAGES = ("extraction", "alignment", "keyframe_test", "keyframe_insertion")
 LIDAR_SOAK_FUNCTIONS = ("lidar.features.extract_features_jit", "lidar.odometry.align_scan",
@@ -3122,108 +3165,77 @@ def write_lidar_soak(n_scans: int, reuse: str | None = None) -> dict:
     return rec
 
 
-def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
-                     localization_scans: int = 0, reuse: str | None = None,
-                     device: str = "cuda") -> dict:
-    """21. The LiDAR soak, also callable alone (`reuse` None: every scan
-    written here). On the card, each run read by `eval/lidar_soak.py`'s
-    `Recorder` (every scan's `process` between synchronizes; feature
-    extraction, alignment, the keyframe test and keyframe insertion each
-    bracketed by synchronizes):
-      (a) `run_kitti --mode lidar` in process over the first `n_scans`
-          scans at the runner's defaults (`OdomConfig()`, the sequence's
-          `LidarConfig`, `pad_cloud`'s 16,384-row buckets);
+def lidar_soak_phase(reuse: str | None = None) -> dict:
+    """21. The LiDAR soak on the card over `kitti_synth`'s 1,000 scans, also
+    callable alone (`reuse` None: every scan written here). Each run read by
+    `eval/lidar_soak.py`'s `Recorder` (every scan's `process` between
+    synchronizes) and a `GraphProbe` (feature extraction, alignment, the
+    keyframe test and keyframe insertion each bracketed by synchronizes;
+    replays counted):
+      (a) `run_kitti --mode lidar` in process over every scan at the
+          runner's defaults (`OdomConfig()`, the sequence's `LidarConfig`,
+          `pad_cloud`'s 16,384-row buckets);
       (c) on (a)'s chain, `backend_for_loop` and `backend_for_gnss` as
           `scripts/lidar_soak_reference.py` calls them, each graphed cold
           (with the capture), again (replays) and eager
           (`disable_graphs`): ms, the memory the capture keeps, the
-          three chains bitwise equal; at 1,000 scans also on the JAX
-          package's own chain (`lidar_soak_jax.npz`) against its result;
-      (b) `mode="mapping"` over `mapping_scans` (0: the first lap), then
-          `set_prior_map` of its keyframes' clouds and localization over
-          `localization_scans` (0: `n_scans`) from scan 0.
+          three chains bitwise equal; then on the JAX package's own chain
+          (`lidar_soak_jax.npz`): the distance to its result and to the
+          float64 answer (`scripts/lidar_backend_f64.py`);
+      (b) `mode="mapping"` over the first lap, then `set_prior_map` of its
+          keyframes' clouds and localization over every scan from scan 0.
     Every 100 scans a line: scans/s, ms a scan p50 / p95 and by stage,
     associations a scan, the window's occupied voxels against the
     capacity, captures and replays of the graphed functions, host reads a
     scan, memory_reserved as held (no `empty_cache`), RSS. Gates against the
-    JAX package's record at each run's depth (`lidar_soak.gates`): (a) and
-    the localization run; mapping's keyframes where it ran the JAX run's
-    scans; the prior map's kept voxels; (c) the end drift cut at least as
-    far as the JAX run cuts it and, on the JAX chain, its result within
-    `lidar_soak.BACKEND_TOL_M`; no capture after scan 100 of (a) but at a
-    scan of a new `pad_cloud` bucket; memory_reserved as held at the end of
-    (a) within LIDAR_SOAK_MEMORY_MARGIN_MB of its reading at scan 100.
-    Launch counters zeroed just before and read just after: this path
-    launches none of K1-K3 (returned). `device="cpu"` rehearses the phase
-    (no graph, no memory reading; the depths must be ones the record holds:
-    `lidar_soak_phase(100, 30, 100, device="cpu")`, ~2 min)."""
+    JAX package's record (`lidar_soak.gates`): (a), the mapping run
+    (`lidar_soak.MAPPING_GATES`) and the localization run; the prior map's
+    kept voxels; (c) the end drift cut at least as far as the JAX run cuts
+    it and, on the JAX chain, its result within `lidar_soak.BACKEND_TOL_M`;
+    no capture after scan 100 of (a) but at a scan of a new `pad_cloud`
+    bucket; memory_reserved as held at the end of (a) within
+    LIDAR_SOAK_MEMORY_MARGIN_MB of its reading at scan 100. Launch
+    counters zeroed just before and read just after: this path launches
+    none of K1-K3 (returned). On the CPU the same runs are
+    `tests/test_torch_lidar_soak.py`'s."""
     import torch
     from sqrtlm_slam_tpu_torch import run_kitti, utils
     from sqrtlm_slam_tpu_torch.eval import lidar_soak
     from sqrtlm_slam_tpu_torch.geometry import se3
-    from sqrtlm_slam_tpu_torch.lidar import backend, features, odometry
+    from sqrtlm_slam_tpu_torch.lidar import features, odometry
     from sqrtlm_slam_tpu_torch.ops import hamming
     from sqrtlm_slam_tpu_torch.optim import assembly
     from sqrtlm_slam_tpu_torch.utils import cache
     from sqrtlm_slam_tpu_torch.utils.config import kitti_sequence_config
 
-    del backend  # imported for its graphed step, counted below
+    n_scans = LIDAR_SOAK_SCANS
     jax_rec = lidar_soak.JAX_RECORD
-    localization_scans = localization_scans or n_scans
-    for run, depth in (("slam", n_scans), ("localization", localization_scans)):
-        lidar_soak.at_depth(jax_rec[run], depth)  # raises at a depth the record lacks
     setup = write_lidar_soak(n_scans, reuse)
     root = setup["root"]
     gt_l = lidar_soak.lidar_gt(root)
-    mapping_scans = mapping_scans or lidar_soak.first_lap(gt_l)
-    dev = torch.device(device)
-    on_card = dev.type == "cuda"
+    mapping_scans = lidar_soak.first_lap(gt_l)
+    dev = torch.device("cuda")
 
     def sync():
-        if on_card:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
 
     def held_mb() -> float:
-        return torch.cuda.memory_reserved() / 2**20 if on_card else 0.0
+        return torch.cuda.memory_reserved() / 2**20
 
     def host(x):
         return x.detach().cpu().numpy() if torch.is_tensor(x) else x
 
     graphs = {n: g for n, g in cache.graphed_functions().items() if n in LIDAR_SOAK_FUNCTIONS}
-    names = {id(g): n for n, g in graphs.items()}
     rows = [os.path.getsize(os.path.join(root, "sequences", "00", "velodyne", f"{i:06d}.bin"))
             // 16 for i in range(n_scans)]
     buckets = [max(16384, -(-n // 16384) * 16384) for n in rows]
-    replays, stage = {}, {}
+    probe = GraphProbe(brackets=(
+        (features, "extract_features_jit", "extraction"),
+        (odometry, "align_scan", "alignment"),
+        (odometry.LidarOdometry, "_is_keyframe", "keyframe_test"),
+        (odometry.LidarOdometry, "_insert_keyframe", "keyframe_insertion")))
     scans = {}  # run -> per scan: ms, stages, keyframe, captures, reads, bucket
     held = {}  # run -> [(scan, memory_reserved as held, MB)] every 100 scans
-
-    def counting_replay(fn):
-        def call(self, *a, **k):
-            n = names.get(id(self), self.__name__)
-            replays[n] = replays.get(n, 0) + 1
-            return fn(self, *a, **k)
-        return call
-
-    def bracket(name, fn):
-        return staged_into(stage, name, fn) if on_card else fn
-
-    patches = [(features, "extract_features_jit", bracket, "extraction"),
-               (odometry, "align_scan", bracket, "alignment"),
-               (odometry.LidarOdometry, "_is_keyframe", bracket, "keyframe_test"),
-               (odometry.LidarOdometry, "_insert_keyframe", bracket, "keyframe_insertion"),
-               (cache.Graphed, "_replay", lambda _, fn: counting_replay(fn), None)]
-
-    @contextlib.contextmanager
-    def instrumented():
-        kept = [(o, a, getattr(o, a)) for o, a, _, _ in patches]
-        for o, a, make, name in patches:
-            setattr(o, a, make(name, getattr(o, a)))
-        try:
-            yield
-        finally:
-            for o, a, f in kept:
-                setattr(o, a, f)
 
     def recorder(run: str, **kw):
         per_scan = scans.setdefault(run, [])
@@ -3232,12 +3244,14 @@ def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
 
         def on_scan(k):
             per_scan.append(dict(ms=rec.ms[-1], keyframe=rec.keyframe[-1],
-                                 stages={n: 1e3 * sum(v) for n, v in stage.items()},
+                                 stages=dict(probe.stages),
                                  captures=utils.graph_captures - marks["captures"],
                                  reads=utils.host_reads - marks["reads"],
                                  bucket=buckets[k] if k < len(buckets) else None))
             marks.update(captures=utils.graph_captures, reads=utils.host_reads)
-            stage.clear()
+            probe.stages.clear()
+            probe.counts.clear()
+            probe.frame = k + 1
 
         def every_100(line: str):
             part = per_scan[-100:]
@@ -3247,9 +3261,10 @@ def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
                  voxels_last=rec.voxels[-1] if rec.voxels else None,
                  capacity=odometry.OdomConfig().map_capacity,
                  captures={n: g.captures for n, g in graphs.items()},
-                 replays=dict(sorted(replays.items())),
+                 replays=dict(sorted(probe.replay_counts.items())),
                  reserved_as_held_mb=mb, rss_mb=rss_mb())
 
+        probe.frame = 0
         rec = lidar_soak.Recorder(odometry.LidarOdometry, odometry, gt_l, host, every=100,
                                   log=every_100, sync=sync, on_scan=on_scan, **kw)
         return rec
@@ -3276,12 +3291,12 @@ def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
     bad = []
     hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
     t_phase = time.perf_counter()
-    with instrumented():
+    with probe:
         # -- (a) slam, through the runner --------------------------------------
         utils.host_reads = utils.graph_captures = 0
         with recorder("slam", record_chain=True) as rec_a:
             summary = run_kitti.main(["--root", root, "--seq", "00", "--mode", "lidar",
-                                      "--frames", str(n_scans), "--device", device,
+                                      "--frames", str(n_scans), "--device", "cuda",
                                       "--out", os.path.join(root, "traj_lidar.txt")])
         sync()
         held_end = held_mb()
@@ -3302,7 +3317,7 @@ def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
              last_100=split(per_a[-100:], res_a["matches"][-100:]),
              buckets=sorted(set(buckets)), captures_after_scan_100=late,
              captures={n: g.captures for n, g in graphs.items()},
-             replays=dict(sorted(replays.items())),
+             replays=dict(sorted(probe.replay_counts.items())),
              host_reads_per_scan=sum(s["reads"] for s in per_a) / len(per_a),
              reserved_as_held_mb=dict(by_100=held["slam"], end=held_end),
              note="run_kitti --mode lidar in process; ms: process() between synchronizes; "
@@ -3334,9 +3349,9 @@ def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
         for name, call in (("loop", lambda: odo.backend_for_loop(j, last, T_ji)),
                            ("gnss", lambda: odo.backend_for_gnss(anchors))):
             odo._chain = list(recorded)
-            mem0 = kept_bytes() if on_card else 0
+            mem0 = kept_bytes()
             chain_g, cold = run_counted(call)
-            kept_mb = ((kept_bytes() if on_card else 0) - mem0) / 2**20
+            kept_mb = (kept_bytes() - mem0) / 2**20
             odo._chain = list(recorded)
             chain_r, again = run_counted(call)
             odo._chain = list(recorded)
@@ -3345,8 +3360,7 @@ def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
             equal = all(same_bits((a.R, a.t), (b.R, b.t)) and same_bits((a.R, a.t), (c.R, c.t))
                         for a, b, c in zip(chain_g, chain_r, chain_e))
             after = lidar_soak.end_drift(lidar_soak.chain_matrices(chain_g, host), gt_l)
-            jax_cut = (jax_c[name]["end_drift_after_m"] / jax_c["end_drift_before_m"]
-                       if n_scans == jax_c["chain_length"] else None)
+            jax_cut = jax_c[name]["end_drift_after_m"] / jax_c["end_drift_before_m"]
             backends[name] = dict(
                 end_drift_before_m=drift_before, end_drift_after_m=after,
                 cut=after / drift_before, jax_cut=jax_cut,
@@ -3356,27 +3370,31 @@ def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
             if not equal:
                 bad.append(f"(c) {name}: the graphed, replayed and eager chains differ")
             tol = lidar_soak.CUT_TOL[name]
-            if jax_cut is not None and not after / drift_before <= jax_cut + tol:
+            if not after / drift_before <= jax_cut + tol:
                 bad.append(f"(c) {name}: end drift {drift_before} -> {after} m, a cut of "
                            f"{after / drift_before:.4f} against the JAX run's {jax_cut:.4f}")
         odo._chain = recorded
-        # The JAX package's own chain through the card's backend, against its result.
+        # The JAX package's own chain through the card's backend, against its
+        # result and against the float64 answer of the same system.
         on_jax = {}
-        if n_scans == jax_c["chain_length"]:
-            data = np.load(os.path.join(os.path.dirname(lidar_soak.__file__),
-                                        "lidar_soak_jax.npz"))
-            chain_j = [on_device(M) for M in data["slam"]]
-            for name, call in (
-                    ("loop", lambda: odo.backend_for_loop(jax_c["loop"]["i"], last, T_ji)),
-                    ("gnss", lambda: odo.backend_for_gnss(anchors))):
-                odo._chain = list(chain_j)
-                got = lidar_soak.chain_matrices(call(), host)
-                diff = float(np.abs(lidar_soak.chain_positions(got)
-                                    - lidar_soak.chain_positions(data[f"backend_{name}"])).max())
-                on_jax[name] = dict(max_position_diff_m=diff, tol_m=lidar_soak.BACKEND_TOL_M)
-                if not diff <= lidar_soak.BACKEND_TOL_M:
-                    bad.append(f"(c) {name} on the JAX chain: {diff} m from the JAX result")
-            odo._chain = recorded
+        data = np.load(os.path.join(os.path.dirname(lidar_soak.__file__), "lidar_soak_jax.npz"))
+        chain_j = [on_device(M) for M in data["slam"]]
+        for name, call in (
+                ("loop", lambda: odo.backend_for_loop(jax_c["loop"]["i"], last, T_ji)),
+                ("gnss", lambda: odo.backend_for_gnss(anchors))):
+            odo._chain = list(chain_j)
+            got = lidar_soak.chain_positions(lidar_soak.chain_matrices(call(), host))
+
+            def dist(key):
+                return float(np.abs(got - lidar_soak.chain_positions(data[key])).max())
+
+            diff = dist(f"backend_{name}")
+            on_jax[name] = dict(max_position_diff_m=diff,
+                                tol_m=lidar_soak.BACKEND_TOL_M[name],
+                                from_f64_m=dist(f"backend_{name}_f64"))
+            if not diff <= lidar_soak.BACKEND_TOL_M[name]:
+                bad.append(f"(c) {name} on the JAX chain: {diff} m from the JAX result")
+        odo._chain = recorded
         emit("lidar_soak", run="backends", chain_length=len(recorded), loop_pair=[j, last],
              anchors=[k for k, _ in anchors], anchors_used=lidar_soak.A_CAP, **backends,
              on_the_jax_chain=on_jax, jax=jax_c,
@@ -3402,29 +3420,25 @@ def lidar_soak_phase(n_scans: int = 1000, mapping_scans: int = 0,
         prior_ms = 1e3 * (time.perf_counter() - t0)
         voxels = lidar_soak.prior_map_voxels(prior, loc._local_map, loc.cfg, host)
         with recorder("localization") as rec_l:
-            for i in range(localization_scans):
+            for i in range(n_scans):
                 loc.process(lidar_soak.scan(root, i))
         res_l = rec_l.result()
         jax_m, jax_l = jax_rec["mapping"], jax_rec["localization"]
-        gate_m = []
-        if mapping_scans == jax_m["scans"]:
-            tol = lidar_soak.GATES["keyframes_tol"]
-            if not abs(res_m["keyframes"] - jax_m["keyframes"]) <= tol * jax_m["keyframes"]:
-                gate_m.append(f"keyframes {res_m['keyframes']} not within {tol:.0%} of the "
-                              f"JAX run's {jax_m['keyframes']}")
-            for cls in ("corner", "flat"):
-                got, want = voxels[f"{cls}_kept"], jax_l["prior_map"][f"{cls}_kept"]
-                if abs(got - want) > lidar_soak.KEPT_VOXELS_TOL[cls]:
-                    gate_m.append(f"prior map's kept {cls} voxels {got} against the JAX "
-                                  f"run's {want}")
-        ref_l = lidar_soak.at_depth(jax_l, localization_scans)
+        ref_m = lidar_soak.at_depth(jax_m, mapping_scans)
+        gate_m = lidar_soak.gates(res_m, ref_m, lidar_soak.MAPPING_GATES)
+        for cls in ("corner", "flat"):
+            got, want = voxels[f"{cls}_kept"], jax_l["prior_map"][f"{cls}_kept"]
+            if abs(got - want) > lidar_soak.KEPT_VOXELS_TOL[cls]:
+                gate_m.append(f"prior map's kept {cls} voxels {got} against the JAX "
+                              f"run's {want}")
+        ref_l = lidar_soak.at_depth(jax_l, n_scans)
         gate_l = lidar_soak.gates(res_l, ref_l)
         emit("lidar_soak", run="mapping", scans=mapping_scans, outcome=outcome(res_m),
-             jax={k: jax_m[k] for k in ("scans", "keyframes", "ate_rmse_m", "voxels_last")},
-             failures=gate_m, whole_run=split(scans["mapping"], res_m["matches"]),
+             jax=ref_m, margins=lidar_soak.MAPPING_GATES, failures=gate_m,
+             whole_run=split(scans["mapping"], res_m["matches"]),
              last_100=split(scans["mapping"][-100:], res_m["matches"][-100:]),
              reserved_as_held_mb=held.get("mapping"))
-        emit("lidar_soak", run="localization", scans=localization_scans, outcome=outcome(res_l),
+        emit("lidar_soak", run="localization", scans=n_scans, outcome=outcome(res_l),
              prior_map=voxels, set_prior_map_ms=prior_ms, jax=ref_l,
              jax_prior_map=jax_l["prior_map"], failures=gate_l,
              whole_run=split(scans["localization"], res_l["matches"]),

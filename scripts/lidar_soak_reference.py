@@ -24,10 +24,12 @@ Three runs, each printing `PROGRESS ...` every `--every` scans and then
       odometry with `set_prior_map` of every mapping keyframe's clouds over
       the scans of (a) from frame 0; the prior map's voxels against the
       capacity.
-`--record PATH` writes the three RESULT objects there, `--poses PATH.npz`
+`--jitter-ulps K` scales (b)'s scans by 1 + K x 2^-23: a rounding-level
+change of the input. `--record PATH` writes the three RESULT objects there, `--poses PATH.npz`
 the poses of every scan of (a), (b) and the backends' chains (T_lw, 3x4).
 The JAX package runs on the CPU only; the port takes `--device` (default
-cpu).
+cpu) and, on the card, `--eager` (every run under `disable_graphs`: the
+op-by-op functions, no captured graph).
 
 With `--package jax` the script clears JAX's caches whenever the process
 holds more than `--max-maps` memory maps, as `scripts/kitti_soak_reference.py`
@@ -177,7 +179,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--runs", default="slam,backends,mapping",
                     help="which of slam, backends (needs slam), mapping")
     ap.add_argument("--every", type=int, default=100, help="scans between progress lines")
+    ap.add_argument("--jitter-ulps", type=int, default=0,
+                    help="scale the mapping and localization runs' scans by 1 + K x 2^-23 "
+                         "(about K units in the last place): how far rounding alone moves them")
     ap.add_argument("--device", default="cpu", help="the port's device")
+    ap.add_argument("--eager", action="store_true",
+                    help="the port without captured graphs (disable_graphs)")
     ap.add_argument("--record", default=None, help="write the RESULT objects here")
     ap.add_argument("--poses", default=None, help="write the poses here (.npz)")
     ap.add_argument("--max-maps", type=int, default=40000,
@@ -200,6 +207,11 @@ def main(argv=None) -> dict:
     n1 = args.mapping_scans or lidar_soak.first_lap(gt_l)
     results, poses = {}, {}
     cls, mod = pkg.odometry.LidarOdometry, pkg.odometry
+    scale = np.float32(1.0 + args.jitter_ulps * 2.0**-23)
+
+    def points(i):
+        p = lidar_soak.scan(args.root, i)
+        return pkg.points(p * scale if args.jitter_ulps else p)
 
     def done(name, rec, **extra):
         res = dict(rec.result(), run=name, package=args.package, **extra)
@@ -208,7 +220,12 @@ def main(argv=None) -> dict:
         log("RESULT " + json.dumps(res))
 
     t_all = time.time()
-    with bound_maps(pkg, args.max_maps, log):
+    eager = contextlib.nullcontext()
+    if args.eager:
+        from sqrtlm_slam_tpu_torch.utils import cache
+
+        eager = cache.disable_graphs()
+    with bound_maps(pkg, args.max_maps, log), eager:
         if "slam" in runs:
             out = os.path.join(args.root, f"traj_lidar_{args.package}.txt")
             with lidar_soak.Recorder(cls, mod, gt_l, pkg.host, every=args.every, log=log,
@@ -228,7 +245,7 @@ def main(argv=None) -> dict:
             with lidar_soak.Recorder(cls, mod, gt_l, pkg.host, every=args.every,
                                      log=log) as rec:
                 for i in range(n1):
-                    odo.process(pkg.points(lidar_soak.scan(args.root, i)))
+                    odo.process(points(i))
             done("mapping", rec)
             prior = lidar_soak.prior_map(odo, pkg.host)
             loc = pkg.make()
@@ -240,7 +257,7 @@ def main(argv=None) -> dict:
             with lidar_soak.Recorder(cls, mod, gt_l, pkg.host, every=args.every,
                                      log=log) as rec:
                 for i in range(n):
-                    loc.process(pkg.points(lidar_soak.scan(args.root, i)))
+                    loc.process(points(i))
             done("localization", rec, prior_map=voxels, set_prior_map_s=prior_s,
                  mapping_scans=n1)
     log(f"TOTAL {time.time() - t_all:.0f} s")

@@ -24,10 +24,12 @@ Imports neither JAX nor torch: it only wraps methods and reads numpy.
 from __future__ import annotations
 
 import os
-import resource
 import time
 
 import numpy as np
+
+from . import soak
+from .soak import peak_rss_mb
 
 PREFIXES = (100, 200, 300, 500)
 LOST = 2  # TrackState.LOST in both packages
@@ -84,36 +86,25 @@ def digest(root: str, seq: str = "00", frames: int | None = None) -> str:
     return h.hexdigest()
 
 
-def peak_rss_mb() -> float:
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
-
-
-class Recorder:
+class Recorder(soak.Recorder):
     """Counts a fusion run while it is inside the `with` block; see the
     module docstring. `ate_rmse(est, gt) -> (rmse, aligned)` is the
     package's own; `log(str)` takes the progress lines."""
 
     def __init__(self, system_cls, tracker_cls, closer_cls, gt: np.ndarray, ate_rmse,
                  every: int = 50, log=print):
+        super().__init__(every, log)
         self.classes = (system_cls, tracker_cls, closer_cls)
-        self.gt, self.ate_rmse, self.every, self.log = gt, ate_rmse, every, log
+        self.gt, self.ate_rmse = gt, ate_rmse
         self.frames = []  # per frame: tracked, keyframe, lost
         self.loops = []  # (frame, committed, veto)
         self.relocs = []  # (frame, relocalised)
         self.gba = []  # (frame, written back)
-        self.progress = []  # `reading()` every `every` frames
         self.system = None
-        self._patched = []
-        self._t0 = None
 
     # -- the wrapped methods ---------------------------------------------
 
-    def _patch(self, owner, attr, make):
-        fn = getattr(owner, attr)
-        self._patched.append((owner, attr, fn))
-        setattr(owner, attr, make(fn))
-
-    def __enter__(self):
+    def install(self):
         system_cls, tracker_cls, closer_cls = self.classes
         rec = self
 
@@ -125,9 +116,7 @@ class Recorder:
                 rec.frames.append(dict(tracked=out is not None,
                                        keyframe=self.store.num_kf > kf0,
                                        lost=int(self.tracker.state) == LOST))
-                if len(rec.frames) % rec.every == 0:
-                    rec.progress.append(rec.reading())
-                    rec.log(rec.progress_line(rec.progress[-1]))
+                rec.tick(len(rec.frames))
                 return out
             return call
 
@@ -154,19 +143,10 @@ class Recorder:
                 return ok
             return call
 
-        self._patch(system_cls, "track_fusion", track_fusion)
-        self._patch(tracker_cls, "_relocalize", relocalize)
-        self._patch(closer_cls, "correct_loop", correct_loop)
-        self._patch(closer_cls, "run_global_ba", run_global_ba)
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        for owner, attr, fn in reversed(self._patched):
-            setattr(owner, attr, fn)
-        self._patched.clear()
-        self.wall_s = time.perf_counter() - self._t0
-        return False
+        self.patch(system_cls, "track_fusion", track_fusion)
+        self.patch(tracker_cls, "_relocalize", relocalize)
+        self.patch(closer_cls, "correct_loop", correct_loop)
+        self.patch(closer_cls, "run_global_ba", run_global_ba)
 
     # -- readings ----------------------------------------------------------
 
@@ -199,7 +179,7 @@ class Recorder:
             ate_rmse_m=self.ate(est, ids),
             ate_m_of_first={k: self.ate(est, ids, k) for k in PREFIXES
                             if len(self.frames) >= k},
-            rss_mb=peak_rss_mb(), elapsed_s=time.perf_counter() - self._t0)
+            rss_mb=peak_rss_mb(), elapsed_s=self.elapsed_s())
 
     def progress_line(self, r: dict) -> str:
         ate = "nan" if r["ate_rmse_m"] is None else f"{r['ate_rmse_m']:.4f}"
@@ -280,13 +260,7 @@ def at_depth(record: dict, frames: int) -> dict:
     """A whole run's record cut to its reading at `frames` (a multiple of
     its progress interval): what a run of that depth is held against.
     Raises ValueError where the record holds no reading there."""
-    if record["frames"] == frames:
-        return record
-    for reading in record.get("progress", ()):
-        if reading["frame"] == frames:
-            return dict(reading, frames=frames)
-    raise ValueError(f"the record ({record['frames']} frames) holds no reading at frame "
-                     f"{frames}")
+    return soak.at_depth(record, frames, "frames", "frame")
 
 
 def main(argv=None):

@@ -47,7 +47,9 @@ import time
 import numpy as np
 
 from .ate import ate_rmse
-from .kitti_soak import peak_rss_mb, read_gt
+from . import soak
+from .kitti_soak import read_gt
+from .soak import peak_rss_mb
 
 PREFIXES = (100, 200, 300, 500)
 A_CAP = 8  # anchors `build_chain_graph` takes (both packages' default)
@@ -226,7 +228,7 @@ def to_matrix(R, t) -> np.ndarray:
     return M
 
 
-class Recorder:
+class Recorder(soak.Recorder):
     """Counts a LiDAR odometry run while it is inside the `with` block; see
     the module docstring. `odometry_cls` / `odometry_mod`: the package's
     `LidarOdometry` and its module (whose `align_scan` is wrapped for its
@@ -240,8 +242,9 @@ class Recorder:
 
     def __init__(self, odometry_cls, odometry_mod, gt_l: np.ndarray, host, every: int = 100,
                  log=print, record_chain: bool = False, sync=None, on_scan=None):
+        super().__init__(every, log)
         self.cls, self.mod = odometry_cls, odometry_mod
-        self.gt_l, self.host, self.every, self.log = gt_l, host, every, log
+        self.gt_l, self.host = gt_l, host
         self.record_chain, self.sync, self.on_scan = record_chain, sync, on_scan
         self.odo = None
         self.poses = []  # per scan: (R, t) of the package, read in batches
@@ -249,17 +252,10 @@ class Recorder:
         self.keyframe = []  # per scan: a keyframe inserted
         self.voxels = []  # (scan, corner, flat, clipped) at every keyframe
         self.ms = []  # per scan, with `sync`
-        self.progress = []
         self._last_stats = None
         self._pending = 0  # scans not yet read to the host
-        self._patched = []
 
-    def _patch(self, owner, attr, make):
-        fn = getattr(owner, attr)
-        self._patched.append((owner, attr, fn))
-        setattr(owner, attr, make(fn))
-
-    def __enter__(self):
+    def install(self):
         rec = self
 
         def align_scan(fn):
@@ -287,16 +283,11 @@ class Recorder:
                 return out
             return call
 
-        self._patch(self.mod, "align_scan", align_scan)
-        self._patch(self.cls, "process", process)
-        self._t0 = time.perf_counter()
-        return self
+        self.patch(self.mod, "align_scan", align_scan)
+        self.patch(self.cls, "process", process)
 
     def __exit__(self, *exc):
-        for owner, attr, fn in reversed(self._patched):
-            setattr(owner, attr, fn)
-        self._patched.clear()
-        self.wall_s = time.perf_counter() - self._t0
+        super().__exit__(*exc)
         self._read()
         return False
 
@@ -311,9 +302,7 @@ class Recorder:
             self.voxels.append([len(self.keyframe) - 1, c, f, clipped])
         if self.on_scan is not None:
             self.on_scan(len(self.keyframe) - 1)
-        if len(self.keyframe) % self.every == 0:
-            self.progress.append(self.reading())
-            self.log(self.progress_line(self.progress[-1]))
+        self.tick(len(self.keyframe))
 
     def _read(self):
         """Bring the scans' poses, stats and voxel counts to the host."""
@@ -364,8 +353,7 @@ class Recorder:
             voxels_last=self.voxels[-1] if self.voxels else None)
 
     def reading(self) -> dict:
-        return dict(self.summary(), rss_mb=peak_rss_mb(),
-                    elapsed_s=time.perf_counter() - self._t0)
+        return dict(self.summary(), rss_mb=peak_rss_mb(), elapsed_s=self.elapsed_s())
 
     def progress_line(self, r: dict) -> str:
         return (f"PROGRESS scan={r['scans']} keyframes={r['keyframes']} "
@@ -447,21 +435,33 @@ def chain_positions(chain_lw: np.ndarray) -> np.ndarray:
 #     ~0.065 m); gated before the scan where the JAX run lost the map;
 #   lost_scans: the localization runs lost the map at scans 115 (JAX) and
 #     117 (port); 10 scans;
+#   MAPPING_GATES: the mapping run's ATE is chaotic in rounding (PERF.md
+#     section 7): with its scans scaled by 1 + K x 2^-23 (K = -4..4,
+#     `scripts/lidar_soak_reference.py --jitter-ulps K`) the port's CPU lap
+#     ATE spreads over 0.554-1.141 m (0.560-0.581 m unscaled, 1-4 threads)
+#     and the JAX package's over 0.391-0.929 m (K = -1..1): at most 2.92 x
+#     the JAX record's lap (the port, K = 3) and 2.24 x a prefix (the JAX
+#     package, K = -1, the first 300 scans); rounded up to the next half;
 #   CUT_TOL: a backend's end-drift cut (after / before) at most the JAX
 #     run's + this: the port's CPU run cut by 0.403 against 0.382
 #     (loop) and 1.309 against 1.100 (gnss: the end drift grows: only 8
 #     of 10 anchors are taken), its spread rounded up;
-#   BACKEND_TOL_M: the backends on the JAX run's own chain, against its
-#     result: the port on the CPU lands within 5.3 mm of it (a float32
-#     dense solve of 6,000 unknowns in another summation order), the card
-#     within 9.2 mm of the port's CPU result on the port's chain (PERF.md
-#     section 7); ~2 x the larger;
+#   BACKEND_TOL_M: each backend on the JAX run's own chain, against its
+#     result, at most as far as a float32 solve of that system lands from
+#     its float64 answer on the CPU (`scripts/lidar_backend_f64.py`: the
+#     damped normal matrix's free block has a condition number of 8.1e6
+#     (loop) and 1.2e7 (gnss); the JAX package's float32 result lies 14.1 /
+#     43.9 mm from the float64 answer, the port's on the CPU 13.9 / 41.8
+#     mm, the two 8.6 mm apart), the larger of the two rounded up to 0.1
+#     mm: the card departs from the JAX result by no more than float32
+#     departs from the answer (PERF.md section 7);
 #   KEPT_VOXELS_TOL: the prior map keeps 8,192 voxels of each class in
 #     both packages (the capacity): equal.
 GATES = dict(keyframes_tol=0.02, prefix_ate_factor=2.0, prefix_ate_floor_m=0.05,
              lap_ate_factor=2.0, lap_ate_floor_m=0.05, lost_scans=10)
+MAPPING_GATES = dict(GATES, prefix_ate_factor=2.5, lap_ate_factor=3.0)
 CUT_TOL = {"loop": 0.05, "gnss": 0.25}
-BACKEND_TOL_M = 0.02
+BACKEND_TOL_M = {"loop": 0.0142, "gnss": 0.0439}
 KEPT_VOXELS_TOL = {"corner": 0, "flat": 0}
 
 # The records (`gated_fields` of the RESULT objects), on an 8-core x86
@@ -743,9 +743,4 @@ def at_depth(record: dict, scans: int) -> dict:
     """A whole run's record cut to its reading at `scans` (a multiple of its
     progress interval): what a run of that depth is held against. Raises
     ValueError where the record holds no reading there."""
-    if record["scans"] == scans:
-        return record
-    for reading in record.get("progress", ()):
-        if reading["scans"] == scans:
-            return reading
-    raise ValueError(f"the record ({record['scans']} scans) holds no reading at scan {scans}")
+    return soak.at_depth(record, scans, "scans", "scans")

@@ -110,7 +110,7 @@ def _depths(record):
     return [r["scans"] for r in record["progress"]] + [record["scans"]]
 
 
-@pytest.mark.parametrize("run", ["slam", "localization"])
+@pytest.mark.parametrize("run", ["slam", "mapping", "localization"])
 def test_gates_hold_the_record_against_itself_at_every_depth(run):
     rec = lidar_soak.JAX_RECORD[run]
     for depth in _depths(rec):
@@ -141,6 +141,24 @@ def test_gates_name_what_a_changed_run_breaks():
     assert [f for f in lidar_soak.gates(lost, ref) if f.startswith("lost at")]
     within = dict(ref, keyframes=ref["keyframes"] + int(g["keyframes_tol"] * ref["keyframes"]))
     assert lidar_soak.gates(within, ref) == []
+
+
+def test_mapping_gates_take_the_rounding_spread_and_no_more():
+    """The mapping run is held at MAPPING_GATES: its lap at most 3 x the JAX
+    run's (the largest of the CPU runs' rounding-level draws, 1.141 m, is
+    2.92 x), its prefixes 2.5 x. A lap past that fails, and so does a run
+    that drew the slam margins' 2 x."""
+    ref = lidar_soak.JAX_RECORD["mapping"]
+    g = lidar_soak.MAPPING_GATES
+    lap = ref["ate_m_by_lap"][0]
+    draw = dict(ref, ate_m_by_lap={0: 1.141})  # the port on the CPU, --jitter-ulps 3
+    assert lidar_soak.gates(draw, ref, g) == []
+    assert [f for f in lidar_soak.gates(draw, ref) if f.startswith("ate_m_by_lap[0]")]
+    past = dict(ref, ate_m_by_lap={0: g["lap_ate_factor"] * lap * 1.01})
+    assert [f for f in lidar_soak.gates(past, ref, g) if f.startswith("ate_m_by_lap[0]")]
+    k, v = 300, ref["ate_m_of_first"][300]
+    far = dict(ref, ate_m_of_first={**ref["ate_m_of_first"], k: g["prefix_ate_factor"] * v * 1.01})
+    assert [f for f in lidar_soak.gates(far, ref, g) if f.startswith("ate_m_of_first[300]")]
 
 
 # -- the capacity cut ----------------------------------------------------------------
