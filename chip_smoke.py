@@ -32,7 +32,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      observations per landmark, Huber 2.447, 15 iterations per call, 5
      chained calls, one synchronize, best of 3); chi2 must fall;
   7. K3 against its plain version at (P, L, K) = (96, 8192, 5) (the bench
-     problem), (600, 120000, 7) (phase 8's global-BA problem), and
+     problem), (600, 120000, 7) (phase 8's global-BA problem), (1400,
+     280000, 7) (phase 22's, with K2 against its plain version in float64
+     there too, at phase 3's rule with the camera-sum bound wherever the
+     plain version in float32 keeps it, and the plain K2 timed), and
      (1400, 60000, 7) and (6000, 60000, 7) (phase 3's generator: KITTI 00's
      keyframe count, and past the ~4,460 poses of K3's first design), and
      at phase 3's shapes past 16 slots per landmark, with and without the
@@ -308,6 +311,23 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      the JAX package's CPU record (`eval/lidar_soak.py`), on captures and
      on memory (its docstring). In the whole smoke it runs in the main
      process after phase 18, while phases 19 and 20 finish.
+ 22. the loop correction at KITTI 00's scale (`kitti00_scale_phase`, also
+     callable alone): phase 8's flow (benchmarks/bench_scale.py's) at 1,400
+     keyframes x 280,000 landmarks, `eval/scale_kitti00.py`'s FLOW: (a) the
+     essential graph and the GBA (10 LM iterations in one chunk) each
+     graphed, replayed and eager, bitwise equal, with seconds, captures,
+     replays, host reads, the memory the captures keep, the peak allocated,
+     K2's and K3's launches and the PCG iterations of each LM iteration,
+     and the essential graph in float64 against the JAX package's float64
+     answer;
+     (b) a GBA superseded after its first chunk of 5 (`gba_generation`
+     bumped from `_gba_tick`): False, the store untouched, the memory given
+     back; then the flow's GBA on that copy gives (a)'s bits. Gated against
+     the JAX package's CPU record (`eval/scale_kitti00_jax.json`,
+     `scale_kitti00.gates`: the float32 stages within the spread of both
+     packages' float32 runs, the CPU's and the card's). In the whole smoke
+     it runs in the main process after phase 21, while phase 19's child
+     finishes.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
@@ -315,7 +335,7 @@ replayed 4-shard call, `cg_local_ba` from phase 16 (a)'s KITTI-size run with
 the cg backend, `graphs_paths` from phase 18 (b)'s graphed runs, `long_run`
 from phase 19, `kitti_soak` from phase 20's sync run, `lidar_soak` from
 phase 21 (none: LiDAR-only odometry matches no descriptor and runs no
-BA); a
+BA), `kitti00_loop_correction` from phase 22 (a)'s graphed GBA; a
 captured graph adds its kernels' launches at each replay), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
@@ -372,6 +392,9 @@ K2_FLOP_SLOT, K2_FLOP_CAMERA, K3_FLOP_SLOT = 430, 180, 45
 # holds tens of thousands of slots; the dense ones hold L slots a camera.
 WIDE_K_SHAPES = ((32, 4096, 24), (96, 8192, 32), (96, 4096, 64), (64, 4096, 64),
                  (96, 2048, 96))
+# Global BA's problem at KITTI 00's scale (phase 22's; phase 7 checks K2 and
+# K3 there): 1,400 keyframes, 280,000 landmarks, 7 slots.
+KITTI00_SHAPE = (1400, 280000, 7)
 
 
 T_START = time.perf_counter()
@@ -3454,6 +3477,240 @@ def lidar_soak_phase(reuse: str | None = None) -> dict:
     return launches
 
 
+KITTI00_SUPERSEDED_MARGIN_MB = 64.0
+KITTI00_STORE_FIELDS = ("kf_R", "kf_t", "lm_pos", "lm_obs_kf")
+
+
+def kitti00_scale_store():
+    """`eval/scale_kitti00.py`'s store at KITTI 00's 1,400 keyframes and
+    280,000 landmarks: (store, true_R, true_t)."""
+    from sqrtlm_slam_tpu_torch.eval import scale_kitti00
+    from sqrtlm_slam_tpu_torch.eval.scale import make_scale_store
+
+    flow = scale_kitti00.FLOW
+    return make_scale_store(n_kf=flow["kfs"], n_lm=flow["lms"], obs_per_lm=flow["obs_per_lm"],
+                            drift=flow["drift"])
+
+
+def kitti00_scale_phase() -> dict:
+    """22. The loop correction at KITTI 00's scale (`kitti00_scale_phase`,
+    also callable alone): `benchmarks/bench_scale.py`'s flow at 1,400
+    keyframes x 280,000 landmarks (`eval/scale_kitti00.py`'s FLOW: 5
+    observations a landmark in 7 slots, drift 4e-4, the true loop edge
+    through the essential graph, `edge_cap` 16384, 30 Gauss-Newton steps,
+    then `LoopCloser.run_global_ba`, 10 LM iterations in one chunk) through
+    the port's entry points on the card.
+      (a) the essential graph and the GBA each graphed (the first call
+          captures), graphed again (replays only) and eager
+          (`disable_graphs`), the GBAs on copies of the store: seconds to a
+          synchronize, captures, replays, host reads, the memory the call
+          leaves kept (`memory_reserved` after `empty_cache`, before and
+          after: the first call's captures), `max_memory_allocated`, K2's
+          and K3's launches, the PCG iterations of each LM iteration; the
+          three bitwise equal; then the essential graph in float64 (its own
+          capture);
+      (b) a superseded GBA on another copy, as the loop closer's production
+          mode runs it (`gba_chunk` 5, the generation bumped from the
+          `_gba_tick` hook after the first chunk): it returns False, counts
+          one abort, leaves `kf_R`, `kf_t` and `lm_pos` bitwise as they
+          were and the memory kept within KITTI00_SUPERSEDED_MARGIN_MB of
+          its reading before; then one GBA of the flow on that copy gives
+          (a)'s bits.
+    Gates against the JAX package's CPU record (`scale_kitti00.gates`:
+    sizes, the drift ATE to 1e-6 m, the float64 essential graph's ATE
+    within `F64_TOL_M` of the JAX package's float64 answer, the float32 ATE
+    after the essential graph and after GBA and chi2 after GBA within
+    `scale_kitti00.tolerances` (the spread of both packages' float32
+    runs), chi2 falls, the GBA completes); K2 and K3 launched. Launch
+    counters zeroed just before (a)'s graphed GBA and read just after
+    (returned)."""
+    import gc
+
+    import torch
+    from sqrtlm_slam_tpu_torch import utils
+    from sqrtlm_slam_tpu_torch.eval import scale_kitti00
+    from sqrtlm_slam_tpu_torch.eval.scale import store_ate
+    from sqrtlm_slam_tpu_torch.eval.synthetic import DEFAULT_CAM
+    from sqrtlm_slam_tpu_torch.geometry import sim3
+    from sqrtlm_slam_tpu_torch.loop import LoopCloser, LoopClosingConfig, essential_graph
+    from sqrtlm_slam_tpu_torch.loop.closing import gather_global_problem_bucketed
+    from sqrtlm_slam_tpu_torch.ops import hamming
+    from sqrtlm_slam_tpu_torch.optim import assembly, schur_bucketed
+    from sqrtlm_slam_tpu_torch.utils import cache
+
+    flow = scale_kitti00.FLOW
+    record = scale_kitti00.load_record()
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    store, true_R, true_t = kitti00_scale_store()
+    build_store_s = time.perf_counter() - t0
+    ate_drift = store_ate(store, true_R, true_t)
+    cfg = LoopClosingConfig(edge_cap=flow["edge_cap"], gba_iters=flow["gba_iters"],
+                            gba_chunk=flow["gba_chunk"])
+    lc = LoopCloser(store, DEFAULT_CAM, cfg=cfg, device=dev)
+    t0 = time.perf_counter()
+    pg = scale_kitti00.pose_graph_of_loop(
+        lc, true_R, true_t,
+        lambda R, t: sim3.Sim3(torch.tensor(1.0), torch.as_tensor(R), torch.as_tensor(t)))
+    eg_build_s = time.perf_counter() - t0
+    pcg_counts = []  # (LM iteration's PCG count) device tensors of the running call
+    pcg_run = schur_bucketed._pcg_run
+
+    def counted_pcg_run(*a, **k):
+        s = pcg_run(*a, **k)
+        pcg_counts.append(s.n)
+        return s
+
+    def held() -> tuple:
+        """(memory_reserved after `empty_cache`, memory_allocated), garbage
+        collected first."""
+        gc.collect()
+        return kept_bytes(), torch.cuda.memory_allocated()
+
+    def measured(fn, eager: bool = False):
+        """(fn(), its counts): `run_counted`'s, the memory kept after it
+        against before (MB; reserved after `empty_cache`, and allocated),
+        the peak allocated, the PCG iterations of each LM iteration and K2's
+        and K3's launches."""
+        pcg_counts.clear()
+        mem0, alloc0 = held()
+        torch.cuda.reset_peak_memory_stats()
+        c2, c3 = assembly.launch_count, assembly.chi2_launch_count
+        with cache.disable_graphs() if eager else contextlib.nullcontext():
+            out, rec = run_counted(fn)
+        mem1, alloc1 = held()
+        rec.update(ba_assembly=assembly.launch_count - c2,
+                   ba_chi2=assembly.chi2_launch_count - c3,
+                   max_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
+                   kept_mb=(mem1 - mem0) / 2**20, allocated_mb=(alloc1 - alloc0) / 2**20,
+                   cg_n=torch.stack(pcg_counts).tolist() if pcg_counts else [])
+        return out, rec
+
+    schur_bucketed._pcg_run = counted_pcg_run
+    try:
+        # (a) The essential graph, three ways.
+        def eg():
+            return essential_graph.optimize_pose_graph(pg, num_iters=flow["eg_iters"])
+
+        eg_runs = {}
+        (eg_out, eg_chi2), eg_runs["graphed"] = measured(eg)
+        eg_again, eg_runs["graphed_again"] = measured(eg)
+        eg_eager, eg_runs["eager"] = measured(eg, eager=True)
+
+        def eg_bits(out):
+            return (out[0].s, out[0].R, out[0].t, out[1])
+
+        eg_equal = (same_bits(eg_bits((eg_out, eg_chi2)), eg_bits(eg_again))
+                    and same_bits(eg_bits(eg_again), eg_bits(eg_eager)))
+        del eg_again, eg_eager
+        # The same graph in float64 (its own capture): held against the JAX
+        # package's float64 answer, where float32 runs of either package
+        # part by millimetres (`scale_kitti00.tolerances`).
+        pg64 = pg._replace(**{f: getattr(pg, f).double() for f in pg._fields
+                              if getattr(pg, f).is_floating_point()})
+        (eg64, _), eg_runs["float64"] = measured(
+            lambda: essential_graph.optimize_pose_graph(pg64, num_iters=flow["eg_iters"]))
+        ate_eg64 = scale_kitti00.poses_ate(*utils.to_host(eg64.s, eg64.R, eg64.t), true_R,
+                                           true_t)
+        del pg64, eg64
+        lc._apply_pose_graph(eg_out, store.num_kf)
+        ate_eg = store_ate(store, true_R, true_t)
+        p0, _ = gather_global_problem_bucketed(store, dev)
+        chi2_before = float(schur_bucketed.chi2_only(p0, DEFAULT_CAM, p0.obs_valid, None))
+        n_edges = int(p0.obs_valid.sum())
+        del p0
+        copies = {k: copy.deepcopy(store) for k in ("again", "eager", "superseded")}
+
+        # (a) The GBA, three ways, each on its own copy of the corrected store.
+        gba_runs = {}
+        hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
+        gba_ok, gba_runs["graphed"] = measured(lc.run_global_ba)
+        launches = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count,
+                    "ba_chi2": assembly.chi2_launch_count}
+        ate_gba = store_ate(store, true_R, true_t)
+        p1, _ = gather_global_problem_bucketed(store, dev)
+        chi2_after = float(schur_bucketed.chi2_only(p1, DEFAULT_CAM, p1.obs_valid, None))
+        del p1
+        again_ok, gba_runs["graphed_again"] = measured(
+            LoopCloser(copies["again"], DEFAULT_CAM, cfg=cfg, device=dev).run_global_ba)
+        eager_ok, gba_runs["eager"] = measured(
+            LoopCloser(copies["eager"], DEFAULT_CAM, cfg=cfg, device=dev).run_global_ba,
+            eager=True)
+
+        def same_store(a, b, fields=KITTI00_STORE_FIELDS) -> bool:
+            return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+        gba_equal = {k: same_store(store, copies[k]) for k in ("again", "eager")}
+
+        # (b) A superseded GBA, then the flow's GBA on the same copy.
+        sup = copies["superseded"]
+        before = {f: getattr(sup, f).copy() for f in ("kf_R", "kf_t", "lm_pos")}
+        lc_b = LoopCloser(sup, DEFAULT_CAM, device=dev, cfg=LoopClosingConfig(
+            edge_cap=flow["edge_cap"], gba_iters=flow["gba_iters"], gba_chunk=5))
+
+        def supersede():  # a new loop arrives after the first chunk
+            lc_b.gba_generation += 1
+            lc_b._gba_tick = lambda: None
+
+        lc_b._gba_tick = supersede
+        mem_before = held()[0]
+        sup_ok, sup_run = measured(lc_b.run_global_ba)
+        mem_after = held()[0]
+        sup_unchanged = all(np.array_equal(getattr(sup, f), v) for f, v in before.items())
+        final_ok, final_run = measured(
+            LoopCloser(sup, DEFAULT_CAM, cfg=cfg, device=dev).run_global_ba)
+        final_equal = same_store(store, sup)
+    finally:
+        schur_bucketed._pcg_run = pcg_run
+    run = dict(kfs=store.num_kf, landmarks=store.num_lm, edges=n_edges,
+               essential_graph_edges=int(pg.e_valid.sum()), ate_drift_m=ate_drift,
+               ate_after_loop_m=ate_eg, ate_after_loop_f64_m=ate_eg64, ate_after_gba_m=ate_gba,
+               chi2_before=chi2_before, chi2_after=chi2_after, gba_completed=bool(gba_ok))
+    bad = scale_kitti00.gates(run, record)
+    superseded = dict(returned=sup_ok, num_gba_aborted=lc_b.num_gba_aborted,
+                      store_unchanged=sup_unchanged, kept_mb_before=mem_before / 2**20,
+                      kept_mb_after=mem_after / 2**20, run=sup_run,
+                      then_flow_gba=dict(completed=final_ok, bitwise_equal_to_a=final_equal,
+                                         run=final_run))
+    emit("kitti00_scale", **run, gba_iters=flow["gba_iters"], eg_iters=flow["eg_iters"],
+         store_build_s=build_store_s, essential_graph_build_s=eg_build_s,
+         essential_graph_chi2=float(eg_chi2), launches=launches,
+         essential_graph=dict(eg_runs, bitwise_equal=eg_equal),
+         gba=dict(gba_runs, bitwise_equal=gba_equal), superseded=superseded,
+         jax_record={k: record[k] for k in run if k in record},
+         jax_float64=scale_kitti00.float64_answer(record),
+         tolerances=dict(scale_kitti00.tolerances(record), f64_m=scale_kitti00.F64_TOL_M),
+         failures=bad, seconds=time.perf_counter() - t_phase,
+         note="graphed: the first call (it captures), graphed_again: the same call "
+              "replaying only, eager: under disable_graphs; s to a synchronize; kept_mb: "
+              "memory_reserved after empty_cache, after the call against before; cg_n: the "
+              "PCG iterations of each LM iteration (GBA) in order; the GBAs of graphed_again "
+              "and eager ran on copies of the store the essential graph corrected")
+    if not (again_ok and eager_ok):
+        bad.append(f"a GBA of (a) did not complete: again {again_ok}, eager {eager_ok}")
+    if not eg_equal:
+        bad.append("(a) the essential graph graphed, replayed and eager differ")
+    if not all(gba_equal.values()):
+        bad.append(f"(a) the GBAs differ from the graphed one: {gba_equal}")
+    if not (eg_runs["graphed"]["graph_captures"] >= 1 and gba_runs["graphed"]["graph_captures"] >= 1
+            and eg_runs["graphed_again"]["graph_captures"] == 0
+            and gba_runs["graphed_again"]["graph_captures"] == 0):
+        bad.append(f"(a) captures: essential graph {eg_runs}, GBA {gba_runs}")
+    if min(launches["ba_assembly"], launches["ba_chi2"]) <= 0:
+        bad.append(f"a kernel of global BA never launched: {launches}")
+    if sup_ok is not False or lc_b.num_gba_aborted != 1 or not sup_unchanged:
+        bad.append(f"(b) the superseded GBA: {superseded}")
+    if not abs(mem_after - mem_before) <= KITTI00_SUPERSEDED_MARGIN_MB * 2**20:
+        bad.append(f"(b) memory kept {mem_before / 2**20} -> {mem_after / 2**20} MB")
+    if not (final_ok and final_equal):
+        bad.append(f"(b) the flow's GBA after the superseded one: {final_ok}, "
+                   f"bitwise equal to (a) {final_equal}")
+    if bad:
+        raise AssertionError("KITTI 00 loop correction: " + "; ".join(bad))
+    return launches
+
+
 def main() -> None:
     global CARD
     import torch
@@ -3695,10 +3952,12 @@ def main() -> None:
     scale_problem = gather_global_problem_bucketed(store, "cpu")[0]
     k3 = {}
     k3_err = 0.0
-    for P, L, K in ((96, 8192, 5), (600, 120000, 7), (1400, 60000, 7),
+    for P, L, K in ((96, 8192, 5), (600, 120000, 7), KITTI00_SHAPE, (1400, 60000, 7),
                     (6000, 60000, 7)) + WIDE_K_SHAPES:
         if P == 600:
             prob = gather_global_problem_bucketed(store, dev)[0]
+        elif (P, L, K) == KITTI00_SHAPE:  # phase 22's problem, before its loop correction
+            prob = gather_global_problem_bucketed(kitti00_scale_store()[0], dev)[0]
         else:
             big = dict(spacing=96 * 0.15 / P, min_depth=1.0) if P > 96 else {}
             flat, _ = synthetic.make_ba_problem(seed=0, P=P, L=L, stereo_frac=0.6,
@@ -3747,9 +4006,29 @@ def main() -> None:
                     if k2_t["per_kernel_ms"] else None,
                     max_slots_per_camera=int((groups.offsets[1:] - groups.offsets[:-1]).max()),
                     **k2_bound(P, L, K, n_active)))
-                if P == 600:
+                if P == 600 or (P, L, K) == KITTI00_SHAPE:
                     k2_here["k2_at_this_shape"]["plain_ms"] = device_ms(
                         lambda: assembly.assemble_plain(*k2_args), n=3)
+                if (P, L, K) == KITTI00_SHAPE:
+                    # K2 against its plain version in float64 at phase 22's
+                    # shape (the one-hot of L K P floats: ~22 GB in float64),
+                    # by phase 3's rule, wherever the plain version in float32
+                    # keeps that rule too: the store's points and poses lie up
+                    # to 110 m from the origin, and float32 rounding of the
+                    # camera-frame point (~1e-5 m) alone moves bl and U past it.
+                    got2 = assembly.assemble(*k2_args, groups=groups)
+                    plain2 = assembly.assemble_plain(*k2_args)
+                    excess = {who: assembly.excess_over_plain(
+                        res, *k2_args, rtol=K2_RTOL, atol=K2_ATOL, camera_sums=True)
+                        for who, res in (("k2", got2), ("plain_f32", plain2))}
+                    bad2 = {n: e for n, (e, _) in excess["k2"].items()
+                            if e > 0 and excess["plain_f32"][n][0] <= 0}
+                    if bad2:
+                        raise AssertionError(f"K2 off its plain version at "
+                                             f"{(P, L, K, delta)}: {bad2} (the float32 "
+                                             f"plain version: {excess['plain_f32']})")
+                    k2_here["k2_at_this_shape"]["excess_over_plain_f64"] = excess
+                    del got2, plain2
             emit("k3_vs_plain", shape=[P, L, K], robust_delta=delta, rtol=K3_RTOL,
                  chi2=float(got), plain_f64=want, rel_err=rel, repeatable=True,
                  equal_to_k2_chi2=equal_k2, k3_chunks_per_block=chi2_chunks(K),
@@ -4715,6 +4994,9 @@ def main() -> None:
         reuse=os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                            "chip_smoke_soak"))
 
+    # 22. The loop correction at KITTI 00's scale ---------------------------
+    kitti00_launches = kitti00_scale_phase()
+
     # 19-20. The long run and the fusion soak (the child's) ----------------
     child_launches = finish_child_phases(children)
     long_launches, soak_launches = child_launches["long_run"], child_launches["kitti_soak"]
@@ -4739,7 +5021,8 @@ def main() -> None:
                                    graphs_paths=graph_launches["hamming"],
                                    long_run=long_launches["hamming"],
                                    kitti_soak=soak_launches["hamming"],
-                                   lidar_soak=lidar_launches["hamming"]),
+                                   lidar_soak=lidar_launches["hamming"],
+                                   kitti00_loop_correction=kitti00_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
@@ -4748,6 +5031,7 @@ def main() -> None:
              launches_by_path=dict(kitti_rgbd=launches["ba_assembly"],
                                    fusion=fusion_launches["ba_assembly"],
                                    gba_at_scale=gba_launches["ba_assembly"],
+                                   kitti00_loop_correction=kitti00_launches["ba_assembly"],
                                    ring_loop=loop_launches["ba_assembly"],
                                    stereo=stereo_launches["ba_assembly"],
                                    mono=mono_launches["ba_assembly"],
@@ -4767,6 +5051,7 @@ def main() -> None:
              replaces="sqrtlm_slam_tpu/optim/assembly_pallas.py:508",
              launches=loop_launches["ba_chi2"],
              launches_by_path=dict(gba_at_scale=gba_launches["ba_chi2"],
+                                   kitti00_loop_correction=kitti00_launches["ba_chi2"],
                                    ring_loop=loop_launches["ba_chi2"],
                                    kitti_runner=runner_launches["ba_chi2"],
                                    dist_ba=dist_launches["ba_chi2"],

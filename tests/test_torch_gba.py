@@ -204,8 +204,17 @@ def scale_stores():
     return j_scale.make_scale_store(**kw), t_scale.make_scale_store(**kw)
 
 
-def test_scale_store_matches_jax(scale_stores):
-    (js, jR, jt), (ts, tR, tt) = scale_stores
+@pytest.mark.parametrize("n_kf, n_lm", [(40, 3000), (1400, 2000)])
+def test_scale_store_matches_jax(scale_stores, n_kf, n_lm):
+    """The two packages' scale stores bitwise equal: the fixture's, and at
+    KITTI 00's 1,400 keyframes (the drift integrated over every keyframe;
+    landmarks cut to 2,000)."""
+    if (n_kf, n_lm) == (40, 3000):
+        (js, jR, jt), (ts, tR, tt) = scale_stores
+    else:
+        kw = dict(n_kf=n_kf, n_lm=n_lm, obs_per_lm=5, drift=4e-4)
+        (js, jR, jt), (ts, tR, tt) = j_scale.make_scale_store(**kw), \
+            t_scale.make_scale_store(**kw)
     np.testing.assert_array_equal(tR, jR)
     np.testing.assert_array_equal(tt, jt)
     for f in ("kf_R", "kf_t", "kf_xy", "kf_uvr", "kf_obs_lm", "lm_pos", "lm_obs_kf",
