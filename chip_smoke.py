@@ -328,6 +328,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      packages' float32 runs, the CPU's and the card's). In the whole smoke
      it runs in the main process after phase 21, while phase 19's child
      finishes.
+ 23. distributed BA and the flat engine's global BA at KITTI 00's scale
+     (`kitti00_dist_phase`, also callable alone): on phase 22's store after
+     the essential graph (alone it builds and corrects it),
+     `dist_ba.make_bucketed_lm_iterate` at 4, 2 and 1 shards on the card
+     (10 LM iterations, the GBA's robust delta) graphed, replayed and eager,
+     bitwise equal, with the memory read before each shard count and after
+     its graph is dropped, and 1 shard on the store rescaled by 1 + k
+     2^-23 (k = -1, 1); (b) each shard's S_half and rhs_corr at 4 shards
+     against the dense one-hot formula; (c) `schur.global_ba_cg` on the
+     flat layout, three ways and its draws. Gated by
+     `scale_kitti00.dist_gates` against the card's record
+     (`eval/scale_kitti00_dist.json`). In the whole smoke it runs in the
+     main process right after phase 22.
 Then the kernel summary line (each kernel's launches on the main path (K1
 and K2: the fusion run; K3: the ring loop; `launches_by_path` has every
 path's count, the runner's from run (a), `dist_ba` from phase 16 (b)'s
@@ -335,7 +348,8 @@ replayed 4-shard call, `cg_local_ba` from phase 16 (a)'s KITTI-size run with
 the cg backend, `graphs_paths` from phase 18 (b)'s graphed runs, `long_run`
 from phase 19, `kitti_soak` from phase 20's sync run, `lidar_soak` from
 phase 21 (none: LiDAR-only odometry matches no descriptor and runs no
-BA), `kitti00_loop_correction` from phase 22 (a)'s graphed GBA; a
+BA), `kitti00_loop_correction` from phase 22 (a)'s graphed GBA,
+`kitti00_dist_ba` from phase 23 (a)'s graphed calls at 4, 2 and 1 shards; a
 captured graph adds its kernels' launches at each replay), its
 time, its plain version's, its bound from this run's shapes and, where one
 PyTorch call computes the same function, that call's time), the card line,
@@ -356,6 +370,7 @@ import subprocess
 import sys
 import time
 import warnings
+from typing import Optional
 
 import numpy as np
 
@@ -3492,7 +3507,7 @@ def kitti00_scale_store():
                             drift=flow["drift"])
 
 
-def kitti00_scale_phase() -> dict:
+def kitti00_scale_phase(keep: Optional[dict] = None) -> dict:
     """22. The loop correction at KITTI 00's scale (`kitti00_scale_phase`,
     also callable alone): `benchmarks/bench_scale.py`'s flow at 1,400
     keyframes x 280,000 landmarks (`eval/scale_kitti00.py`'s FLOW: 5
@@ -3523,7 +3538,10 @@ def kitti00_scale_phase() -> dict:
     `scale_kitti00.tolerances` (the spread of both packages' float32
     runs), chi2 falls, the GBA completes); K2 and K3 launched. Launch
     counters zeroed just before (a)'s graphed GBA and read just after
-    (returned)."""
+    (returned). With `keep` (a dict), it is given what phase 23 starts
+    from: `corrected`, a copy of the store after the essential graph,
+    `true_R`, `true_t`, `ate_after_loop_m` and `gba` (the ATE and chi2
+    after (a)'s GBA)."""
     import gc
 
     import torch
@@ -3621,6 +3639,9 @@ def kitti00_scale_phase() -> dict:
         n_edges = int(p0.obs_valid.sum())
         del p0
         copies = {k: copy.deepcopy(store) for k in ("again", "eager", "superseded")}
+        if keep is not None:
+            keep.update(corrected=copy.deepcopy(store), true_R=true_R, true_t=true_t,
+                        ate_after_loop_m=ate_eg)
 
         # (a) The GBA, three ways, each on its own copy of the corrected store.
         gba_runs = {}
@@ -3632,6 +3653,8 @@ def kitti00_scale_phase() -> dict:
         p1, _ = gather_global_problem_bucketed(store, dev)
         chi2_after = float(schur_bucketed.chi2_only(p1, DEFAULT_CAM, p1.obs_valid, None))
         del p1
+        if keep is not None:
+            keep["gba"] = dict(ate_m=ate_gba, chi2_plain=chi2_after)
         again_ok, gba_runs["graphed_again"] = measured(
             LoopCloser(copies["again"], DEFAULT_CAM, cfg=cfg, device=dev).run_global_ba)
         eager_ok, gba_runs["eager"] = measured(
@@ -3710,6 +3733,288 @@ def kitti00_scale_phase() -> dict:
         raise AssertionError("KITTI 00 loop correction: " + "; ".join(bad))
     return launches
 
+
+def kitti00_dense_pieces(problem, red, mu):
+    """(S_half, rhs_corr) of one shard by the JAX package's formula
+    (`sqrtlm_slam_tpu/optim/schur_bucketed.py::_pieces_tail`, float32 as on
+    its CPU): V scattered into a one-hot (P, L, 6, 3) Y, S = blockdiag(Hpp_d)
+    - Y Y^T, rhs_corr = Y (Hll_d^{-1} bl) through the one-hot. Phase 23 (b)'s
+    yardstick for the port's slot-pair sums; not on any path of the port."""
+    import torch
+    from sqrtlm_slam_tpu_torch.optim import schur_bucketed as sb
+
+    Hll, bl, U, Hpp, bp, chi2 = red
+    P, L = problem.num_poses, problem.num_points
+    dev = bl.device
+    eye3 = torch.eye(3, device=dev)
+    eye6 = torch.eye(6, device=dev)
+    dll = torch.diagonal(Hll, dim1=-2, dim2=-1)
+    Hll_d = torch.where(problem.point_valid[:, None, None],
+                        Hll + mu * dll[..., None] * eye3 + 1e-8 * eye3, eye3)
+    Minv = sb.trinv_lower3x3(sb.chol3x3(Hll_d))
+    V = torch.einsum("lkim,ljm->lkij", U, Minv)
+    O = (problem.obs_cam.long()[..., None] == torch.arange(P, device=dev)).to(bl.dtype)
+    Y2 = torch.einsum("lkp,lkim->plim", O, V).permute(0, 2, 1, 3).reshape(P * 6, L * 3)
+    dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    Hpp_d = Hpp + mu * dpp[..., None] * eye6 + 1e-8 * eye6
+    S = -(Y2 @ Y2.T)
+    del Y2
+    S = S + torch.einsum("pij,pq->piqj", Hpp_d, torch.eye(P, device=dev)).reshape(P * 6, P * 6)
+    y2 = torch.einsum("lmi,lm->li", Minv, torch.einsum("lij,lj->li", Minv, bl))
+    Vz = torch.einsum("lkim,lm->lki", U, y2)
+    return S, torch.einsum("lkp,lki->pi", O, Vz).reshape(-1)
+
+
+def kitti00_corrected_store() -> dict:
+    """Phase 23's start when it runs alone: phase 22's store corrected by
+    the flow's essential graph, and the ATE and chi2 of the flow's GBA (a
+    `LoopCloser.run_global_ba` on a copy): the keys `kitti00_scale_phase`
+    gives its `keep`."""
+    import torch
+    from sqrtlm_slam_tpu_torch.eval import scale_kitti00
+    from sqrtlm_slam_tpu_torch.eval.scale import store_ate
+    from sqrtlm_slam_tpu_torch.eval.synthetic import DEFAULT_CAM
+    from sqrtlm_slam_tpu_torch.geometry import sim3
+    from sqrtlm_slam_tpu_torch.loop import LoopCloser, LoopClosingConfig, essential_graph
+    from sqrtlm_slam_tpu_torch.loop.closing import gather_global_problem_bucketed
+    from sqrtlm_slam_tpu_torch.optim import schur_bucketed
+
+    flow = scale_kitti00.FLOW
+    dev = torch.device("cuda")
+    store, true_R, true_t = kitti00_scale_store()
+    cfg = LoopClosingConfig(edge_cap=flow["edge_cap"], gba_iters=flow["gba_iters"],
+                            gba_chunk=flow["gba_chunk"])
+    lc = LoopCloser(store, DEFAULT_CAM, cfg=cfg, device=dev)
+    pg = scale_kitti00.pose_graph_of_loop(
+        lc, true_R, true_t,
+        lambda R, t: sim3.Sim3(torch.tensor(1.0), torch.as_tensor(R), torch.as_tensor(t)))
+    out, _ = essential_graph.optimize_pose_graph(pg, num_iters=flow["eg_iters"])
+    lc._apply_pose_graph(out, store.num_kf)
+    keep = dict(corrected=copy.deepcopy(store), true_R=true_R, true_t=true_t,
+                ate_after_loop_m=store_ate(store, true_R, true_t))
+    if not lc.run_global_ba():
+        raise AssertionError("KITTI 00 distributed BA: the flow's GBA did not complete")
+    p, _ = gather_global_problem_bucketed(store, dev)
+    keep["gba"] = dict(ate_m=store_ate(store, true_R, true_t), chi2_plain=float(
+        schur_bucketed.chi2_only(p, DEFAULT_CAM, p.obs_valid, None)))
+    return keep
+
+
+def kitti00_dist_phase(keep: Optional[dict] = None, write_record: Optional[str] = None) -> dict:
+    """23. Distributed BA and the flat engine's global BA at KITTI 00's
+    scale (`kitti00_dist_phase`, also callable alone): the problem is
+    `gather_global_problem_bucketed` of phase 22's store after the essential
+    graph (1,400 keyframes, 280,000 landmarks, 1.4 M observations in 7
+    slots; alone it builds and corrects that store, `kitti00_corrected_
+    store`), the robust delta and the 10 LM iterations of the flow's GBA.
+      (a) `dist_ba.make_bucketed_lm_iterate` (the JAX package's production
+          distributed BA) at 4, 2 and 1 shards on the card, in that order,
+          the memory read before anything else of each: graphed (the first
+          call captures the whole LM loop), replayed and eager
+          (`disable_graphs`), bitwise equal; s to a synchronize, captures,
+          replays, host reads, K2's and K3's launches, the peak allocated,
+          the memory the capture keeps (before against after) and what is
+          kept once the graph is dropped, accepted iterations, chi2 before
+          and after, the ATE after; 1 shard again on the store rescaled by
+          1 + k 2^-23 (k = -1, 1: float32 draws);
+      (b) each shard's S_half and rhs_corr of the first LM iteration at 4
+          shards against the dense one-hot formula (`kitti00_dense_pieces`);
+      (c) the flat engine's matrix-free GBA, `schur.global_ba_cg` on
+          `facade.bucketed_to_flat(problem)`, 10 LM iterations, graphed,
+          replayed and eager, and its draws at k = -1, 1 (its PCG stops at
+          a relative residual of 1e-6, the bucketed GBA's at the forcing
+          term 1e-2: not the same iterate).
+    Gated by `scale_kitti00.dist_gates` against the card's record
+    (`eval/scale_kitti00_dist.json`); (a)'s and (c)'s ATE and chi2 printed
+    beside phase 22's GBA. With `write_record` (a path) the draws are
+    those of `scale_kitti00.DIST_RECORD_JITTER_ULPS` and the run is written
+    there as the record, then gated against itself (the record was made
+    so). K2 and K3's launch counters are zeroed just before (a)'s graphed
+    calls and read just after (returned, summed over the shard counts)."""
+    import gc
+    from types import SimpleNamespace
+
+    import torch
+    from sqrtlm_slam_tpu_torch import utils
+    from sqrtlm_slam_tpu_torch.eval import scale_kitti00
+    from sqrtlm_slam_tpu_torch.eval.scale import store_ate
+    from sqrtlm_slam_tpu_torch.eval.synthetic import DEFAULT_CAM
+    from sqrtlm_slam_tpu_torch.loop.closing import gather_global_problem_bucketed
+    from sqrtlm_slam_tpu_torch.ops import hamming
+    from sqrtlm_slam_tpu_torch.optim import assembly, facade, loss, schur, schur_bucketed
+    from sqrtlm_slam_tpu_torch.parallel import dist_ba
+    from sqrtlm_slam_tpu_torch.utils import cache
+
+    t_phase = time.perf_counter()
+    flow = scale_kitti00.FLOW
+    record = None if write_record else scale_kitti00.load_dist_record()
+    ulps = (scale_kitti00.DIST_RECORD_JITTER_ULPS if write_record
+            else scale_kitti00.DIST_JITTER_ULPS)
+    dev = torch.device("cuda")
+    delta = float(np.sqrt(loss.CHI2_2DOF))
+    iters = flow["gba_iters"]
+    alone = keep is None
+    if alone:
+        t0 = time.perf_counter()
+        keep = kitti00_corrected_store()
+        alone_s = time.perf_counter() - t0
+    true_R, true_t = keep["true_R"], keep["true_t"]
+    p0, _ = gather_global_problem_bucketed(keep["corrected"], dev)
+    P = p0.num_poses
+    mu0 = torch.tensor(1e-3, device=dev)
+
+    def ate_of(pose_R, pose_t) -> float:
+        R, t = utils.to_host(pose_R, pose_t)
+        return store_ate(SimpleNamespace(num_kf=P, kf_R=R, kf_t=t), true_R, true_t)
+
+    def jittered(k: int):
+        f = float(np.float32(1.0 + k * 2.0**-23))
+        return p0._replace(pose_t=p0.pose_t * f, points=p0.points * f)
+
+    def held() -> int:
+        gc.collect()
+        return kept_bytes()
+
+    def measured(fn, eager: bool = False):
+        """(fn(), its readings): `run_counted`'s, K2's and K3's launches, the
+        peak allocated and the memory kept after it against before."""
+        mem0 = held()
+        torch.cuda.reset_peak_memory_stats()
+        c2, c3 = assembly.launch_count, assembly.chi2_launch_count
+        with cache.disable_graphs() if eager else contextlib.nullcontext():
+            out, rec = run_counted(fn)
+        rec.update(ba_assembly=assembly.launch_count - c2,
+                   ba_chi2=assembly.chi2_launch_count - c3,
+                   max_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
+                   kept_mb=(held() - mem0) / 2**20)
+        return out, rec
+
+    chi2_before = float(schur_bucketed.chi2_only(p0, DEFAULT_CAM, p0.obs_valid, delta))
+    launches = {"hamming": 0, "ba_assembly": 0, "ba_chi2": 0}
+
+    # (a) Distributed BA at 4, 2 and 1 shards, (b) at 4 after (a)'s runs.
+    shards, runs, draws = {}, {}, []
+    dense = dict(S_rel=[], rhs_rel=[])
+    for D in scale_kitti00.DIST_SHARDS:
+        mem0 = held()
+        mesh = dist_ba.make_mesh(D, "cuda")
+        iterate = dist_ba.make_bucketed_lm_iterate(mesh, DEFAULT_CAM, num_iters=iters,
+                                                   robust_delta=delta)
+
+        def shard(problem):  # host partition and copy to the card, outside the timing
+            return dist_ba.to_shards(dist_ba.partition_bucketed(problem, D)[0], mesh)
+
+        def call(sp):
+            out, chi2, n_acc = iterate(sp)
+            return out.pose_R, out.pose_t, torch.cat(out.points), chi2, n_acc
+
+        sp0 = shard(p0)
+        rec = {}
+        hamming.launch_count = assembly.launch_count = assembly.chi2_launch_count = 0
+        graphed, rec["graphed"] = measured(lambda: call(sp0))
+        counts = {"hamming": hamming.launch_count, "ba_assembly": assembly.launch_count,
+                  "ba_chi2": assembly.chi2_launch_count}
+        launches = {k: launches[k] + n for k, n in counts.items()}
+        again, rec["graphed_again"] = measured(lambda: call(sp0))
+        eager, rec["eager"] = measured(lambda: call(sp0), eager=True)
+        pose_R, pose_t, _, chi2, n_acc = graphed
+        ate = ate_of(pose_R, pose_t)
+        if D == 1:
+            draws.append(dict(k=0, ate_m=ate, chi2=float(chi2)))
+            for k in ulps:
+                sp_k = shard(jittered(k))
+                out, r = measured(lambda: call(sp_k))
+                draws.append(dict(k=k, ate_m=ate_of(out[0], out[1]), chi2=float(out[3]),
+                                  s=r["s"], graph_captures=r["graph_captures"]))
+                del out, sp_k
+        kept_mb = (held() - mem0) / 2**20
+        dist_ba._lm_loop_jit.clear()
+        equal = same_bits(graphed, again) and same_bits(again, eager)
+        del graphed, again, eager, pose_R, pose_t, sp0
+        shards[str(D)] = dict(completed=True, ate_m=ate, chi2=float(chi2), accepted=int(n_acc),
+                              bitwise_equal=equal, max_allocated_mb=max(
+                                  r["max_allocated_mb"] for r in rec.values()),
+                              kept_mb=kept_mb, kept_mb_dropped=(held() - mem0) / 2**20)
+        runs[str(D)] = rec
+        if D == 4:  # (b) the first LM iteration's pieces of every shard
+            sp = shard(p0)
+            for i, pts in enumerate(sp.points):
+                q = dist_ba._problem(sp, i, sp.pose_R, sp.pose_t, pts)
+                red = schur_bucketed.assemble(q, DEFAULT_CAM, q.obs_valid, delta)
+                got = schur_bucketed._pieces_tail(q, *red, mu0)
+                S, rhs = kitti00_dense_pieces(q, red, mu0)
+                dense["S_rel"].append(float((got.S_half - S).abs().max() / S.abs().max()))
+                dense["rhs_rel"].append(float((got.rhs_corr - rhs).abs().max()
+                                              / rhs.abs().max()))
+                del red, got, S, rhs
+            del sp
+            dense["max_allocated_mb"] = torch.cuda.max_memory_allocated() / 2**20
+
+    # (c) The flat engine's matrix-free GBA.
+    flat_graphs = (schur._cg_head_jit, schur._pcg_chunk_jit, schur._lm_tail_jit)
+    mem0 = held()
+
+    def flat_call(problem):
+        out, _, stats = schur.global_ba_cg(facade.bucketed_to_flat(problem), DEFAULT_CAM,
+                                           num_iters=iters)
+        return out.pose_R, out.pose_t, out.points, stats.chi2, stats.iters_accepted
+
+    flat_p0 = facade.bucketed_to_flat(p0)
+    flat_chi2_before = float(schur.chi2_only(flat_p0, DEFAULT_CAM, flat_p0.obs_valid, delta))
+    del flat_p0
+    flat_runs = {}
+    f_graphed, flat_runs["graphed"] = measured(lambda: flat_call(p0))
+    f_again, flat_runs["graphed_again"] = measured(lambda: flat_call(p0))
+    f_eager, flat_runs["eager"] = measured(lambda: flat_call(p0), eager=True)
+    flat_ate = ate_of(f_graphed[0], f_graphed[1])
+    flat_draws = [dict(k=0, ate_m=flat_ate, chi2=float(f_graphed[3]))]
+    for k in ulps:
+        out, r = measured(lambda: flat_call(jittered(k)))
+        flat_draws.append(dict(k=k, ate_m=ate_of(out[0], out[1]), chi2=float(out[3]),
+                               s=r["s"], graph_captures=r["graph_captures"]))
+        del out
+    flat_kept = (held() - mem0) / 2**20
+    for g in flat_graphs:
+        g.clear()
+    p_flat = p0._replace(pose_R=f_graphed[0], pose_t=f_graphed[1], points=f_graphed[2])
+    flat = dict(ate_m=flat_ate, chi2=float(f_graphed[3]), chi2_before=flat_chi2_before,
+                accepted=int(f_graphed[4]),
+                bitwise_equal=same_bits(f_graphed, f_again) and same_bits(f_again, f_eager),
+                chi2_plain=float(schur_bucketed.chi2_only(p_flat, DEFAULT_CAM, p0.obs_valid,
+                                                          None)),
+                max_allocated_mb=max(r["max_allocated_mb"] for r in flat_runs.values()),
+                kept_mb=flat_kept, draws=flat_draws)
+    del f_graphed, f_again, f_eager, p_flat
+    flat["kept_mb_dropped"] = (held() - mem0) / 2**20
+
+    run = dict(kfs=P, landmarks=p0.num_points, edges=int(p0.obs_valid.sum()),
+               gba_iters=iters, robust_delta=delta, ate_after_loop_m=keep["ate_after_loop_m"],
+               chi2_before=chi2_before, shards=shards, draws=draws, dense=dense, flat=flat)
+    if write_record is not None:
+        record = dict(card=CARD, **json.loads(json.dumps(run)))
+        for d in record["draws"] + record["flat"]["draws"]:
+            d.pop("s", None)
+            d.pop("graph_captures", None)
+        with open(write_record, "w") as f:
+            json.dump(record, f, indent=1)
+    bad = scale_kitti00.dist_gates(run, record)
+    emit("kitti00_dist", **run, runs=runs, flat_runs=flat_runs, launches=launches,
+         phase22_gba=keep.get("gba"), tolerances=scale_kitti00.dist_tolerances(run, record),
+         dense_rel_tol=scale_kitti00.DIST_DENSE_REL_TOL,
+         alone_store_and_phase22_s=alone_s if alone else None, failures=bad,
+         seconds=time.perf_counter() - t_phase,
+         note="graphed: the first call (it captures), graphed_again: replays only, eager: "
+              "under disable_graphs; s to a synchronize; kept_mb: memory_reserved after "
+              "empty_cache after the shard count's runs against before them (its capture "
+              "held), kept_mb_dropped: the same once the graph is dropped; chi2: the LM's "
+              "robust chi2 (delta sqrt(5.991)), chi2_plain: chi2_only without it (phase 22's "
+              "chi2_after); draws: 1 shard / the flat GBA on the store rescaled by "
+              "1 + k 2^-23")
+    if min(launches["ba_assembly"], launches["ba_chi2"]) <= 0:
+        bad.append(f"a kernel of distributed BA never launched: {launches}")
+    if bad:
+        raise AssertionError("KITTI 00 distributed BA and flat GBA: " + "; ".join(bad))
+    return launches
 
 def main() -> None:
     global CARD
@@ -4995,7 +5300,12 @@ def main() -> None:
                            "chip_smoke_soak"))
 
     # 22. The loop correction at KITTI 00's scale ---------------------------
-    kitti00_launches = kitti00_scale_phase()
+    kitti00 = {}
+    kitti00_launches = kitti00_scale_phase(keep=kitti00)
+
+    # 23. Distributed BA and the flat GBA at KITTI 00's scale -----------------
+    kitti00_dist_launches = kitti00_dist_phase(kitti00)
+    del kitti00
 
     # 19-20. The long run and the fusion soak (the child's) ----------------
     child_launches = finish_child_phases(children)
@@ -5022,7 +5332,8 @@ def main() -> None:
                                    long_run=long_launches["hamming"],
                                    kitti_soak=soak_launches["hamming"],
                                    lidar_soak=lidar_launches["hamming"],
-                                   kitti00_loop_correction=kitti00_launches["hamming"]),
+                                   kitti00_loop_correction=kitti00_launches["hamming"],
+                                   kitti00_dist_ba=kitti00_dist_launches["hamming"]),
              max_abs_err=0.0, **timed(k1[(2048, 2000)], "library_ms")),
         dict(name="ba_assembly", route="cuda",
              source="sqrtlm_slam_tpu_torch/csrc/ba_assembly.cu",
@@ -5032,6 +5343,7 @@ def main() -> None:
                                    fusion=fusion_launches["ba_assembly"],
                                    gba_at_scale=gba_launches["ba_assembly"],
                                    kitti00_loop_correction=kitti00_launches["ba_assembly"],
+                                   kitti00_dist_ba=kitti00_dist_launches["ba_assembly"],
                                    ring_loop=loop_launches["ba_assembly"],
                                    stereo=stereo_launches["ba_assembly"],
                                    mono=mono_launches["ba_assembly"],
@@ -5052,6 +5364,7 @@ def main() -> None:
              launches=loop_launches["ba_chi2"],
              launches_by_path=dict(gba_at_scale=gba_launches["ba_chi2"],
                                    kitti00_loop_correction=kitti00_launches["ba_chi2"],
+                                   kitti00_dist_ba=kitti00_dist_launches["ba_chi2"],
                                    ring_loop=loop_launches["ba_chi2"],
                                    kitti_runner=runner_launches["ba_chi2"],
                                    dist_ba=dist_launches["ba_chi2"],

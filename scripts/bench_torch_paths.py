@@ -2,7 +2,8 @@
 """Kernel device times and two end-to-end numbers of the PyTorch/CUDA port on
 one GPU, for comparing two trees of the repository in one call on one card.
 
-    python3 scripts/bench_torch_paths.py [--root DIR] [--label NAME] [--kernels-only]
+    python3 scripts/bench_torch_paths.py [--root DIR] [--label NAME]
+                                         [--kernels-only | --local-ba-only]
 
 Imports `sqrtlm_slam_tpu_torch` from DIR (default: this repository), builds
 its kernels, then measures
@@ -24,7 +25,10 @@ its kernels, then measures
     one int32 on the card (what a per-call zeroed K3 ticket would add);
   * local_ba_lm_iters_per_s: the bench.py protocol (P=96, L=8192, 5
     observations per landmark, stereo 0.6, Huber 2.447, 15 LM iterations
-    per `ba_iterate` call, 5 chained calls, one synchronize, best of 3);
+    per `ba_iterate` call, 5 chained calls, one synchronize, best of 3),
+    op by op and (`local_ba_graphed_lm_iters_per_s`) with each call a
+    captured graph's replay (`utils.cache.graphed`; `--local-ba-only`
+    measures these two alone);
   * tracked_frames_per_s: `SlamSystem.track_depth` over the bench.py
     tracking shape (240x320, 1000 ORB features, synthetic world seed 1,
     1200 points, 24 frames at 0.3 m), median over frames 5-23, each frame
@@ -132,6 +136,7 @@ def main() -> None:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels-only", action="store_true")
+    ap.add_argument("--local-ba-only", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -145,6 +150,7 @@ def main() -> None:
     from sqrtlm_slam_tpu_torch.ops import build
     from sqrtlm_slam_tpu_torch.optim import schur_bucketed
     from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
+    from sqrtlm_slam_tpu_torch.utils import cache
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -152,7 +158,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     build.load_all(("hamming", "ba_assembly"))
     cam = synthetic.DEFAULT_CAM
-    kernel_ms = _kernel_ms(dev, cam)
+    kernel_ms = None if args.local_ba_only else _kernel_ms(dev, cam)
     if args.kernels_only:
         print(json.dumps({"label": args.label, "card": card, "kernel_ms": kernel_ms}),
               flush=True)
@@ -163,20 +169,35 @@ def main() -> None:
     prob0 = schur_bucketed.from_flat(flat, 5, device=dev)
     iters, calls = 15, 5
 
-    def ba_call(p):
-        out, chi2, _ = schur_bucketed.ba_iterate(p, cam, p.obs_valid, iters, robust_delta=2.447)
-        return out, chi2
+    graphed_iterate = cache.graphed(schur_bucketed.ba_iterate,
+                                    static_argnames=("cam", "num_iters", "robust_delta"))
 
-    ba_call(prob0)  # warm-up
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        out = prob0
-        for _ in range(calls):
-            out, chi2 = ba_call(out)
-        chi2_end = float(chi2)
-        best = min(best, time.perf_counter() - t0)
+    def lm_iters_per_s(iterate):
+        """(LM iterations/s, chi2 at the end) of 5 chained calls, best of 3."""
+        def ba_call(p):
+            out, chi2, _ = iterate(p, cam, p.obs_valid, iters, robust_delta=2.447)
+            return out, chi2
+
+        ba_call(prob0)  # warm-up (the graphed one captures)
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = prob0
+            for _ in range(calls):
+                out, chi2 = ba_call(out)
+            chi2_end = float(chi2)
+            best = min(best, time.perf_counter() - t0)
+        return calls * iters / best, chi2_end
+
+    iters_per_s, chi2_end = lm_iters_per_s(schur_bucketed.ba_iterate)
+    graphed_per_s, graphed_chi2 = lm_iters_per_s(graphed_iterate)
+    if args.local_ba_only:
+        print(json.dumps({"label": args.label, "card": card,
+                          "local_ba_lm_iters_per_s": iters_per_s,
+                          "local_ba_graphed_lm_iters_per_s": graphed_per_s,
+                          "chi2_end": chi2_end, "graphed_chi2_end": graphed_chi2}), flush=True)
+        return
 
     world = synthetic.SyntheticWorld(seed=1, n_points=1200)
     frames = [world.render(T, cam) for T in synthetic.forward_trajectory(24, step=0.3)]
@@ -190,7 +211,8 @@ def main() -> None:
 
     print(json.dumps({
         "label": args.label, "card": card, "kernel_ms": kernel_ms,
-        "local_ba_lm_iters_per_s": calls * iters / best, "chi2_end": chi2_end,
+        "local_ba_lm_iters_per_s": iters_per_s,
+        "local_ba_graphed_lm_iters_per_s": graphed_per_s, "chi2_end": chi2_end,
         "tracked_frames_per_s": 1.0 / float(np.median(secs[5:])),
         "median_ms": 1e3 * float(np.median(secs[5:])), "tracked": tracked,
         "frames": len(frames)}), flush=True)

@@ -6,16 +6,21 @@ square-root form,
 
     Hll_d = Lc Lc^T          (batched closed-form 3x3 Cholesky)
     V     = U Lc^{-T}        (whitened cross blocks, U = Jp^T w Jl)
-    Y     = scatter-by-cam(V)            (P, L, 6, 3)
-    S     = Hpp_d - Y Y^T                (one matmul)
+    S     = Hpp_d - Y Y^T    (Y: V scattered by camera, never formed)
     rhs   = -(bp - Y (Lc^{-1} bl))
 
 The per-iteration reductions (Hll, bl, U, Hpp, bp, chi2) come from kernel
 K2 (`optim/assembly.py`) on CUDA and from its plain version on the CPU.
-`S` and the 6P x 6P Cholesky stay `torch.matmul` / `torch.linalg`, as the
-JAX package left them to XLA. The LM loop is a Python loop of `torch.where`
-selects with no host sync per iteration. The TPU layouts (rows layout,
-chunked S-Gram, bf16 Y) are not ported.
+Y Y^T is summed over each landmark's pairs of valid slots by camera pair
+and Y (Lc^{-1} bl) over its slots by camera, in float64 and a fixed
+order, each sum rounded once (`_yyt`, `segment.group_sum`): the JAX package's
+one-hot (P, L, 6, 3) Y and its Gram are an MXU layout, and at 1,400
+keyframes x 280,000 landmarks they would take ~67 GB and ~1.2e14 flop an
+LM iteration. The 6P x 6P Cholesky stays `torch.linalg`, as the JAX
+package left it to XLA.
+The LM loop is a Python loop of `torch.where` selects with no host sync
+per iteration. The TPU layouts (rows layout, chunked S-Gram, bf16 Y) are
+not ported.
 
 Global BA (`ba_iterate_cg`, `global_ba_cg`) applies the reduced camera
 system matrix-free inside a block-Jacobi PCG, with the context built from
@@ -262,14 +267,60 @@ class LocalPieces(NamedTuple):
     bl: torch.Tensor  # (L, 3)
 
 
+def _yyt(problem: BucketedBAProblem, V: torch.Tensor) -> torch.Tensor:
+    """Y Y^T (6P, 6P) of the sqrt-Schur tail without forming Y. Y's column
+    block of landmark l holds, at camera c, the sum Vc of V over l's valid
+    slots on c (the JAX package's one-hot scatter); here that sum sits at
+    the first of those slots. Over each landmark's pairs of such slots
+    a <= b, the products Vc_a Vc_b^T are summed by camera pair (a < b, block
+    (c_a, c_b)) and by camera (a = b) in a fixed order (`segment.group_sum`),
+    and Y Y^T is the cross sums C plus C^T plus the block diagonal of the
+    self sums. Vc, the products and the sums are float64 from V's values;
+    C and the self sums are each rounded to V's dtype once, so that each
+    is its exact value rounded (up to float64 rounding) whatever the order
+    of its terms (a shard's landmarks sum in another order than the whole
+    map's), and added in V's dtype."""
+    P = problem.num_poses
+    L, K = problem.obs_cam.shape
+    f64 = torch.float64
+    cam, valid = problem.obs_cam.long(), problem.obs_valid
+    same = valid[:, :, None] & valid[:, None, :] & (cam[:, :, None] == cam[:, None, :])
+    earlier = torch.ones(K, K, dtype=torch.bool, device=V.device).tril(-1)
+    first = valid & ~(same & earlier).any(-1)  # no earlier valid slot on its camera
+    Vc = torch.einsum("lab,lbx->lax", same.to(f64), V.reshape(L, K, 18).to(f64))
+    Vc = Vc.reshape(L * K, 6, 3)
+    a, b = torch.triu_indices(K, K, device=V.device)  # slot pairs a <= b
+    ca, cb = cam[:, a], cam[:, b]
+    keys = torch.where(a == b, P * P + ca, ca * P + cb)  # (L, pairs)
+    groups = segment.key_groups(keys, P * P + P, keep=first[:, a] & first[:, b])
+
+    def rows(i):  # i = l * pairs + pair: Vc_a Vc_b^T, three products a row
+        l, n = i // a.shape[0], i % a.shape[0]
+        A, B = Vc[l * K + a[n]], Vc[l * K + b[n]]
+        X = A[:, :, None, 0] * B[:, None, :, 0]
+        X.addcmul_(A[:, :, None, 1], B[:, None, :, 1])
+        X.addcmul_(A[:, :, None, 2], B[:, None, :, 2])
+        return X.reshape(-1, 36)
+
+    sums = segment.group_sum(groups, rows)
+    C = sums[:P * P].reshape(P, P, 6, 6).permute(0, 2, 1, 3).reshape(P * 6, P * 6)
+    eyeP = torch.eye(P, dtype=f64, device=V.device)
+    D = torch.einsum("pij,pq->piqj", sums[P * P:].reshape(P, 6, 6), eyeP).reshape(P * 6, P * 6)
+    C, D = C.to(V.dtype), D.to(V.dtype)
+    return C + C.T + D
+
+
 def _pieces_tail(problem: BucketedBAProblem, Hll, bl, U, Hpp, bp, chi2, mu) -> LocalPieces:
-    """Damping + sqrt-Schur factors from the assembled reductions."""
-    P, L = problem.num_poses, problem.num_points
+    """Damping + sqrt-Schur factors from the assembled reductions. The
+    JAX package scatters V by camera into a one-hot (P, L, 6, 3) Y and
+    forms S from Y Y^T (an MXU layout); here the same sums run over each
+    landmark's slot pairs (`_yyt`) and rhs_corr's over its slots,
+    by camera in a fixed order: no tensor holds both a pose and a
+    landmark axis."""
+    P = problem.num_poses
     dtype, dev = bl.dtype, bl.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
-    # (L, K, P) one-hot by comparison: `one_hot` checks its classes on the host.
-    O = (problem.obs_cam.long()[..., None] == torch.arange(P, device=dev)).to(dtype)
 
     dll = torch.diagonal(Hll, dim1=-2, dim2=-1)
     Hll_d = Hll + mu * dll[..., None] * eye3 + 1e-8 * eye3
@@ -278,19 +329,18 @@ def _pieces_tail(problem: BucketedBAProblem, Hll, bl, U, Hpp, bp, chi2, mu) -> L
     Minv = trinv_lower3x3(Lc)
 
     V = torch.einsum("lkim,ljm->lkij", U, Minv)  # U Lc^{-T}
-    Y = torch.einsum("lkp,lkim->plim", O, V)  # scatter by camera, (P, L, 6, 3)
-    Y2 = Y.permute(0, 2, 1, 3).reshape(P * 6, L * 3)
 
     dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
     Hpp_d = Hpp + mu * dpp[..., None] * eye6 + 1e-8 * eye6
-    S_half = -(Y2 @ Y2.T)
     eyeP = torch.eye(P, dtype=dtype, device=dev)
-    S_half = S_half + torch.einsum("pij,pq->piqj", Hpp_d, eyeP).reshape(P * 6, P * 6)
+    S_half = -_yyt(problem, V) + torch.einsum("pij,pq->piqj", Hpp_d, eyeP).reshape(P * 6, P * 6)
 
     z = torch.einsum("lij,lj->li", Minv, bl)
     y2 = torch.einsum("lmi,lm->li", Minv, z)  # Hll_d^{-1} bl
     Vz = torch.einsum("lkim,lm->lki", U, y2)
-    rhs_corr = torch.einsum("lkp,lki->pi", O, Vz).reshape(-1)
+    cams = segment.key_groups(problem.obs_cam, P, keep=problem.obs_valid)
+    rhs_corr = segment.group_sum(cams, Vz.reshape(-1, 6).to(torch.float64).__getitem__)
+    rhs_corr = rhs_corr.to(dtype).reshape(-1)
     return LocalPieces(S_half=S_half, bp=bp, rhs_corr=rhs_corr, chi2=chi2, U=U,
                        Minv=Minv, bl=bl)
 
@@ -535,6 +585,18 @@ class PCGState(NamedTuple):
     done: torch.Tensor  # () bool
     n: torch.Tensor  # () int32 iterations run before done
     limit: torch.Tensor  # () tol^2 ||b||^2
+    limit64: torch.Tensor  # () the same in float64
+
+
+def _converged(r, limit, limit64):
+    """The stop test ||r||^2 <= limit, in r's dtype where ||r||^2 and the
+    limit are finite there, else in float64: a right-hand side past ~1e19
+    (a landmark hundreds of km out) overflows the float32 squares, and
+    `~(inf > inf)` read done before the first iteration."""
+    rr = torch.sum(r * r)
+    rr64 = torch.sum(torch.square(r.double()))
+    return torch.where(torch.isfinite(rr) & torch.isfinite(limit), ~(rr > limit),
+                       ~(rr64 > limit64))
 
 
 def _pcg_start(b, Minv_blocks, pose_fixed, tol: float) -> PCGState:
@@ -542,14 +604,16 @@ def _pcg_start(b, Minv_blocks, pose_fixed, tol: float) -> PCGState:
     z = torch.einsum("pij,pj->pi", Minv_blocks, b)
     r = b
     limit = tol * tol * torch.clamp(torch.sum(b * b), min=1e-20)
+    limit64 = tol * tol * torch.clamp(torch.sum(torch.square(b.double())), min=1e-20)
     return PCGState(x=torch.zeros_like(b), r=r, p=z, rz=torch.sum(r * z),
-                    done=~(torch.sum(r * r) > limit),
-                    n=torch.zeros((), dtype=torch.int32, device=b.device), limit=limit)
+                    done=_converged(r, limit, limit64),
+                    n=torch.zeros((), dtype=torch.int32, device=b.device), limit=limit,
+                    limit64=limit64)
 
 
 def _pcg_iterations(matvec, Minv_blocks, s: PCGState, steps: int) -> PCGState:
     """`steps` masked PCG iterations from `s`, with no read."""
-    x, r, p, rz, done, n, limit = s
+    x, r, p, rz, done, n, limit, limit64 = s
     for _ in range(steps):
         Ap = matvec(p)
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
@@ -564,8 +628,8 @@ def _pcg_iterations(matvec, Minv_blocks, s: PCGState, steps: int) -> PCGState:
         p = torch.where(done, p, p_n)
         rz = torch.where(done, rz, rz_n)
         n = n + (~done).to(torch.int32)
-        done = done | ~(torch.sum(r * r) > limit)
-    return PCGState(x, r, p, rz, done, n, limit)
+        done = done | _converged(r, limit, limit64)
+    return PCGState(x, r, p, rz, done, n, limit, limit64)
 
 
 def _pcg_run(chunk, s: PCGState, max_iters: int, check_every: int) -> PCGState:

@@ -15,6 +15,11 @@ fixed order on every device and every run.
 read: each key's rows in their order in the data, one run per key. Kernels
 that walk one key's members read it (K2's camera pass).
 
+`group_sum` sums those runs in plain PyTorch, each key's rows one after
+another in their order, with no host read at all: a grouping built inside
+a captured graph serves. The sqrt-Schur tail sums its camera-pair blocks
+and its camera rows this way (`schur_bucketed._pieces_tail`).
+
 A padded plan (`segment_plan(..., pad=True)`) lists every key and rounds
 its width up to a power of two, so that its shapes depend on the key count
 and the width's bucket alone: one captured graph then serves the local BA
@@ -31,7 +36,7 @@ present ones are a few thousand.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -46,7 +51,8 @@ class KeyGroups(NamedTuple):
 
 class SegmentPlan(NamedTuple):
     keys: torch.Tensor  # (S,) int64 distinct keys that have members, ascending
-    idx: torch.Tensor  # (S, D) int64 rows of the data; n (one past the end) pads
+    idx: torch.Tensor  # (S, D) int64 rows of the data (0 where `pad`)
+    pad: torch.Tensor  # (S, D) bool entries past a key's members
     n: int  # number of data rows
     num_keys: int  # size of the output's key axis
     groups: KeyGroups  # the same grouping, compressed
@@ -94,23 +100,40 @@ def segment_plan(keys: torch.Tensor, num_keys: int,
     member = k_sorted < num_keys
     k_m, rows = k_sorted[member], order[member]
     rank = torch.arange(k_m.shape[0], device=k.device) - starts[k_m]
-    table = torch.full((num_keys, width), n, dtype=torch.long, device=k.device)
+    table = torch.zeros((num_keys, width), dtype=torch.long, device=k.device)
     table[k_m, rank] = rows
+    empty = torch.arange(width, device=k.device) >= counts[:, None]
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
     groups = KeyGroups(offsets=offsets, members=order.to(torch.int32))
     if pad:
-        return SegmentPlan(keys=torch.arange(num_keys, device=k.device), idx=table, n=n,
-                           num_keys=num_keys, groups=groups)
+        return SegmentPlan(keys=torch.arange(num_keys, device=k.device), idx=table, pad=empty,
+                           n=n, num_keys=num_keys, groups=groups)
     present = torch.nonzero(counts > 0).reshape(-1)
-    return SegmentPlan(keys=present, idx=table[present], n=n, num_keys=num_keys,
-                       groups=groups)
+    return SegmentPlan(keys=present, idx=table[present], pad=empty[present], n=n,
+                       num_keys=num_keys, groups=groups)
+
+
+def group_sum(groups: KeyGroups, rows: Callable[[torch.Tensor], torch.Tensor]
+              ) -> torch.Tensor:
+    """Per-key sums (num_keys, D) of `groups` (`key_groups`); keys without
+    members get zeros. `rows(i)` returns the data rows `i` as (len(i), D)
+    (a gather, so that the rows can be made in the groups' order from any
+    layout). Each key's rows are added one after another in their order
+    (`torch.segment_reduce`, with its checks, which read the device, off):
+    a fixed order with no host read."""
+    return torch.segment_reduce(rows(groups.members.long()), "sum",
+                                offsets=groups.offsets.long(), unsafe=True)
 
 
 def segment_sum(plan: SegmentPlan, data: torch.Tensor) -> torch.Tensor:
     """(n, ...) rows -> (num_keys, ...) per-key sums in a fixed order; keys
-    without members get zeros."""
-    pad = torch.zeros((1,) + data.shape[1:], dtype=data.dtype, device=data.device)
-    sums = torch.sum(torch.cat([data, pad])[plan.idx], dim=1)
+    without members get zeros. The gathered rows are the only copy a call
+    makes (its pad entries zeroed in place)."""
+    if data.shape[0] == 0:
+        return data.new_zeros((plan.num_keys,) + data.shape[1:])
+    rows = data[plan.idx]
+    rows.masked_fill_(plan.pad.reshape(plan.pad.shape + (1,) * (data.dim() - 1)), 0)
+    sums = torch.sum(rows, dim=1)
     if plan.keys.shape[0] == plan.num_keys:  # every key listed, in order (a padded plan)
         return sums
     out = torch.zeros((plan.num_keys,) + data.shape[1:], dtype=data.dtype,

@@ -138,22 +138,25 @@ def _flatten(x, leaves: list):
 
 
 def _unflatten(spec, leaves: Iterable):
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(s):
-        if s is _TENSOR:
-            return next(it)
-        kind, body = s
-        if kind is _CONST:
-            return body
-        if kind is dict:
-            return {k: build(v) for k, v in body}
-        vals = [build(v) for v in body]
-        if kind is list:
-            return vals
-        return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
 
-    return build(spec)
+def _build(s, it):
+    """The nest of `spec` `s` with its tensors taken from the iterator `it`.
+    A module-level function: a recursive closure would be a reference
+    cycle holding `it`, and with it every tensor of `leaves` (a replay's
+    outputs), until the garbage collector ran."""
+    if s is _TENSOR:
+        return next(it)
+    kind, body = s
+    if kind is _CONST:
+        return body
+    if kind is dict:
+        return {k: _build(v, it) for k, v in body}
+    vals = [_build(v, it) for v in body]
+    if kind is list:
+        return vals
+    return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
 
 
 class _Entry(NamedTuple):
@@ -209,6 +212,13 @@ class Graphed:
 
     def num_entries(self) -> int:
         return len(self._entries)
+
+    def clear(self) -> None:
+        """Drop every capture: their pools go back to the device at the next
+        `torch.cuda.empty_cache()` (a replay in flight keeps its entry alive
+        until it returns)."""
+        with _lock:
+            self._entries.clear()
 
     def __call__(self, *args, **kwargs):
         statics, spec, leaves = self._split(args, kwargs)

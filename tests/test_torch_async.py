@@ -28,6 +28,18 @@ from sqrtlm_slam_tpu_torch.pipeline.system import SlamSystem, SystemConfig
 from sqrtlm_slam_tpu_torch.pipeline.tracking import TrackingConfig, TrackState
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """2 CPU threads, as the port's other test modules run (restored after
+    the module): at the machine's default every run here spun its OpenMP
+    threads against the tracking and mapping threads and the other test
+    processes, ~5x the time."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _gt(poses) -> np.ndarray:
     out = []
     for T in poses:
@@ -141,18 +153,55 @@ def test_a_failing_worker_raises_in_the_tracking_thread():
     assert not s._worker.is_alive()
 
 
+class _StepReads:
+    """Counts, while installed, the tracker's step dispatches, the reads
+    made inside a dispatch (`tracking.to_host`) and the waits that consume
+    a step (`tracking.wait_host`)."""
+
+    def __init__(self, mp: pytest.MonkeyPatch):
+        self.calls = {"dispatch": 0, "reads_in_dispatch": 0, "consume_waits": 0}
+        inside = [False]
+        to_host, wait_host = tracking.to_host, tracking.wait_host
+        dispatch = tracking.Tracker._dispatch_step
+        calls = self.calls
+
+        def counting_to_host(*xs):
+            calls["reads_in_dispatch"] += inside[0]
+            return to_host(*xs)
+
+        def counting_wait_host(copy):
+            calls["consume_waits"] += 1
+            return wait_host(copy)
+
+        def marked_dispatch(self, frame):
+            calls["dispatch"] += 1
+            inside[0] = True
+            try:
+                return dispatch(self, frame)
+            finally:
+                inside[0] = False
+
+        mp.setattr(tracking, "to_host", counting_to_host)
+        mp.setattr(tracking, "wait_host", counting_wait_host)
+        mp.setattr(tracking.Tracker, "_dispatch_step", marked_dispatch)
+
+
 @pytest.fixture(scope="module")
 def pipelined_run():
+    """12 pipelined frames, their step reads counted (`_StepReads`)."""
     world = SyntheticWorld(seed=3, n_points=900)
     poses = forward_trajectory(12, step=0.4)
     s = SlamSystem(DEFAULT_CAM, _pipelined_cfg(True), device="cpu")
-    results = [s.track_depth(*world.render(T, DEFAULT_CAM)) for T in poses]
-    deferred = len(s.tracker.trajectory)
-    return s, poses, results, deferred
+    with pytest.MonkeyPatch.context() as mp:
+        reads = _StepReads(mp)
+        results = [s.track_depth(*world.render(T, DEFAULT_CAM)) for T in poses]
+        deferred = len(s.tracker.trajectory)
+        s.get_trajectory()  # consumes the deferred frame's step
+    return s, poses, results, deferred, reads.calls
 
 
 def test_pipelined_tracks_accurately(pipelined_run):
-    s, poses, results, deferred = pipelined_run
+    s, poses, results, deferred, _ = pipelined_run
     assert all(r is not None for r in results)
     est = s.get_trajectory()  # finalizes the deferred frame
     assert deferred == len(poses) - 1 and est.shape[0] == len(poses)
@@ -162,43 +211,23 @@ def test_pipelined_tracks_accurately(pipelined_run):
     assert s.state == TrackState.OK and s.num_keyframes() >= 2
 
 
-def test_pipelined_dispatch_reads_nothing_and_sync_reads_stage_a(monkeypatch):
+def test_pipelined_dispatch_reads_nothing_and_sync_reads_stage_a(pipelined_run, monkeypatch):
     """Dispatching a step reads nothing back in pipelined mode (stage A at
-    both radii, the retry decided on the device); sync mode reads stage A's
-    inlier count once a step. Consuming a step is one read in both."""
+    both radii, the retry decided on the device): counted over the shared
+    pipelined run; sync mode reads stage A's inlier count once a step (5
+    frames of the same world and poses). Consuming a step is one read in
+    both."""
+    _, poses, _, _, calls = pipelined_run
+    assert calls["dispatch"] == len(poses) - 1 == calls["consume_waits"]
+    assert calls["reads_in_dispatch"] == 0, calls
     world = SyntheticWorld(seed=3, n_points=900)
     poses = forward_trajectory(5, step=0.4)
-    calls = {"dispatch": 0, "reads_in_dispatch": 0, "consume_waits": 0}
-    inside = [False]
-    to_host, wait_host = tracking.to_host, tracking.wait_host
-    dispatch = tracking.Tracker._dispatch_step
-
-    def counting_to_host(*xs):
-        calls["reads_in_dispatch"] += inside[0]
-        return to_host(*xs)
-
-    def counting_wait_host(copy):
-        calls["consume_waits"] += 1
-        return wait_host(copy)
-
-    def marked_dispatch(self, frame):
-        calls["dispatch"] += 1
-        inside[0] = True
-        try:
-            return dispatch(self, frame)
-        finally:
-            inside[0] = False
-
-    monkeypatch.setattr(tracking, "to_host", counting_to_host)
-    monkeypatch.setattr(tracking, "wait_host", counting_wait_host)
-    monkeypatch.setattr(tracking.Tracker, "_dispatch_step", marked_dispatch)
-    for pipelined in (True, False):
-        calls.update(dispatch=0, reads_in_dispatch=0, consume_waits=0)
-        s = SlamSystem(DEFAULT_CAM, _pipelined_cfg(pipelined), device="cpu")
-        assert all(s.track_depth(*world.render(T, DEFAULT_CAM)) is not None for T in poses)
-        s.get_trajectory()
-        assert calls["dispatch"] == len(poses) - 1 == calls["consume_waits"]
-        assert calls["reads_in_dispatch"] == (0 if pipelined else calls["dispatch"]), calls
+    calls = _StepReads(monkeypatch).calls
+    s = SlamSystem(DEFAULT_CAM, _pipelined_cfg(False), device="cpu")
+    assert all(s.track_depth(*world.render(T, DEFAULT_CAM)) is not None for T in poses)
+    s.get_trajectory()
+    assert calls["dispatch"] == len(poses) - 1 == calls["consume_waits"]
+    assert calls["reads_in_dispatch"] == calls["dispatch"], calls
 
 
 def test_tracker_flush_is_idempotent(pipelined_run):

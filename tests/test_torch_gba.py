@@ -153,6 +153,39 @@ def test_pcg_stops_where_the_while_loop_stops(monkeypatch):
         np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=2e-4)
 
 
+def test_pcg_runs_where_the_float32_squares_of_its_rhs_overflow():
+    """A right-hand side past ~1e19 on one pose (a landmark hundreds of km
+    out, as the card's long run met at its first loop) overflows the
+    float32 sum of squares of the stop test: the PCG must still iterate
+    (the test falls back to float64) and stop below its forcing term."""
+    P, tol = 5, 1e-2
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn(P * 6, P * 6, generator=g)
+    scale = torch.ones(P * 6)
+    scale[12:18] = 1e10  # one pose's block of S ~1e20
+    S = (A @ A.T / 30 + torch.eye(P * 6)) * scale[:, None] * scale[None, :]
+    b = torch.randn(P, 6, generator=g)
+    b[2] *= 4e19
+    fixed = torch.zeros(P, dtype=torch.bool)
+    fixed[0] = True
+    Mp = torch.linalg.inv(torch.stack([S[i * 6:(i + 1) * 6, i * 6:(i + 1) * 6]
+                                       for i in range(P)]))
+    start = t_schur._pcg_start(b, Mp, fixed, tol)
+    assert torch.isinf(torch.sum(b * b)) and not bool(start.done)
+
+    def matvec(v):
+        return torch.where(fixed[:, None], v, (S @ v.reshape(-1)).reshape(P, 6))
+
+    s = t_schur._pcg_iterations(matvec, Mp, start, 20)
+    assert bool(s.done) and int(s.n) >= 1 and bool(torch.isfinite(s.x).all())
+    r = torch.where(fixed[:, None], torch.zeros_like(b), b).double().reshape(-1) \
+        - (S.double() @ torch.where(fixed[:, None], torch.zeros_like(s.x), s.x).double()
+           .reshape(-1))
+    r = torch.where(fixed.repeat_interleave(6), torch.zeros_like(r), r)
+    bb = torch.where(fixed[:, None], torch.zeros_like(b), b).double()
+    assert float(r.norm()) <= tol * float(bb.norm())
+
+
 def test_ba_iterate_cg_matches_jax():
     """LM on the CG step: accepted counts within 1, chi2 within 5e-2."""
     prob, tp = _problems(3)

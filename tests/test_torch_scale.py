@@ -1,8 +1,11 @@
 """The loop correction at KITTI 00's scale (`eval/scale_kitti00.py`,
-`chip_smoke.py` phase 22) on the CPU: a superseded global BA in both
-packages, the gates that hold a run against the JAX package's record, and
-(`-m slow`) the two packages' flow at 1,400 keyframes.
+`chip_smoke.py` phases 22 and 23) on the CPU: a superseded global BA in
+both packages, the gates that hold a run against the JAX package's record,
+phase 23's gates against the card's record of distributed BA and the flat
+GBA, and (`-m slow`) the two packages' flow at 1,400 keyframes.
 """
+
+import copy
 
 import jax.numpy as jnp
 import numpy as np
@@ -170,6 +173,92 @@ def test_gates_reject_float64_drift_chi2_and_an_unfinished_gba():
         assert g(dict(record, ate_after_loop_f64_m=f64 + sign * 0.99 * tol64), record) == []
         assert len(g(dict(record, ate_after_loop_f64_m=f64 + sign * 1.01 * tol64),
                      record)) == 1
+
+
+# -- phase 23's gates: distributed BA and the flat GBA -------------------------
+
+
+def test_dist_gates_accept_the_record_itself():
+    rec = scale_kitti00.load_dist_record()
+    assert (rec["kfs"], rec["landmarks"], rec["gba_iters"]) == (
+        scale_kitti00.FLOW["kfs"], scale_kitti00.FLOW["lms"], scale_kitti00.FLOW["gba_iters"])
+    assert sorted(rec["shards"], key=int, reverse=True) == [
+        str(d) for d in scale_kitti00.DIST_SHARDS]
+    for draws in (rec["draws"], rec["flat"]["draws"]):
+        assert {-1, 0, 1} <= {d["k"] for d in draws}
+    assert scale_kitti00.dist_gates(rec, rec) == []
+
+
+def test_dist_tolerances_are_the_spread_of_the_draws():
+    """The shard counts are held within the spread of one shard's float32
+    draws, the flat GBA within its own draws' (the run's and the
+    record's); chi2's relative to the smallest."""
+    rec = scale_kitti00.load_dist_record()
+    tol = scale_kitti00.dist_tolerances(rec, rec)
+    for name, draws in (("dist", rec["draws"]), ("flat", rec["flat"]["draws"])):
+        ate = [d["ate_m"] for d in draws]
+        chi2 = [d["chi2"] for d in draws]
+        assert tol[f"{name}_ate_m"] == max(ate) - min(ate) > 0
+        assert tol[f"{name}_chi2_rel"] == (max(chi2) - min(chi2)) / min(chi2)
+
+
+@pytest.mark.parametrize("stage", ["ate_m", "chi2"])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_dist_gates_reject_a_stage_just_past_its_tolerance(stage, sign):
+    """A shard count whose ATE or chi2 lies just past the spread of one
+    shard's draws fails, one just inside passes; so does the flat GBA
+    against the record's."""
+    rec = scale_kitti00.load_dist_record()
+    tol = scale_kitti00.dist_tolerances(rec, rec)
+    for name in ("dist", "flat"):
+        t = tol[f"{name}_ate_m"] if stage == "ate_m" else tol[f"{name}_chi2_rel"]
+        assert t > 0
+        for factor, fails in ((0.99, False), (1.01, True)):
+            run = copy.deepcopy(rec)
+            if name == "dist":
+                ref = rec["shards"]["1"][stage]
+                moved = run["shards"]["4"]
+            else:
+                ref = rec["flat"][stage]
+                moved = run["flat"]
+            step = factor * t * (1.0 if stage == "ate_m" else ref)
+            moved[stage] = ref + sign * step
+            bad = scale_kitti00.dist_gates(run, rec, tol)
+            where = "4 shard(s)" if name == "dist" else "flat GBA"
+            assert [where in f and ("ATE" if stage == "ate_m" else "chi2") in f
+                    for f in bad] == ([True] if fails else []), (name, factor, bad)
+
+
+def test_dist_gates_reject_what_the_phase_must_not_do():
+    rec = scale_kitti00.load_dist_record()
+    g = scale_kitti00.dist_gates
+
+    def changed(edit):
+        run = copy.deepcopy(rec)
+        edit(run)
+        return g(run, rec)
+
+    for d in rec["shards"]:
+        assert len(changed(lambda r: r["shards"][d].update(bitwise_equal=False))) == 1
+        assert len(changed(lambda r: r["shards"][d].update(accepted=0))) == 1
+        assert len(changed(lambda r: r["shards"][d].update(
+            kept_mb_dropped=1.01 * scale_kitti00.DIST_KEPT_MARGIN_MB))) == 1
+    assert changed(lambda r: r["shards"]["2"].update(
+        kept_mb_dropped=0.99 * scale_kitti00.DIST_KEPT_MARGIN_MB)) == []
+    # Below the reading before: the run's captures evicted an earlier
+    # phase's of the same programs (the whole smoke: -166 MB for the flat GBA).
+    assert changed(lambda r: r["flat"].update(kept_mb_dropped=-166.0)) == []
+    assert len(changed(lambda r: r["shards"]["1"].update(completed=False))) == 1
+    assert len(changed(lambda r: r["shards"]["1"].update(
+        max_allocated_mb=scale_kitti00.DIST_ONE_SHARD_MAX_MB))) == 1
+    assert len(changed(lambda r: r["dense"]["S_rel"].append(
+        1.01 * scale_kitti00.DIST_DENSE_REL_TOL))) == 1
+    assert len(changed(lambda r: r["dense"]["rhs_rel"].append(
+        1.01 * scale_kitti00.DIST_DENSE_REL_TOL))) == 1
+    assert len(changed(lambda r: r.update(chi2_before=r["shards"]["4"]["chi2"]))) >= 1
+    assert len(changed(lambda r: r["flat"].update(chi2_before=r["flat"]["chi2"]))) == 1
+    assert len(changed(lambda r: r["flat"].update(bitwise_equal=False))) == 1
+    assert len(changed(lambda r: r.update(ate_after_loop_m=0.0))) == len(rec["shards"]) + 1
 
 
 # -- the flow at KITTI 00's keyframe count ------------------------------------
